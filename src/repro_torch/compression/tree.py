@@ -1,0 +1,30 @@
+"""Nested parameter dicts <-> flat ``{"a/b/c": tensor}`` maps.
+
+Flat names equal ``repro.compression.tree.flatten_tree`` output on the
+reference's parameter trees (dict keys joined with "/"), so one set of
+names addresses either package's parameters."""
+
+from __future__ import annotations
+
+
+def flatten_tree(tree, prefix: str = "") -> dict:
+    out = {}
+    for key in sorted(tree):
+        val = tree[key]
+        name = f"{prefix}{key}"
+        if isinstance(val, dict):
+            out.update(flatten_tree(val, name + "/"))
+        else:
+            out[name] = val
+    return out
+
+
+def unflatten(flat: dict) -> dict:
+    tree: dict = {}
+    for name, leaf in flat.items():
+        *parents, last = name.split("/")
+        node = tree
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[last] = leaf
+    return tree

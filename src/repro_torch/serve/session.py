@@ -1,0 +1,299 @@
+"""Request-level serving with continuous batching, slot mode (port of
+``repro.serve.session``).
+
+Clients ``submit(prompt, max_new_tokens, temperature)`` and get
+:class:`RequestHandle`\\ s.  The session preallocates
+``init_cache(cfg, slots, max_len)`` once.  Each tick admits queued
+requests onto free slots — the FIFO prefix that shares one (bucketed)
+prompt length prefills as one batch, padded prompts gathering their last
+real position — then runs one decode step over every slot with per-slot
+ragged positions, then evicts requests that hit EOS or their length.
+Sampling is the reference's host numpy code, so greedy and temperature
+tokens match it.  The paged KV cache (``kv_page_size``) is not ported.
+"""
+
+from __future__ import annotations
+
+import itertools
+from collections import deque
+from dataclasses import dataclass, field
+
+import numpy as np
+import torch
+
+from ..kernels.registry import resolve_device
+from ..models.config import ModelConfig
+from ..models.transformer import decode_step, init_cache, prefill
+from .backends import resolve_backend
+
+
+@dataclass(frozen=True)
+class ServeConfig:
+    """Session knobs (model shape/quantization stays on ModelConfig)."""
+
+    slots: int = 4                 # concurrent requests in the KV cache
+    max_len: int = 512             # per-slot KV capacity (prompt + new)
+    eos_token: int | None = None   # evict a request when it emits this id
+    kv_cache_delta: float | None = None   # override the int8 KV grid step
+    seed: int = 0                  # base seed for temperature sampling
+    prefill_buckets: tuple = ()    # sorted prompt-length buckets: pad each
+    # admission prefill up to the next bucket (dense family only)
+    kv_page_size: int | None = None   # paged KV: not yet ported
+
+
+@dataclass
+class RequestHandle:
+    """Client-side view of one submitted request."""
+
+    id: int
+    prompt: np.ndarray             # (S,) int32
+    max_new_tokens: int
+    temperature: float = 0.0
+    seed: object = None            # per-request sampling seed (int/tuple)
+    tokens: list = field(default_factory=list)   # generated ids (incl. EOS)
+    done: bool = False
+    finish_reason: str | None = None     # "eos" | "length" | "cancelled"
+    _stream_cursor: int = 0
+
+    def new_tokens(self) -> list:
+        """Drain this request's token stream (ids since the last call)."""
+        out = self.tokens[self._stream_cursor:]
+        self._stream_cursor = len(self.tokens)
+        return out
+
+    def result(self) -> np.ndarray:
+        if not self.done:
+            raise RuntimeError("request still in flight; run session.step()")
+        return np.asarray(self.tokens, dtype=np.int32)
+
+
+class _Slot:
+    __slots__ = ("req", "pos", "next_token")
+
+    def __init__(self):
+        self.req: RequestHandle | None = None
+        self.pos = 0               # where next_token's KV will be written
+        self.next_token = 0        # token to feed on the next decode step
+
+    def clear(self):
+        self.req, self.pos, self.next_token = None, 0, 0
+
+
+class ServeSession:
+    """Continuous-batching serving session over a slot KV cache."""
+
+    def __init__(self, cfg: ModelConfig, weights, *, backend="bf16",
+                 serve_cfg: ServeConfig | None = None, device="cuda"):
+        serve_cfg = serve_cfg or ServeConfig()
+        if serve_cfg.slots < 1 or serve_cfg.max_len < 1:
+            raise ValueError(
+                f"ServeConfig needs slots >= 1 and max_len >= 1; got "
+                f"slots={serve_cfg.slots}, max_len={serve_cfg.max_len}")
+        if serve_cfg.kv_page_size is not None:
+            raise NotImplementedError("paged KV cache: not yet ported")
+        if serve_cfg.kv_cache_delta is not None:
+            cfg = cfg.replace(kv_cache_delta=serve_cfg.kv_cache_delta)
+        if serve_cfg.prefill_buckets and cfg.family != "dense":
+            raise ValueError(
+                "prefill_buckets pads prompts, which only dense-family "
+                f"models ignore; got family {cfg.family!r}")
+        if any(b > serve_cfg.max_len for b in serve_cfg.prefill_buckets):
+            raise ValueError(
+                f"prefill bucket exceeds max_len {serve_cfg.max_len}")
+        self.device = resolve_device(device)
+        self.cfg = cfg
+        self.serve_cfg = serve_cfg
+        self.backend = resolve_backend(backend)
+        self.params = self.backend.load(cfg, weights)
+
+        self._slots = [_Slot() for _ in range(serve_cfg.slots)]
+        self._queue: deque[RequestHandle] = deque()
+        self._ids = itertools.count()
+        self._rngs: dict[int, np.random.Generator] = {}
+        self.stats = {"decode_steps": 0, "decode_rows": 0,
+                      "free_slot_rows": 0, "skipped_all_free_steps": 0,
+                      "prefill_tokens": 0}
+        self._caches = init_cache(cfg, serve_cfg.slots, serve_cfg.max_len,
+                                  device=self.device)
+
+    # -- client API ----------------------------------------------------------
+
+    def submit(self, prompt, max_new_tokens: int,
+               temperature: float = 0.0, seed=None) -> RequestHandle:
+        prompt = np.asarray(prompt, np.int32).reshape(-1)
+        if prompt.size == 0:
+            raise ValueError("prompt must contain at least one token")
+        if prompt.size + max_new_tokens > self.serve_cfg.max_len:
+            raise ValueError(
+                f"prompt ({prompt.size}) + max_new_tokens "
+                f"({max_new_tokens}) exceeds slot capacity "
+                f"{self.serve_cfg.max_len}")
+        if max_new_tokens < 1:
+            raise ValueError("max_new_tokens must be >= 1")
+        req = RequestHandle(id=next(self._ids), prompt=prompt,
+                            max_new_tokens=max_new_tokens,
+                            temperature=temperature, seed=seed)
+        self._queue.append(req)
+        return req
+
+    @property
+    def num_queued(self) -> int:
+        return len(self._queue)
+
+    @property
+    def num_active(self) -> int:
+        return sum(s.req is not None for s in self._slots)
+
+    @property
+    def pending(self) -> bool:
+        return bool(self._queue) or self.num_active > 0
+
+    def cancel(self, handle: RequestHandle) -> bool:
+        """Abort a queued or active request, freeing its slot.  Finished
+        requests are left alone (returns False)."""
+        if handle.done:
+            return False
+        for i, req in enumerate(self._queue):
+            if req is handle:
+                del self._queue[i]
+                return self._finish_cancelled(handle)
+        for s in self._slots:
+            if s.req is handle:
+                s.clear()
+                return self._finish_cancelled(handle)
+        raise ValueError(f"request {handle.id} is not known to this session")
+
+    def _finish_cancelled(self, handle: RequestHandle) -> bool:
+        handle.done = True
+        handle.finish_reason = "cancelled"
+        self._rngs.pop(handle.id, None)
+        return True
+
+    def run(self, max_steps: int | None = None) -> None:
+        """Step until every submitted request finished (or max_steps)."""
+        steps = 0
+        while self.pending:
+            self.step()
+            steps += 1
+            if max_steps is not None and steps >= max_steps:
+                break
+
+    # -- scheduler -----------------------------------------------------------
+
+    def step(self) -> None:
+        """One tick: admit onto free slots, one batched decode step over
+        every slot, evict finished requests."""
+        self._admit()
+        if self.num_active == 0:
+            self.stats["skipped_all_free_steps"] += 1
+            return
+        tok = np.zeros(len(self._slots), np.int32)
+        pos = np.zeros(len(self._slots), np.int32)
+        for i, slot in enumerate(self._slots):
+            if slot.req is not None:
+                tok[i] = slot.next_token
+                pos[i] = slot.pos
+        self.stats["decode_steps"] += 1
+        self.stats["decode_rows"] += len(self._slots)
+        self.stats["free_slot_rows"] += len(self._slots) - self.num_active
+        logits, self._caches = decode_step(
+            self.params, self.cfg, self._caches, self._dev(pos),
+            tokens=self._dev(tok))
+        logits = self._host(logits)
+        for i, slot in enumerate(self._slots):
+            if slot.req is None:
+                continue
+            slot.pos += 1
+            nxt = self._sample(logits[i], slot.req)
+            slot.req.tokens.append(nxt)
+            slot.next_token = nxt
+            self._maybe_evict(slot)
+
+    def _admit(self) -> None:
+        """Admit queued requests onto free slots; the FIFO prefix sharing
+        one (bucketed) length prefills as a single batch."""
+        while self._queue:
+            free = [i for i, s in enumerate(self._slots) if s.req is None]
+            if not free:
+                return
+            length = self._bucket_len(self._queue[0].prompt.size)
+            group = []
+            for req in itertools.islice(self._queue, len(free)):
+                if self._bucket_len(req.prompt.size) != length:
+                    break
+                group.append(req)
+            for _ in group:
+                self._queue.popleft()
+            slots_idx = free[:len(group)]
+
+            toks = np.zeros((len(group), length), np.int32)
+            for j, req in enumerate(group):
+                toks[j, :req.prompt.size] = req.prompt
+            last_index = None
+            if any(req.prompt.size < length for req in group):
+                last_index = self._dev(np.asarray(
+                    [r.prompt.size - 1 for r in group], np.int32))
+            logits, caches_g = prefill(
+                self.params, self.cfg, tokens=self._dev(toks),
+                max_len=self.serve_cfg.max_len, last_index=last_index)
+            self._place(caches_g, slots_idx)
+            logits = self._host(logits)
+            for j, req in enumerate(group):
+                slot = self._slots[slots_idx[j]]
+                first = self._sample(logits[j], req)
+                req.tokens.append(first)
+                slot.req = req
+                slot.pos = req.prompt.size
+                slot.next_token = first
+                self.stats["prefill_tokens"] += length
+                self._maybe_evict(slot)
+
+    def _place(self, caches_g: dict, slots_idx: list) -> None:
+        """Copy a batch-k prefill's caches into slots ``slots_idx`` (axis 1
+        of every cache leaf is the slot axis)."""
+        idx = torch.as_tensor(slots_idx, device=self.device)
+        for name, full in self._caches.items():
+            full[:, idx] = caches_g[name].to(full.dtype)
+
+    def _maybe_evict(self, slot: _Slot) -> None:
+        req = slot.req
+        eos = self.serve_cfg.eos_token
+        if eos is not None and req.tokens[-1] == eos:
+            req.finish_reason = "eos"
+        elif len(req.tokens) >= req.max_new_tokens:
+            req.finish_reason = "length"
+        elif slot.pos >= self.serve_cfg.max_len:
+            req.finish_reason = "length"
+        else:
+            return
+        req.done = True
+        self._rngs.pop(req.id, None)
+        slot.clear()
+
+    # -- helpers -------------------------------------------------------------
+
+    def _dev(self, arr: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(arr).to(self.device)
+
+    @staticmethod
+    def _host(logits: torch.Tensor) -> np.ndarray:
+        return logits.to(torch.float32).cpu().numpy()
+
+    def _bucket_len(self, n: int) -> int:
+        """Smallest configured prefill bucket >= n (n itself if none)."""
+        fits = [b for b in self.serve_cfg.prefill_buckets if b >= n]
+        return min(fits) if fits else n
+
+    def _sample(self, logits_row: np.ndarray, req: RequestHandle) -> int:
+        if req.temperature <= 0.0:
+            return int(np.argmax(logits_row))
+        rng = self._rngs.get(req.id)
+        if rng is None:
+            # per-request seed (reproducible across sessions) or a
+            # session-seed + request-id derivation
+            key = (req.seed if req.seed is not None
+                   else (self.serve_cfg.seed, req.id))
+            rng = np.random.default_rng(key)
+            self._rngs[req.id] = rng
+        z = logits_row.astype(np.float64) / req.temperature
+        return int(np.argmax(z + rng.gumbel(size=z.shape)))

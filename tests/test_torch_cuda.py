@@ -1,0 +1,178 @@
+"""The hand-written CUDA kernels against their plain PyTorch versions, on
+the card.
+
+Every test carries the ``cuda`` marker and skips without a card (decided
+inside the test body, so every worker collects the same tests).  On the
+card: ``python -m pytest -m cuda tests/test_torch_cuda.py``.  This file
+imports no JAX, so it runs where only PyTorch is installed.  Tolerances
+are relative to the largest magnitude of the plain result: 1e-4 where both
+sides compute in f32 (sums in another order), 2e-2 for bf16 attention (the
+kernel rounds p to bf16 before the PV product, as the TPU kernel did).
+"""
+
+import importlib.util
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch import kernels  # noqa: E402
+from repro_torch.kernels.dequant_matmul import dequant_matmul  # noqa: E402
+from repro_torch.kernels.dequant_matmul.ref import dequant_matmul_ref  # noqa: E402
+from repro_torch.kernels.flash_attention import ops as fops  # noqa: E402
+
+REPO = Path(__file__).resolve().parents[1]
+
+pytestmark = pytest.mark.cuda
+
+
+def _needs_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (torch.cuda.is_available() is "
+                    "False)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def _rel(got, want):
+    got, want = got.float().cpu(), want.float().cpu()
+    return float((got - want).abs().max() / want.abs().max().clamp_min(1e-30))
+
+
+@pytest.mark.parametrize("m,k,n", [(1, 300, 130), (3, 300, 130),
+                                   (8, 1030, 257), (9, 300, 130),
+                                   (130, 100, 70), (512, 4096, 4096),
+                                   (512, 4096, 128256)])
+def test_dequant_matmul_kernel_matches_plain(m, k, n):
+    _needs_card()
+    g = torch.Generator(device="cuda").manual_seed(m + k + n)
+    wq = torch.randint(-127, 128, (k, n), generator=g, device="cuda",
+                       dtype=torch.int8)
+    sc = torch.rand(n, generator=g, device="cuda") * 0.01 + 1e-4
+    for xdt in (torch.float32, torch.bfloat16):
+        x = torch.randn((m, k), generator=g, device="cuda").to(xdt)
+        before = kernels.launch_counts()["dequant_matmul"]
+        got = dequant_matmul(x, wq, sc)
+        want = dequant_matmul_ref(x, wq, sc)
+        torch.cuda.synchronize()
+        assert kernels.launch_counts()["dequant_matmul"] == before + 1
+        assert want.abs().max() > 0
+        assert torch.isfinite(got).all()
+        assert _rel(got, want) <= 1e-4
+
+
+def test_dequant_matmul_rejects_what_the_kernel_does_not_take():
+    _needs_card()
+    x = torch.randn(2, 64, device="cuda")
+    wq = torch.zeros(64, 32, dtype=torch.int8, device="cuda")
+    sc = torch.ones(32, device="cuda")
+    with pytest.raises(ValueError, match="contiguous"):
+        dequant_matmul(x, wq.t().contiguous().t(), sc)
+    with pytest.raises(TypeError):
+        dequant_matmul(x, wq.float(), sc)
+    with pytest.raises(ValueError):
+        dequant_matmul(x, wq.cpu(), sc)
+
+
+@pytest.mark.parametrize("s,d,h,g", [(128, 128, 32, 8), (100, 128, 32, 8),
+                                     (7, 32, 4, 2), (33, 32, 8, 8)])
+def test_flash_kernel_matches_plain(s, d, h, g):
+    _needs_card()
+    gen = torch.Generator(device="cuda").manual_seed(s + d)
+    for dt, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
+        q, k, v = (torch.randn(shape, generator=gen, device="cuda").to(dt)
+                   for shape in ((2, s, h, d), (2, s, g, d), (2, s, g, d)))
+        before = kernels.launch_counts()["flash_attention"]
+        got = fops.flash_attention(q, k, v)
+        torch.cuda.synchronize()
+        assert kernels.launch_counts()["flash_attention"] == before + 1
+        want = fops.flash_attention(q.cpu(), k.cpu(), v.cpu())
+        assert got.dtype == dt and got.shape == q.shape
+        assert _rel(got, want) <= tol
+
+
+def test_flash_kernel_raises_on_a_head_dim_it_was_not_built_for():
+    _needs_card()
+    q = torch.zeros((1, 8, 2, 64), device="cuda")
+    kv = torch.zeros((1, 8, 1, 64), device="cuda")
+    with pytest.raises(ValueError, match="head dim"):
+        fops.flash_attention(q, kv, kv)
+    qpos = torch.arange(8, device="cuda")[None]
+    with pytest.raises(ValueError, match="head dim"):
+        fops.attention(q, kv, kv, qpos)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_q8_quantization_on_card_equals_cpu_bit_for_bit(dtype):
+    """Levels and scales do not depend on where the tree is quantized (a
+    scalar divide, which CUDA turns into a product with the reciprocal,
+    moves scales by an ulp and flips levels on a rounding edge)."""
+    _needs_card()
+    from repro_torch.compression import flatten_tree, quantize_tree_q8
+    dt = getattr(torch, dtype)
+    g = torch.Generator().manual_seed(7)
+    raw = {"layers": {"w": torch.randn((3, 1024, 513), generator=g).to(dt)},
+           "head": torch.randn((1000, 2051), generator=g).to(dt)}
+    want = flatten_tree(quantize_tree_q8(raw))
+    got = flatten_tree(quantize_tree_q8(
+        {"layers": {"w": raw["layers"]["w"].cuda()},
+         "head": raw["head"].cuda()}))
+    assert sorted(got) == sorted(want)
+    for name in want:
+        assert got[name].dtype == want[name].dtype
+        assert torch.equal(got[name].cpu(), want[name]), name
+
+
+def test_kv_cache_quantization_on_card_equals_cpu():
+    _needs_card()
+    from repro_torch.serve.quantized import quantize_cache_value
+    x = torch.randn((4, 64, 8, 32), generator=torch.Generator().manual_seed(2))
+    for delta in (1.0 / 16.0, 0.0371):
+        assert torch.equal(quantize_cache_value(x.cuda(), delta).cpu(),
+                           quantize_cache_value(x, delta))
+
+
+def test_flash_kernel_skv_longer_than_sq():
+    _needs_card()
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    q = torch.randn((2, 20, 4, 32), generator=gen, device="cuda")
+    k = torch.randn((2, 45, 2, 32), generator=gen, device="cuda")
+    v = torch.randn((2, 45, 2, 32), generator=gen, device="cuda")
+    got = fops.flash_attention(q, k, v)
+    want = fops.flash_attention(q.cpu(), k.cpu(), v.cpu())
+    assert _rel(got, want) <= 1e-4
+
+
+def test_prefill_routes_to_the_kernel_and_decode_does_not():
+    _needs_card()
+    from repro_torch import configs
+    from repro_torch.models.transformer import decode_step, init_params, \
+        prefill
+    from repro_torch.serve.quantized import quantize_tree_q8
+    cfg = configs.get("llama3-8b", smoke=True)
+    p = quantize_tree_q8(init_params(cfg, 0, device="cuda"))
+    toks = torch.randint(0, cfg.vocab_size, (3, 9), device="cuda")
+    kernels.reset_launch_counts()
+    kernels.clear_dispatch_report()
+    lo, caches = prefill(p, cfg, tokens=toks, max_len=12)
+    assert kernels.launch_counts() == {
+        "dequant_matmul": 7 * cfg.num_layers + 1,
+        "flash_attention": cfg.num_layers}
+    decode_step(p, cfg, caches, torch.full((3,), 9, device="cuda"),
+                tokens=lo.argmax(-1))
+    assert kernels.launch_counts()["flash_attention"] == cfg.num_layers
+    assert kernels.dispatch_report() == []
+
+
+def test_chip_smoke_parity_phase_on_card():
+    _needs_card()
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  REPO / "chip_smoke.py")
+    cs = importlib.util.module_from_spec(spec)
+    sys.modules.setdefault("chip_smoke", cs)
+    spec.loader.exec_module(cs)
+    res = cs.phase_parity(torch.device("cuda"))
+    assert res["tokens_identical"]
+    np.testing.assert_array_less(res["logits_rel_diff"], 1e-3)
