@@ -8,20 +8,37 @@ Phases (each fails the run on its own; nothing is caught and ignored):
 
 1. device  — a CUDA card is required; prints its name and power limit;
 2. build   — builds every hand-written kernel from the checkout's sources
-             (one nvcc per source, started together);
+             (one nvcc per source, started together) and the host CABAC
+             lane engine (cc), which must be the engine in use;
 3. kernels — each kernel against its plain PyTorch version at the main
              path's shapes, with stated tolerances, timed beside its plain
-             version, a one-call PyTorch yardstick and its bound;
+             version, a one-call PyTorch yardstick (where one exists) and
+             its bound; rd_quant's levels must equal the plain version's
+             exactly on layer 0 of every full-width leaf, embed and head;
 4. parity  — the llama3-8b smoke model (f32, q8) served on the card and on
              the CPU from the same converted weights: greedy tokens must be
              identical and prefill logits close; q8 levels and scales made
-             on the card must equal the CPU's bit for bit;
-5. serve   — llama3-8b at full width (32 layers, seeded random init) on
+             on the card must equal the CPU's bit for bit; then the codec:
+             deepcabac-rd (the rd_quant kernel on the card, its plain
+             version on the CPU), serve-q8 and deepcabac-v3 containers
+             written from the card equal the CPU's byte for byte, and a
+             container served on the card gives the CPU's greedy tokens;
+5. deploy RD — eq. (11) level assignment of the whole full-width tree
+             (11 leaves) through the kernel, 44 launches, device time
+             against its bound and the rate model's bits per parameter;
+6. serve   — llama3-8b at full width (32 layers, seeded random init) on
              the q8 backend, then the bf16 one: 4 requests of 128 prompt
              tokens and 32 new tokens, greedy; launch counters and the
              dispatch report prove the path ran through the kernels, and
              the card's q8 quantization of layer 0, the embedding and the
-             head equals the CPU's bit for bit.
+             head equals the CPU's bit for bit;
+7. deploy serve — full width cut to 2 layers: a deepcabac-rd container
+             (every float leaf of rank >= 2, embed and head included)
+             encoded from the card, served through
+             ``ServeEngine.from_compressed`` on the q8 and container
+             backends; tokens must equal a session on the in-memory tree
+             with the same policy applied, launch counts must match the
+             path, the dispatch report must be empty.
 
 The line before the last is the card's name and power limit; one line
 before it is the ``{"kernels": [...]}`` summary; the last line is
@@ -31,6 +48,7 @@ before it is the ``{"kernels": [...]}`` summary; the last line is
 
 from __future__ import annotations
 
+import gc
 import json
 import math
 import subprocess
@@ -55,6 +73,23 @@ DM_ROWS = (1, 4, 512)        # decode rows at 1 and 4 slots; prefill B*S
 TOL_F32 = 1e-4               # relative to max|plain|: f32 sums in other order
 TOL_FLASH_BF16 = 2e-2        # bf16 output and p rounded to bf16 before PV
 PROF_STEPS = (4, 8)          # decode ticks traced by torch.profiler
+# rd_quant: the llama3-8b winner of the committed RD sweep (BENCH_rd.json)
+RD_DELTA_REL, RD_LAM, RD_WINDOW, RD_PASSES = 0.006, 1e-5, 4, 2
+# rd_quant's operations per element and pass, as the source states them
+# (loop control and address arithmetic left out):
+RD_OPS_NN = 8                # w/step, rint, 2 clips; prev_sig test and
+#                              select; l0 and l1 selects
+RD_OPS_CAND = 30             # per candidate, f32: add, 2 clips, step*k, w-,
+#   square, ==0, abs, to int, <0, 2 rate adds, lam*, +, < (15); integer and
+#   selects: zero-candidate select, <=num_gr, a-1, a-num_gr, clz, 31-,
+#   +num_gr, class select, <n_classes, table load, magnitude select, sign
+#   select, rate select, 2 best selects (15)
+# None of them fuses into an FMA (the _rn intrinsics), so each takes one of
+# the SM's 128 lane-issue slots per cycle: half the FMA-counted f32 peak.
+# Integer operations run on 64 lanes per SM, so this rate keeps the bound
+# a lower bound.
+ISSUE_OPS_PER_S = F32_FLOPS / 2
+DEPLOY_LAYERS = 2            # depth of the full-width container served
 
 
 def log(msg: str) -> None:
@@ -136,7 +171,18 @@ def phase_build():
                 log(f"[build] {name}: {line.strip()}")
     log(f"[build] built {sorted(secs)} in {total:.2f} s (per source: "
         + ", ".join(f"{k} {v:.2f} s" for k, v in secs.items()) + ")")
-    return {"seconds": total, "per_source": secs}
+    import os
+    from repro_torch.core import cabac_vec
+    t0 = time.perf_counter()
+    engine = cabac_vec.resolve_backend("auto")
+    check(engine == "c", f"host CABAC engine is {engine!r}, not the C "
+          "lane engine: no C compiler on this machine?")
+    host_s = time.perf_counter() - t0
+    log(f"[build] host CABAC lane engine: C ({host_s:.2f} s), "
+        f"{cabac_vec.default_threads()} threads on {os.cpu_count()} cores")
+    return {"seconds": total, "per_source": secs, "host_engine": engine,
+            "host_engine_s": host_s,
+            "cabac_threads": cabac_vec.default_threads()}
 
 
 def _dm_bound(m, k, n, x_bytes):
@@ -323,6 +369,315 @@ def phase_parity(device, cpu="cpu"):
             "q8_mismatch_card_vs_cpu": mism}
 
 
+def rd_policy_rules(leaves: dict) -> dict:
+    """Policy payload over ``leaves`` (flat name -> tensor): Delta =
+    RD_DELTA_REL * std of the tensor (of layer 0 for a stacked leaf),
+    lambda RD_LAM, the operating point the committed sweep chose."""
+    from repro_torch.compression.quantizers import relative_step
+    rules = {}
+    for name, w in leaves.items():
+        sample = w[0] if name.startswith("layers/") else w
+        rules[name] = {"step": relative_step(sample, RD_DELTA_REL),
+                       "lam": RD_LAM, "kind": "rd-grid"}
+    return {"format": "repro-tensor-policy", "version": 1,
+            "meta": {"delta_rel": RD_DELTA_REL, "lam": RD_LAM}, "rules": rules}
+
+
+def covered_leaves(params) -> dict:
+    """The leaves deepcabac-rd quantizes: float tensors of rank >= 2."""
+    from repro_torch.compression import flatten_tree
+    return {k: v for k, v in flatten_tree(params).items()
+            if v.dim() >= 2 and v.is_floating_point()}
+
+
+def _rd_bound(n, elt, passes, window=RD_WINDOW, fisher=False):
+    """Least time of ``passes`` rd_quant passes over n elements: each pass
+    reads w and writes int32 levels, every pass after the first reads the
+    previous levels; the operations at the un-fused issue rate."""
+    nbytes = n * (passes * (elt + 4) + (passes - 1) * 4 + (4 * passes
+                                                          if fisher else 0))
+    ops = n * passes * (RD_OPS_NN + (2 * window + 2)
+                        * (RD_OPS_CAND + (1 if fisher else 0)))
+    t_b, t_f = nbytes / HBM_BYTES_PER_S, ops / ISSUE_OPS_PER_S
+    return max(t_b, t_f) * 1e3, ("bytes" if t_b >= t_f else "operations"), \
+        t_b * 1e3, t_f * 1e3
+
+
+def phase_kernels_rd(params, policy):
+    """rd_quant against its plain version on layer 0 of every covered
+    full-width leaf, embed and head: levels must be equal exactly."""
+    import torch
+    from repro_torch.compression.rd_search import nearest_level_f64
+    from repro_torch.core.rate_model import estimate_bin_probs_torch
+    from repro_torch.kernels.rd_quant import rd_quant
+    from repro_torch.kernels.rd_quant.coeffs import pack_coeffs
+    from repro_torch.kernels.rd_quant.ref import rd_quant_ref
+
+    rows = []
+    for name, w in covered_leaves(params).items():
+        x = (w[0] if name.startswith("layers/") else w).reshape(-1)
+        step = policy["rules"][name]["step"]
+        nn, amax = nearest_level_f64(x, step)
+        probs = estimate_bin_probs_torch(nn)
+        del nn
+        sc, mg = pack_coeffs(probs)
+        kw = dict(step=step, lam=RD_LAM, window=RD_WINDOW,
+                  max_level=amax + RD_WINDOW + 1, passes=RD_PASSES)
+        # the public wrapper, as rd_assign_levels calls it; the plain
+        # version on the same card tensor
+        got = rd_quant(x, None, probs, **kw)
+        want = rd_quant_ref(x, None, sc, mg, num_gr=probs.num_gr, **kw)
+        torch.cuda.synchronize()
+        diff = int((got.long() - want.long()).abs().max().item())
+        mism = int((got != want).sum().item())
+        check(mism == 0, f"rd_quant {name} layer 0 {tuple(x.shape)}: {mism} "
+              f"levels differ from the plain version (max |diff| {diff})")
+        nz = float((got != 0).float().mean().item())
+        del got, want
+        ms = time_ms(lambda: rd_quant(x, None, probs, **kw))
+        plain = time_ms(lambda: rd_quant_ref(x, None, sc, mg,
+                                             num_gr=probs.num_gr, **kw),
+                        max_iters=3)
+        bound, by, t_b, t_f = _rd_bound(x.numel(), x.element_size(),
+                                        RD_PASSES)
+        shape = tuple(w.shape[1:] if name.startswith("layers/") else w.shape)
+        rows.append({"leaf": name, "shape": list(shape), "n": x.numel(),
+                     "dtype": str(x.dtype)[6:], "step": step,
+                     "max_level": kw["max_level"], "nonzero_share": nz,
+                     "max_abs_err": diff, "mismatches": mism, "ms": ms,
+                     "plain_ms": plain, "bound_ms": bound, "bound_by": by,
+                     "bytes_ms": t_b, "ops_ms": t_f, "library_ms": None})
+        log(f"[kernels] rd_quant {name:18s} {str(shape):16s} levels equal "
+            f"(max_level {kw['max_level']}, nonzero {nz:.3f})  kernel "
+            f"{ms:.4f} ms  plain {plain:.3f}  bound {bound:.4f} ({by})")
+    return rows
+
+
+def phase_parity_codec(device, cpu="cpu"):
+    """The smoke tree's containers written from the card equal the CPU's
+    byte for byte (deepcabac-rd: the kernel on the card, its plain version
+    on the CPU), and a container served on the card gives the CPU's greedy
+    tokens."""
+    import numpy as np
+    import torch
+    from repro_torch import compression, configs
+    from repro_torch.kernels import registry
+    from repro_torch.models.transformer import init_params
+    from repro_torch.serve import ServeEngine
+
+    cfg = configs.get("llama3-8b", smoke=True)
+    raw = init_params(cfg, 0, device=cpu)
+    policy = rd_policy_rules(covered_leaves(raw))
+    out = {}
+    for dt in (torch.float32, torch.bfloat16):
+        tree = {k: v.to(dt) for k, v in compression.flatten_tree(raw).items()}
+        on_dev = {k: v.to(device) for k, v in tree.items()}
+        res = {}
+        for name, kw in (("deepcabac-rd", {"policy_table": policy,
+                                            "assign": "kernel"}),
+                         ("serve-q8", {}),
+                         ("deepcabac-v3", {"delta_rel": RD_DELTA_REL,
+                                           "lam": RD_LAM})):
+            registry.reset_launch_counts()
+            blob_dev = compression.get(name, **kw).compress(on_dev).blob
+            launches = registry.launch_counts()["rd_quant"]
+            blob_cpu = compression.get(name, **kw).compress(tree).blob
+            check(blob_dev == blob_cpu, f"{name} {dt}: the container written "
+                  f"from {device} differs from the CPU's ({len(blob_dev)} vs "
+                  f"{len(blob_cpu)} bytes)")
+            if name == "deepcabac-rd" and torch.device(device).type == \
+                    "cuda":
+                want = 2 * RD_PASSES * len(policy["rules"])
+                check(launches == want, f"deepcabac-rd on {device}: "
+                      f"{launches} rd_quant launches, want {want}")
+            res[name] = {"bytes": len(blob_dev), "rd_quant_launches":
+                         launches}
+        out[str(dt)[6:]] = res
+    blob = compression.get("deepcabac-rd", policy_table=policy,
+                           assign="kernel").compress(
+        {k: v.to(device) for k, v in compression.flatten_tree(raw).items()}
+    ).blob
+    rng = np.random.default_rng(1)
+    prompts = rng.integers(0, cfg.vocab_size, (4, 16)).astype(np.int32)
+    for backend in ("container", "q8"):
+        toks = [ServeEngine.from_compressed(cfg, blob, max_len=32,
+                                            backend=backend, device=dev
+                                            ).generate(prompts, 12)
+                for dev in (device, cpu)]
+        check(np.array_equal(toks[0], toks[1]), f"{backend}: greedy tokens "
+              f"from the container differ between {device} and cpu")
+        out[f"served_{backend}"] = "tokens identical"
+    log(f"[parity] codec: deepcabac-rd / serve-q8 / deepcabac-v3 containers "
+        f"from {device} equal the CPU's byte for byte (f32 and bf16); "
+        f"container served on {device} = cpu greedy tokens (container, q8)")
+    return out
+
+
+def phase_deploy_rd(params, policy):
+    """Eq. (11) assignment of every covered leaf of the full-width tree
+    through the kernel (the tentpole's device route), traced."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.compression.rd_search import rd_assign_levels
+    from repro_torch.core.rate_model import estimate_level_bits_torch
+    from repro_torch.kernels import registry
+
+    leaves = covered_leaves(params)
+    n_total = sum(w.numel() for w in leaves.values())
+    torch.cuda.synchronize()
+    registry.reset_launch_counts()
+    bits = {}
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for name, w in leaves.items():
+            rule = policy["rules"][name]
+            lv = rd_assign_levels(w, rule["step"], rule["lam"],
+                                  window=RD_WINDOW, passes=RD_PASSES)
+            bits[name] = estimate_level_bits_torch(lv)
+            del lv
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = registry.launch_counts()["rd_quant"]
+    want = 2 * RD_PASSES * len(leaves)
+    check(launches == want, f"full-tree RD assignment: {launches} rd_quant "
+          f"launches, want {want}")
+    kern = sum(e.self_device_time_total for e in prof.key_averages()
+               if "rd_quant_pass" in e.key) / 1e3
+    busy, top = _device_time(prof)
+    check(kern > 0, "the profiler saw no rd_quant_pass device time")
+    # 1 + 1 refinement assignments of RD_PASSES passes each
+    _, _, t_b, t_f = _rd_bound(n_total, 2, RD_PASSES)
+    t_b, t_f = 2 * t_b, 2 * t_f
+    bound, by = max(t_b, t_f), ("bytes" if t_b >= t_f else "operations")
+    bpp = sum(bits.values()) / n_total
+    log(f"[deploy] RD assignment of the full tree ({len(leaves)} leaves, "
+        f"{n_total / 1e9:.3f} G values): {launches} rd_quant launches, "
+        f"kernel {kern:.2f} ms on the device against a {bound:.2f} ms bound "
+        f"({by}), device busy {busy:.1f} ms, wall {wall:.2f} s; rate model "
+        f"{bpp:.4f} bits/param")
+    return {"leaves": len(leaves), "values": n_total, "launches": launches,
+            "kernel_ms": kern, "bound_ms": bound, "bound_by": by,
+            "bytes_ms": t_b, "ops_ms": t_f, "device_busy_ms": busy,
+            "top_device_ms": dict(top), "wall_s": wall,
+            "bits_per_param": bpp, "bits_by_leaf": bits}
+
+
+def phase_deploy_serve(device):
+    """Full width cut to DEPLOY_LAYERS layers: deepcabac-rd container from
+    the card, served from the blob on q8 and container, against sessions
+    on the in-memory tree with the same policy applied."""
+    import numpy as np
+    import torch
+    from repro_torch import compression, configs
+    from repro_torch.core.codec import decode_record
+    from repro_torch.core.container import ContainerReader
+    from repro_torch.kernels import registry
+    from repro_torch.models.transformer import init_params
+    from repro_torch.serve import ServeEngine
+    from repro_torch.serve.backends import get_backend
+
+    cfg = configs.get("llama3-8b").replace(num_layers=DEPLOY_LAYERS)
+    params = init_params(cfg, 0, device=device)
+    leaves = covered_leaves(params)
+    policy = rd_policy_rules(leaves)
+    n_params = sum(v.numel() for v in
+                   compression.flatten_tree(params).values())
+    n_coded = sum(v.numel() for v in leaves.values())
+    codec = compression.get("deepcabac-rd", policy_table=policy)
+    torch.cuda.synchronize()
+    registry.reset_launch_counts()
+    t0 = time.perf_counter()
+    entries = codec.quantize_entries(params)          # the kernel route
+    torch.cuda.synchronize()
+    rd_s = time.perf_counter() - t0
+    launches = registry.launch_counts()["rd_quant"]
+    check(launches == 2 * RD_PASSES * len(leaves),
+          f"deploy encode: {launches} rd_quant launches, want "
+          f"{2 * RD_PASSES * len(leaves)}")
+    t0 = time.perf_counter()
+    art = codec.compress_entries(entries)             # host CABAC
+    enc_s = time.perf_counter() - t0
+    blob, bpp = art.blob, art.report["bits_per_param"]
+    del entries, art                     # the host levels (int64) go
+    t0 = time.perf_counter()
+    for hdr, payload in ContainerReader(blob):
+        decode_record(hdr, payload, dequantize=False)
+    dec_s = time.perf_counter() - t0
+    log(f"[deploy] llama3-8b full width, {DEPLOY_LAYERS} layers: "
+        f"{n_params / 1e9:.3f} G params, {n_coded / 1e9:.3f} G RD-coded "
+        f"({len(leaves)} leaves, embed and head included); RD on the card "
+        f"{rd_s:.2f} s ({launches} rd_quant launches); host CABAC encode "
+        f"{enc_s:.1f} s ({n_coded / enc_s / 1e6:.1f} M values/s), decode "
+        f"{dec_s:.1f} s ({n_coded / dec_s / 1e6:.1f} M values/s) on the card "
+        f"machine's host; blob {len(blob) / 2**20:.1f} MiB, "
+        f"{bpp:.4f} bits/param")
+    # the reference invariant: the tree with the policy applied serves the
+    # container's weights (its RD assignment runs through the kernel again)
+    tree_pol = get_backend("bf16", policy_table=policy).load(cfg, params)
+    del params
+    gc.collect()
+    rng = np.random.default_rng(0)
+    prompts = rng.integers(0, cfg.vocab_size, (4, 128)).astype(np.int32)
+    new_tokens = 32
+    per_fwd = 7 * cfg.num_layers + 1
+    out = {"layers": DEPLOY_LAYERS, "params": n_params, "rd_coded": n_coded,
+           "leaves": len(leaves), "rd_quant_launches": launches,
+           "rd_s": rd_s, "encode_s": enc_s, "decode_s": dec_s,
+           "encode_values_per_s": n_coded / enc_s,
+           "decode_values_per_s": n_coded / dec_s, "blob_bytes": len(blob),
+           "bits_per_param": bpp,
+           "policy_steps": {k: r["step"] for k, r in policy["rules"].items()}}
+    for backend, tree_backend in (("q8", "q8"), ("container", "bf16")):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        eng = ServeEngine.from_compressed(cfg, blob, max_len=160,
+                                          backend=backend, device=device)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        registry.clear_dispatch_report()
+        registry.reset_launch_counts()
+        t0 = time.perf_counter()
+        toks = eng.generate(prompts, new_tokens)
+        torch.cuda.synchronize()
+        gen_s = time.perf_counter() - t0
+        counts = registry.launch_counts()
+        report = registry.dispatch_report()
+        peak = torch.cuda.max_memory_allocated()
+        fwd = 1 + eng._session(len(prompts)).stats["decode_steps"]
+        ref = ServeEngine(cfg, tree_pol, max_len=160, backend=tree_backend,
+                          device=device).generate(prompts, new_tokens)
+        check(np.array_equal(toks, ref), f"deploy {backend}: greedy tokens "
+              f"from the container differ from the policy-applied tree's")
+        check(not report, f"deploy {backend}: dispatch report not empty: "
+              f"{report}")
+        check(counts["flash_attention"] == cfg.num_layers,
+              f"deploy {backend}: {counts['flash_attention']} flash "
+              f"launches, want {cfg.num_layers} (one prefill)")
+        if backend == "q8":
+            check(counts["dequant_matmul"] == per_fwd * fwd,
+                  f"deploy q8: {counts['dequant_matmul']} dequant_matmul "
+                  f"launches, want {per_fwd} x {fwd} passes")
+        out[backend] = {"load_s": load_s, "generate_s": gen_s,
+                        "forward_passes": fwd, "launches": counts,
+                        "dispatch_report": report,
+                        "max_memory_allocated": peak,
+                        "tokens_equal_policy_tree": True,
+                        "first_row_tail": toks[0, -8:].tolist()}
+        log(f"[deploy] {backend}: load {load_s:.1f} s (decode + transfer), "
+            f"4 x 128 + 32 greedy in {gen_s:.2f} s, tokens equal the "
+            f"policy-applied tree's, launches {counts}, peak "
+            f"{peak / 2**30:.2f} GiB")
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    del tree_pol
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def _serve_full(cfg, params, backend, device, prompts, new_tokens):
     """Drive one full-width session; return timings and launch counts."""
     import numpy as np
@@ -410,9 +765,7 @@ def _device_time(prof):
     return sum(t for _, t in rows), rows[:5]
 
 
-def phase_serve(device):
-    import gc
-    import numpy as np
+def init_full(device):
     import torch
     from repro_torch import configs
     from repro_torch.models.transformer import init_params
@@ -425,6 +778,13 @@ def phase_serve(device):
     log(f"[serve] llama3-8b full width: {n_params / 1e9:.3f} B parameters "
         f"({cfg.param_dtype}) initialised in "
         f"{time.perf_counter() - t0:.1f} s")
+    return cfg, params
+
+
+def phase_serve(cfg, params, device):
+    import gc
+    import numpy as np
+    import torch
     # the q8 backend quantizes this tree on the card: hold layer 0 of every
     # stacked leaf, the embedding and the head against the CPU, bit for bit
     from repro_torch.compression import flatten_tree
@@ -466,9 +826,6 @@ def phase_serve(device):
                   f"q8: {r['launches']['dequant_matmul']} dequant_matmul "
                   f"launches, want {per_fwd} x {fwd} passes")
         out[backend] = r
-    del params
-    gc.collect()
-    torch.cuda.empty_cache()
     return out
 
 
@@ -480,10 +837,13 @@ def _leaves(tree):
             yield v
 
 
-def summarize(dm_rows, fa_rows, serve):
+def summarize(dm_rows, fa_rows, serve, rd_rows, deploy):
     """One entry per kernel.  dequant_matmul: one full-width decode step's
     225 calls at 4 slots (bf16 x for projections, f32 x for the head);
-    flash_attention: one full-width prefill call (B=4, S=128, bf16)."""
+    flash_attention: one full-width prefill call (B=4, S=128, bf16);
+    rd_quant: one 2-pass assignment of each of the 11 full-width shapes
+    (layer 0 of each stacked leaf, embed, head; bf16), launches from the
+    deploy encode."""
     def row(m, k, n, x):
         return next(r for r in dm_rows if (r["m"], r["k"], r["n"], r["x"])
                     == (m, k, n, x))
@@ -510,7 +870,20 @@ def summarize(dm_rows, fa_rows, serve):
           "work": "one prefill call: B=4 S=128 H=32 G=8 D=128 bf16",
           **{key: fa0[key] for key in ("ms", "plain_ms", "bound_ms",
                                        "library_ms", "bound_by")}}
-    return [dm, fa]
+    t_b = sum(r["bytes_ms"] for r in rd_rows)
+    t_f = sum(r["ops_ms"] for r in rd_rows)
+    rd = {"name": "rd_quant", "route": "cuda",
+          "source": "src/repro_torch/kernels/rd_quant/csrc/rd_quant.cu",
+          "replaces": "src/repro/kernels/rd_quant/kernel.py:72",
+          "launches": deploy["rd_quant_launches"],
+          "max_abs_err": max(r["max_abs_err"] for r in rd_rows),
+          "work": "one 2-pass assignment of each of 11 full-width shapes "
+                  "(layer 0 of each stacked leaf, embed, head), bf16",
+          **{key: sum(r[key] for r in rd_rows)
+             for key in ("ms", "plain_ms", "bound_ms")},
+          "bound_by": "bytes" if t_b >= t_f else "operations",
+          "library_ms": None}
+    return [dm, fa, rd]
 
 
 def main() -> int:
@@ -529,9 +902,19 @@ def main() -> int:
     results["dequant_matmul"] = phase_kernels_dequant(device)
     results["flash_attention"] = phase_kernels_flash(device)
     results["parity"] = phase_parity(device)
-    results["serve"] = phase_serve(device)
+    results["parity_codec"] = phase_parity_codec(device)
+    cfg, params = init_full(device)
+    policy = rd_policy_rules(covered_leaves(params))
+    results["rd_quant"] = phase_kernels_rd(params, policy)
+    results["deploy_rd"] = phase_deploy_rd(params, policy)
+    results["serve"] = phase_serve(cfg, params, device)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    results["deploy"] = phase_deploy_serve(device)
     kernels = summarize(results["dequant_matmul"],
-                        results["flash_attention"], results["serve"])
+                        results["flash_attention"], results["serve"],
+                        results["rd_quant"], results["deploy"])
     results["kernels"] = kernels
     results["seconds"] = time.perf_counter() - t0
     out_dir = ROOT / "chiprun_out"

@@ -28,3 +28,20 @@ def unflatten(flat: dict) -> dict:
             node = node.setdefault(p, {})
         node[last] = leaf
     return tree
+
+
+def unflatten_like(flat: dict, template: dict) -> dict:
+    """Rebuild ``template``'s nested structure from a flat dict, casting
+    each tensor to the template leaf's dtype and checking shapes.
+    Quantized representations (anything with ``dequantize``) are placed
+    as they are."""
+    out = {}
+    for key, leaf in flatten_tree(template).items():
+        if key not in flat:
+            raise KeyError(f"checkpoint missing tensor {key}")
+        arr = flat[key]
+        if tuple(arr.shape) != tuple(leaf.shape):
+            raise ValueError(f"{key}: checkpoint shape {tuple(arr.shape)} "
+                             f"!= state {tuple(leaf.shape)}")
+        out[key] = arr if hasattr(arr, "dequantize") else arr.to(leaf.dtype)
+    return unflatten(out)

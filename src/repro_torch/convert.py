@@ -1,24 +1,22 @@
 """Carry parameters across from numpy: ``params_from_numpy(flat, device)``
 turns a flat ``{"a/b/c": ndarray}`` map (the reference's
-``flatten_tree`` output, raw or q8) into the port's nested tree."""
+``flatten_tree`` output, raw or q8) into the port's nested tree.  bf16
+goes through :mod:`repro_torch.arrays` (uint16 bits, no ``ml_dtypes``)."""
 
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from .arrays import from_storage, to_storage
 from .compression.tree import unflatten
 from .kernels.registry import resolve_device
 
 
 def tensor_from_numpy(arr: np.ndarray, device) -> torch.Tensor:
-    """One array as a tensor on ``device``.  ``ml_dtypes.bfloat16`` arrays
-    (which ``torch.from_numpy`` refuses) go through a uint16 view."""
-    arr = np.array(arr, copy=True, order="C")   # never alias the caller's
-    if arr.dtype.name == "bfloat16":
-        return torch.from_numpy(arr.view(np.uint16)).view(
-            torch.bfloat16).to(device)
-    return torch.from_numpy(arr).to(device)
+    """One array as a tensor on ``device`` (an ``ml_dtypes.bfloat16``
+    array becomes a bf16 tensor)."""
+    return from_storage(arr).to(device)
 
 
 def params_from_numpy(flat: dict, device="cuda") -> dict:
@@ -28,9 +26,6 @@ def params_from_numpy(flat: dict, device="cuda") -> dict:
 
 
 def tensor_to_numpy(t: torch.Tensor) -> np.ndarray:
-    """The inverse of :func:`tensor_from_numpy` (bf16 -> ml_dtypes)."""
-    t = t.detach().cpu()
-    if t.dtype == torch.bfloat16:
-        import ml_dtypes
-        return t.view(torch.uint16).numpy().view(ml_dtypes.bfloat16)
-    return t.numpy()
+    """A host numpy copy of ``t``; a bf16 tensor comes back as its uint16
+    bits (view them as ``ml_dtypes.bfloat16`` to talk to the reference)."""
+    return to_storage(t)

@@ -1,5 +1,5 @@
-"""Kernels of the port.  ``dequant_matmul`` and ``flash_attention`` are
-hand-written CUDA C++ for sm_90a (``*/csrc/*.cu``, built by ``_build`` on
+"""Kernels of the port.  ``dequant_matmul``, ``flash_attention`` and
+``rd_quant`` are hand-written CUDA C++ for sm_90a (``*/csrc/*.cu``, built by ``_build`` on
 first use); each keeps its plain PyTorch version beside it for CPU
 tensors.  ``embed_lookup_q8`` is a torch gather."""
 
@@ -9,3 +9,4 @@ from .registry import (  # noqa: F401
 from .dequant_matmul import dequant_matmul  # noqa: F401
 from .embed_lookup import embed_lookup_q8, is_q8_leaf  # noqa: F401
 from .flash_attention import attention, flash_attention  # noqa: F401
+from .rd_quant import rd_quant  # noqa: F401

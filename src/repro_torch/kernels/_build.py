@@ -28,6 +28,7 @@ SOURCES = {
     / "dequant_matmul.cu",
     "flash_attention": KERNELS_DIR / "flash_attention" / "csrc"
     / "flash_attention.cu",
+    "rd_quant": KERNELS_DIR / "rd_quant" / "csrc" / "rd_quant.cu",
 }
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3",

@@ -1,11 +1,17 @@
-"""Serving entry point of the port: continuous batching over the ``bf16``
-or ``q8`` weight backend, from seeded random init.
+"""Serving entry point of the port: continuous batching over a weight
+backend, optionally from a DeepCABAC container.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-8b \\
-        --backend q8 --batch 4 --prompt-len 128 --steps 32
+        --ckpt model.dcbc --backend container --batch 4 \\
+        --prompt-len 128 --steps 32
 
-Runs on the card unless ``--device cpu``.  Prints the generated tokens and
-every ``dispatch_report()`` record (a fallback or loop dequant)."""
+``--backend``: ``bf16`` (full-precision weights), ``q8`` (int8 matmul
+weights), ``container`` (stream the DCBC blob; serve-q8 records stay
+int8).  Without ``--ckpt`` the bf16/q8 backends take seeded random init,
+and the container backend packs a serve-q8 container in process first,
+so the streaming load still runs.  Runs on the card unless
+``--device cpu``.  Prints the generated tokens, the kernel launch counts
+and every ``dispatch_report()`` record (a fallback or loop dequant)."""
 
 from __future__ import annotations
 
@@ -23,6 +29,8 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", choices=configs.ARCH_IDS, default="llama3-8b")
     ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--ckpt", default=None,
+                    help="DeepCABAC container (.dcbc); random init if unset")
     ap.add_argument("--backend", choices=available_backends(),
                     default="bf16", help="weight backend (see serve/backends)")
     ap.add_argument("--batch", type=int, default=4)
@@ -35,12 +43,23 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     cfg = configs.get(args.arch, smoke=args.smoke)
-    weights = init_params(cfg, 0, device=args.device)
+    if args.ckpt:
+        with open(args.ckpt, "rb") as f:
+            weights = f.read()
+    elif args.backend == "container":
+        from .. import compression
+        params = init_params(cfg, 0, device=args.device)
+        weights = compression.get("serve-q8").compress(params).blob
+        del params
+        print(f"packed serve-q8 container in process: "
+              f"{len(weights) / 2**20:.1f} MiB")
+    else:
+        weights = init_params(cfg, 0, device=args.device)
     scfg = ServeConfig(slots=args.slots or args.batch,
                        max_len=args.prompt_len + args.steps)
     session = ServeSession(cfg, weights, backend=args.backend,
                            serve_cfg=scfg, device=args.device)
-    del weights                     # the q8 tree holds its own copy
+    del weights                     # the session holds its own tree
     rng = np.random.default_rng(0)
     prompts = rng.integers(0, cfg.vocab_size,
                            (args.batch, args.prompt_len)).astype(np.int32)

@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import torch
 
+from ..compression.tree import unflatten
 from ..kernels.dequant_matmul import dequant_matmul
 from ..kernels.embed_lookup import embed_lookup_q8
 from ..kernels.registry import platform_of, record_event, resolve_device
@@ -100,44 +101,64 @@ def _stacked(gen, n, d_in, d_out, dtype, device):
     return out
 
 
+def _layout(cfg: ModelConfig) -> dict:
+    """Flat name -> (shape, init) of the parameters, in draw order.  init
+    is ("normal", std), ("stacked", d_in) for (L, d_in, d_out) weights
+    drawn one layer at a time with std d_in ** -0.5, "zeros" or "ones"."""
+    _require_dense(cfg)
+    L = cfg.num_layers
+    h, g, dh, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, cfg.d_model
+    out: dict = {}
+    if cfg.embed_input:
+        out["embed"] = ((cfg.vocab_size, d), ("normal", 0.02))
+    for name, d_in, d_out in (("wq", d, h * dh), ("wk", d, g * dh),
+                              ("wv", d, g * dh), ("wo", h * dh, d)):
+        out[f"layers/attn/{name}"] = ((L, d_in, d_out), ("stacked", d_in))
+    if cfg.qkv_bias:
+        for name, width in (("bq", h * dh), ("bk", g * dh), ("bv", g * dh)):
+            out[f"layers/attn/{name}"] = ((L, width), "zeros")
+    if cfg.qk_norm:
+        out["layers/attn/q_norm"] = ((L, dh), "ones")
+        out["layers/attn/k_norm"] = ((L, dh), "ones")
+    out["layers/attn_norm"] = ((L, d), "ones")
+    out["layers/mlp_norm"] = ((L, d), "ones")
+    for name, d_in, d_out in (("w_gate", d, cfg.d_ff), ("w_up", d, cfg.d_ff),
+                              ("w_down", cfg.d_ff, d)):
+        out[f"layers/mlp/{name}"] = ((L, d_in, d_out), ("stacked", d_in))
+    out["final_norm"] = ((d,), "ones")
+    if not cfg.tie_embeddings:
+        out["head"] = ((d, cfg.vocab_size), ("normal", d ** -0.5))
+    return out
+
+
+def param_specs(cfg: ModelConfig) -> dict:
+    """Flat name -> (shape, dtype) of ``init_params(cfg)``'s tree, with no
+    weight memory allocated (the template a container load checks
+    against)."""
+    dtype = _dtype(cfg.param_dtype)
+    return {name: (shape, dtype) for name, (shape, _) in _layout(cfg).items()}
+
+
 def init_params(cfg: ModelConfig, seed: int = 0, *, device="cuda") -> dict:
     """Random parameters with the reference's names, shapes and dtypes,
     drawn from a ``torch.Generator`` seeded with ``seed`` (the numbers
     differ from ``jax.random``'s; tests carry JAX parameters across with
     ``repro_torch.convert``)."""
-    _require_dense(cfg)
     dev = resolve_device(device)
     dtype = _dtype(cfg.param_dtype)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
-    L = cfg.num_layers
-    h, g, dh, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, cfg.d_model
-    params: dict = {}
-    if cfg.embed_input:
-        params["embed"] = _normal(gen, (cfg.vocab_size, d), 0.02, dtype, dev)
-    attn = {"wq": _stacked(gen, L, d, h * dh, dtype, dev),
-            "wk": _stacked(gen, L, d, g * dh, dtype, dev),
-            "wv": _stacked(gen, L, d, g * dh, dtype, dev),
-            "wo": _stacked(gen, L, h * dh, d, dtype, dev)}
-    if cfg.qkv_bias:
-        for name, width in (("bq", h * dh), ("bk", g * dh), ("bv", g * dh)):
-            attn[name] = torch.zeros((L, width), dtype=dtype, device=dev)
-    if cfg.qk_norm:
-        attn["q_norm"] = torch.ones((L, dh), dtype=dtype, device=dev)
-        attn["k_norm"] = torch.ones((L, dh), dtype=dtype, device=dev)
-    params["layers"] = {
-        "attn_norm": torch.ones((L, d), dtype=dtype, device=dev),
-        "attn": attn,
-        "mlp_norm": torch.ones((L, d), dtype=dtype, device=dev),
-        "mlp": {"w_gate": _stacked(gen, L, d, cfg.d_ff, dtype, dev),
-                "w_up": _stacked(gen, L, d, cfg.d_ff, dtype, dev),
-                "w_down": _stacked(gen, L, cfg.d_ff, d, dtype, dev)},
-    }
-    params["final_norm"] = torch.ones((d,), dtype=dtype, device=dev)
-    if not cfg.tie_embeddings:
-        params["head"] = _normal(gen, (d, cfg.vocab_size), d ** -0.5, dtype,
-                                 dev)
-    return params
+    flat = {}
+    for name, (shape, init) in _layout(cfg).items():
+        if init == "zeros":
+            flat[name] = torch.zeros(shape, dtype=dtype, device=dev)
+        elif init == "ones":
+            flat[name] = torch.ones(shape, dtype=dtype, device=dev)
+        elif init[0] == "stacked":
+            flat[name] = _stacked(gen, *shape, dtype, dev)
+        else:
+            flat[name] = _normal(gen, shape, init[1], dtype, dev)
+    return unflatten(flat)
 
 
 # ---------------------------------------------------------------------------

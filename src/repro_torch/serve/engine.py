@@ -1,14 +1,14 @@
 """Batch-call wrapper over :class:`ServeSession` (port of
 ``repro.serve.engine``): ``generate(prompts, steps)`` over same-length
-prompts.  ``from_compressed`` needs the container backend, which is not
-ported yet."""
+prompts; ``from_compressed`` serves a DCBC container blob."""
 
 from __future__ import annotations
 
 import numpy as np
 
 from ..models.config import ModelConfig
-from .backends import get_backend
+from ..kernels.registry import resolve_device
+from .backends import resolve_backend
 from .session import ServeConfig, ServeSession
 
 
@@ -16,14 +16,21 @@ class ServeEngine:
     def __init__(self, cfg: ModelConfig, params, max_len: int = 512,
                  backend: str = "bf16", device="cuda"):
         self.cfg = cfg
-        self.params = get_backend(backend).load(cfg, params)
+        self.device = resolve_device(device)
+        self.params = resolve_backend(backend).load(cfg, params,
+                                                    device=self.device)
         self.max_len = max_len
-        self.device = device
         self._sessions: dict[int, ServeSession] = {}
 
     @classmethod
-    def from_compressed(cls, *args, **kwargs):
-        raise NotImplementedError("container backend: not yet ported")
+    def from_compressed(cls, cfg: ModelConfig, blob: bytes,
+                        max_len: int = 512, backend="container",
+                        device="cuda") -> "ServeEngine":
+        """Load from a DCBC container through a streaming blob backend
+        (``container``: serve-q8 records stay int8; ``q8`` / ``bf16``:
+        entropy-coded records dequantize to the param dtype)."""
+        return cls(cfg, blob, max_len=max_len, backend=backend,
+                   device=device)
 
     def _session(self, slots: int) -> ServeSession:
         # one session per batch size; the tree is already loaded, and

@@ -104,7 +104,7 @@ class ServeSession:
         self.cfg = cfg
         self.serve_cfg = serve_cfg
         self.backend = resolve_backend(backend)
-        self.params = self.backend.load(cfg, weights)
+        self.params = self.backend.load(cfg, weights, device=self.device)
 
         self._slots = [_Slot() for _ in range(serve_cfg.slots)]
         self._queue: deque[RequestHandle] = deque()

@@ -1,5 +1,5 @@
 """The hand-written CUDA kernels against their plain PyTorch versions, on
-the card.
+the card (``rd_quant``: equal levels, no tolerance).
 
 Every test carries the ``cuda`` marker and skips without a card (decided
 inside the test body, so every worker collects the same tests).  On the
@@ -159,7 +159,7 @@ def test_prefill_routes_to_the_kernel_and_decode_does_not():
     lo, caches = prefill(p, cfg, tokens=toks, max_len=12)
     assert kernels.launch_counts() == {
         "dequant_matmul": 7 * cfg.num_layers + 1,
-        "flash_attention": cfg.num_layers}
+        "flash_attention": cfg.num_layers, "rd_quant": 0}
     decode_step(p, cfg, caches, torch.full((3,), 9, device="cuda"),
                 tokens=lo.argmax(-1))
     assert kernels.launch_counts()["flash_attention"] == cfg.num_layers
@@ -176,3 +176,89 @@ def test_chip_smoke_parity_phase_on_card():
     res = cs.phase_parity(torch.device("cuda"))
     assert res["tokens_identical"]
     np.testing.assert_array_less(res["logits_rel_diff"], 1e-3)
+
+
+def _rd_inputs(n, dt, seed, window=4, fisher=False):
+    from repro_torch.compression.rd_search import nearest_level_f64
+    from repro_torch.core.rate_model import estimate_bin_probs_torch
+    from repro_torch.kernels.rd_quant.coeffs import pack_coeffs
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    w = (torch.randn(n, generator=g, device="cuda") * 0.05).to(dt)
+    w[torch.rand(n, generator=g, device="cuda") < 0.3] = 0
+    step = 0.008
+    nn, amax = nearest_level_f64(w, step)
+    sc, mg = pack_coeffs(estimate_bin_probs_torch(nn))
+    f = (torch.rand(n, generator=g, device="cuda") * 3 if fisher else None)
+    return w, f, sc, mg, dict(step=step, lam=2e-4, window=window,
+                              max_level=amax + window + 1, num_gr=10,
+                              passes=2)
+
+
+@pytest.mark.parametrize("n,dtype,window,fisher", [
+    (1, "float32", 4, False), (1023, "float32", 1, True),
+    (70001, "bfloat16", 8, False), (4096 * 1024 + 3, "bfloat16", 4, True),
+    (4096 * 14336, "bfloat16", 4, False)])
+def test_rd_quant_kernel_equals_plain(n, dtype, window, fisher):
+    _needs_card()
+    from repro_torch.kernels.rd_quant.ops import rd_quant_cuda
+    from repro_torch.kernels.rd_quant.ref import rd_quant_ref
+    w, f, sc, mg, kw = _rd_inputs(n, getattr(torch, dtype), n, window,
+                                  fisher)
+    before = kernels.launch_counts()["rd_quant"]
+    got = rd_quant_cuda(w, f, sc, mg, **kw)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["rd_quant"] == before + kw["passes"]
+    want = rd_quant_ref(w, f, sc, mg, **kw)
+    assert got.dtype == torch.int32 and got.is_cuda
+    assert torch.equal(got, want)
+    if n < 1 << 20:       # and the plain version on the CPU agrees
+        assert torch.equal(got.cpu(), rd_quant_ref(
+            w.cpu(), None if f is None else f.cpu(), sc, mg, **kw))
+
+
+def test_rd_quant_kernel_rejects_what_it_does_not_take():
+    """No fallback: a CUDA tensor the kernel cannot take raises."""
+    _needs_card()
+    from repro_torch.kernels.rd_quant.ops import rd_quant_cuda
+    w, f, sc, mg, kw = _rd_inputs(1000, torch.float32, 1)
+    before = kernels.launch_counts()["rd_quant"]
+    with pytest.raises(TypeError, match="dtype"):
+        rd_quant_cuda(w.half(), None, sc, mg, **kw)
+    with pytest.raises(ValueError, match="contiguous"):
+        rd_quant_cuda(w.reshape(10, 100).t(), None, sc, mg, **kw)
+    with pytest.raises(ValueError, match="2\\^24"):
+        rd_quant_cuda(w, None, sc, mg, **dict(kw, max_level=1 << 24))
+    with pytest.raises(ValueError, match="fisher"):
+        rd_quant_cuda(w, torch.ones(1000), sc, mg, **kw)
+    assert kernels.launch_counts()["rd_quant"] == before
+
+
+def test_container_round_trip_on_card():
+    """Smoke tree: the deepcabac-rd container encoded from the card (the
+    kernel) equals the CPU's (the plain version) byte for byte, and serves
+    on the card the CPU's greedy tokens."""
+    _needs_card()
+    from repro_torch import compression, configs
+    from repro_torch.models.transformer import init_params
+    from repro_torch.serve import ServeEngine
+    cfg = configs.get("llama3-8b", smoke=True)
+    tree = init_params(cfg, 3, device="cpu")
+    leaves = {k: v for k, v in compression.flatten_tree(tree).items()
+              if v.dim() >= 2}
+    policy = {"format": "repro-tensor-policy", "version": 1, "rules": {
+        k: {"step": compression.relative_step(v, 0.006), "lam": 1e-5}
+        for k, v in leaves.items()}}
+    codec = compression.get("deepcabac-rd", policy_table=policy)
+    kernels.reset_launch_counts()
+    blob = codec.compress({k: v.cuda() for k, v in
+                           compression.flatten_tree(tree).items()}).blob
+    assert kernels.launch_counts()["rd_quant"] == 4 * len(leaves)
+    cpu_blob = compression.get("deepcabac-rd", policy_table=policy,
+                               assign="kernel").compress(tree).blob
+    assert blob == cpu_blob
+    prompts = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 7))
+    got = ServeEngine.from_compressed(cfg, blob, max_len=16,
+                                      device="cuda").generate(prompts, 5)
+    want = ServeEngine.from_compressed(cfg, blob, max_len=16,
+                                       device="cpu").generate(prompts, 5)
+    np.testing.assert_array_equal(got, want)

@@ -120,12 +120,12 @@ def test_unported_serving_paths_raise(weights):
     with pytest.raises(NotImplementedError, match="paged"):
         ServeSession(tcfg, params_from_numpy(flat, "cpu"), device="cpu",
                      serve_cfg=ServeConfig(kv_page_size=16))
-    with pytest.raises(NotImplementedError, match="container backend"):
-        ServeSession(tcfg, b"DCBC", backend="q8", device="cpu")
-    with pytest.raises(NotImplementedError, match="container backend"):
+    with pytest.raises(NotImplementedError, match="manifest"):
+        ServeSession(tcfg, "ckpt/step_1", backend="q8", device="cpu")
+    with pytest.raises(TypeError, match="container backend loads DCBC"):
         ServeSession(tcfg, {}, backend="container", device="cpu")
-    with pytest.raises(NotImplementedError):
-        ServeEngine.from_compressed(tcfg, b"")
+    with pytest.raises(ValueError, match="DCBC"):
+        ServeEngine.from_compressed(tcfg, b"NOPE" + bytes(8), device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
             ServeSession(tcfg, params_from_numpy(flat, "cpu"))
@@ -153,6 +153,13 @@ def test_chip_smoke_parity_phase_at_smoke_size_on_cpu():
     res = _load_chip_smoke().phase_parity("cpu")
     assert res["tokens_identical"] and res["logits_rel_diff"] == 0.0
     assert res["q8_mismatch_card_vs_cpu"] == {"float32": 0, "bfloat16": 0}
+
+
+def test_chip_smoke_codec_parity_phase_at_smoke_size_on_cpu():
+    res = _load_chip_smoke().phase_parity_codec("cpu")
+    for dt in ("float32", "bfloat16"):
+        assert set(res[dt]) == {"deepcabac-rd", "serve-q8", "deepcabac-v3"}
+    assert res["served_container"] == res["served_q8"] == "tokens identical"
 
 
 def test_chip_smoke_refuses_without_card_or_checkout(tmp_path):
