@@ -11,10 +11,11 @@ Phases (each fails the run on its own; nothing is caught and ignored):
              (one nvcc per source, started together) and the host CABAC
              lane engine (cc), which must be the engine in use;
 3. kernels — each kernel against its plain PyTorch version at the main
-             path's shapes, with stated tolerances, timed beside its plain
-             version, a one-call PyTorch yardstick (where one exists) and
-             its bound; rd_quant's levels must equal the plain version's
-             exactly on layer 0 of every full-width leaf, embed and head;
+             paths' shapes (llama3-8b and deepseek-moe-16b), with stated
+             tolerances, timed beside its plain version, a one-call PyTorch
+             yardstick (where one exists) and its bound; rd_quant's levels
+             must equal the plain version's exactly on layer 0 of every
+             full-width leaf, embed and head;
 4. parity  — the llama3-8b smoke model (f32, q8) served on the card and on
              the CPU from the same converted weights: greedy tokens must be
              identical and prefill logits close; q8 levels and scales made
@@ -23,6 +24,8 @@ Phases (each fails the run on its own; nothing is caught and ignored):
              version on the CPU), serve-q8 and deepcabac-v3 containers
              written from the card equal the CPU's byte for byte, and a
              container served on the card gives the CPU's greedy tokens;
+             then the deepseek-moe-16b smoke model the same way, once with
+             tokens dropped past the experts' capacity;
 5. deploy RD — eq. (11) level assignment of the whole full-width tree
              (11 leaves) through the kernel, 44 launches, device time
              against its bound and the rate model's bits per parameter;
@@ -38,7 +41,13 @@ Phases (each fails the run on its own; nothing is caught and ignored):
              ``ServeEngine.from_compressed`` on the q8 and container
              backends; tokens must equal a session on the in-memory tree
              with the same policy applied, launch counts must match the
-             path, the dispatch report must be empty.
+             path, the dispatch report must be empty;
+8. MoE serve — once the llama3-8b tensors are freed, deepseek-moe-16b at
+             full width (28 layers) served as in 6, every routed-expert
+             product through dequant_matmul_grouped; then cut to 2 layers
+             (the dense one and one MoE layer), a serve-q8 container served
+             on the container backend with the in-memory q8 session's
+             tokens and launch counts.
 
 The line before the last is the card's name and power limit; one line
 before it is the ``{"kernels": [...]}`` summary; the last line is
@@ -64,12 +73,30 @@ HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12            # f32 outside the tensor cores
 BF16_FLOPS = 989e12          # bf16 tensor cores, f32 accumulation
 
-# llama3-8b full width: (K, N) of the q8 projections and the head, with
+# full width, by model: (K, N) of the q8 projections and the head, with
 # the number of calls per forward pass
-DM_SHAPES = [((4096, 4096), 64, "wq,wo"), ((4096, 1024), 64, "wk,wv"),
-             ((4096, 14336), 64, "w_gate,w_up"), ((14336, 4096), 32, "w_down"),
-             ((4096, 128256), 1, "head")]
+DM_SHAPES = {
+    "llama3-8b": [((4096, 4096), 64, "wq,wo"), ((4096, 1024), 64, "wk,wv"),
+                  ((4096, 14336), 64, "w_gate,w_up"),
+                  ((14336, 4096), 32, "w_down"), ((4096, 128256), 1, "head")],
+    "deepseek-moe-16b": [((2048, 2048), 112, "wq,wk,wv,wo"),
+                         ((2048, 64), 27, "router"),
+                         ((2048, 2816), 54, "sh_gate,sh_up"),
+                         ((2816, 2048), 27, "sh_down"),
+                         ((2048, 10944), 2, "dense w_gate,w_up"),
+                         ((10944, 2048), 1, "dense w_down"),
+                         ((2048, 102400), 1, "head")],
+}
 DM_ROWS = (1, 4, 512)        # decode rows at 1 and 4 slots; prefill B*S
+# deepseek-moe-16b's expert banks: E experts, (K, N) with calls per forward
+# pass, and rows per expert: the capacity buffer of a 4-slot decode step
+# (4 x cap 8) and of a 4 x 128-token prefill (4 x cap 16)
+GROUPED_E = 64
+GROUPED_SHAPES = [((2048, 1408), 54, "w_gate,w_up"), ((1408, 2048), 27,
+                                                      "w_down")]
+GROUPED_ROWS = (32, 64)
+# flash attention's (H, G) at full width: llama3-8b, deepseek-moe-16b
+FLASH_HEADS = ((32, 8), (16, 16))
 TOL_F32 = 1e-4               # relative to max|plain|: f32 sums in other order
 TOL_FLASH_BF16 = 2e-2        # bf16 output and p rounded to bf16 before PV
 PROF_STEPS = (4, 8)          # decode ticks traced by torch.profiler
@@ -201,7 +228,8 @@ def phase_kernels_dequant(device):
     gen = torch.Generator(device=device)
     gen.manual_seed(0)
     rows = []
-    for (k, n), calls, names in DM_SHAPES:
+    for arch, (k, n), calls, names in [(a, *shape) for a, shapes in
+                                       DM_SHAPES.items() for shape in shapes]:
         # rotate weight copies so each call reads its weights from HBM,
         # as a decode step does (the L2 holds 50 MB)
         copies = max(1, math.ceil(120e6 / (k * n)))
@@ -229,7 +257,8 @@ def phase_kernels_dequant(device):
                 xf = x.float()
                 lib = time_ms(lambda: torch.matmul(xf, w_deq))
                 bound, by = _dm_bound(m, k, n, x.element_size())
-                rows.append({"m": m, "k": k, "n": n, "x": str(xdt)[6:],
+                rows.append({"arch": arch, "m": m, "k": k, "n": n,
+                             "x": str(xdt)[6:],
                              "calls_per_forward": calls, "weights": names,
                              "max_abs_err": abs_e, "max_rel_err": rel_e,
                              "ms": ms, "plain_ms": plain, "library_ms": lib,
@@ -259,9 +288,9 @@ def phase_kernels_flash(device):
 
     gen = torch.Generator(device=device)
     gen.manual_seed(1)
-    b, h, g, d = 4, 32, 8, 128
+    b, d = 4, 128
     rows = []
-    for s in (128, 100):
+    for (h, g), s in [(hg, s) for hg in FLASH_HEADS for s in (128, 100)]:
         for dt, tol in ((torch.bfloat16, TOL_FLASH_BF16),
                         (torch.float32, TOL_F32)):
             q = torch.randn((b, s, h, d), generator=gen, device=device
@@ -304,6 +333,70 @@ def phase_kernels_flash(device):
                 f"{str(dt)[6:]:8s} err {rel_e:.2e}  kernel {ms:.4f} ms  "
                 f"plain {plain_ms:.4f}  library {lib:.4f}  bound "
                 f"{bound:.5f} ({by})")
+    return rows
+
+
+def _grouped_bound(e, m, k, n, x_bytes, scale_floats):
+    nbytes = e * m * k * x_bytes + e * k * n + 4 * scale_floats + 4 * e * m * n
+    flops = 2.0 * e * m * k * n
+    t_b, t_f = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS
+    return max(t_b, t_f) * 1e3, ("bytes" if t_b >= t_f else "operations")
+
+
+def phase_kernels_grouped(device):
+    """dequant_matmul_grouped vs its plain version at deepseek-moe-16b's
+    expert shapes, both scale forms, decode and prefill rows, bf16 x."""
+    import torch
+    from repro_torch.kernels.dequant_matmul.ops import \
+        dequant_matmul_grouped_cuda
+    from repro_torch.kernels.dequant_matmul.ref import \
+        dequant_matmul_grouped_ref
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(2)
+    e = GROUPED_E
+    rows = []
+    for (k, n), calls, names in GROUPED_SHAPES:
+        # 184.5 MB of levels per call: every call reads them from HBM
+        wq = torch.randint(-127, 128, (e, k, n), generator=gen,
+                           device=device, dtype=torch.int8)
+        for form, sshape in (("shared", (n,)), ("per_expert", (e, n))):
+            sc = torch.rand(sshape, generator=gen, device=device) * 0.01 \
+                + 1e-4
+            w_deq = wq.float() * (sc if sc.dim() == 1 else sc[:, None, :])
+            for m in GROUPED_ROWS:
+                x = torch.randn((e, m, k), generator=gen, device=device
+                                ).to(torch.bfloat16)
+                got = dequant_matmul_grouped_cuda(x, wq, sc)
+                want = dequant_matmul_grouped_ref(x, wq, sc)
+                torch.cuda.synchronize()
+                abs_e, rel_e = rel_err(got, want)
+                check(torch.isfinite(got).all().item(),
+                      f"dequant_matmul_grouped non-finite at E={e} m={m} "
+                      f"k={k} n={n} {form}")
+                check(rel_e <= TOL_F32,
+                      f"dequant_matmul_grouped E={e} m={m} k={k} n={n} "
+                      f"{form}: rel err {rel_e:.3g} > {TOL_F32}")
+                del got, want
+                ms = time_ms(lambda: dequant_matmul_grouped_cuda(x, wq, sc))
+                plain = time_ms(lambda: dequant_matmul_grouped_ref(x, wq, sc),
+                                max_iters=20)
+                xf = x.float()
+                lib = time_ms(lambda: torch.bmm(xf, w_deq))
+                bound, by = _grouped_bound(e, m, k, n, x.element_size(),
+                                           sc.numel())
+                rows.append({"e": e, "m": m, "k": k, "n": n, "x": "bfloat16",
+                             "scale": form, "calls_per_forward": calls,
+                             "weights": names, "max_abs_err": abs_e,
+                             "max_rel_err": rel_e, "ms": ms,
+                             "plain_ms": plain, "library_ms": lib,
+                             "bound_ms": bound, "bound_by": by})
+                log(f"[kernels] dequant_matmul_grouped E={e} m={m:3d} "
+                    f"k={k:5d} n={n:5d} scale={form:10s} err {rel_e:.2e}  "
+                    f"kernel {ms:.4f} ms  plain {plain:.4f}  library "
+                    f"{lib:.4f}  bound {bound:.4f} ({by})")
+            del w_deq
+        del wq
     return rows
 
 
@@ -513,6 +606,76 @@ def phase_parity_codec(device, cpu="cpu"):
     return out
 
 
+def phase_parity_moe(device, cpu="cpu"):
+    """Smoke deepseek-moe-16b (f32, q8) on ``device`` and on the CPU from
+    the same converted weights, once as configured and once with the
+    capacity factor lowered so that tokens are dropped: identical greedy
+    tokens, close prefill logits, and q8 levels and scales (the 4-D expert
+    banks included) that the card makes identical to the CPU's."""
+    import numpy as np
+    import torch
+    from repro_torch import configs
+    from repro_torch.compression import flatten_tree, quantize_tree_q8
+    from repro_torch.convert import params_from_numpy, tensor_to_numpy
+    from repro_torch.models.moe import moe_capacity
+    from repro_torch.models.transformer import init_params, prefill
+    from repro_torch.serve.session import ServeConfig, ServeSession
+
+    cfg = configs.get("deepseek-moe-16b", smoke=True)
+    # 40-token prompts at capacity factor 0.25: each row routes 2 x 40
+    # tokens to 8 experts of capacity 8, so at least 16 are dropped per
+    # row and MoE layer at prefill
+    cases = (("smoke", cfg, 16), ("drops", cfg.replace(capacity_factor=0.25),
+                                  40))
+    dcfg, dlen = cases[1][1], cases[1][2]
+    dropped = dlen * dcfg.top_k - dcfg.num_experts * moe_capacity(dlen, dcfg)
+    check(dropped > 0, f"the drop case drops nothing: {dropped}")
+    raw = init_params(cfg, 0, device=cpu)
+    flat_q8 = {k: tensor_to_numpy(v)
+               for k, v in flatten_tree(quantize_tree_q8(raw)).items()}
+    rng = np.random.default_rng(2)
+    prompts_of = {name: rng.integers(0, cfg.vocab_size, (4, plen)).astype(
+        np.int32) for name, _, plen in cases}
+    out = {}
+    for dev in (device, cpu):
+        tree = params_from_numpy(flat_q8, dev)
+        for name, c, plen in cases:
+            prompts = prompts_of[name]
+            sess = ServeSession(c, tree, backend="q8", device=dev,
+                                serve_cfg=ServeConfig(slots=4,
+                                                      max_len=plen + 12))
+            hs = [sess.submit(p, max_new_tokens=12) for p in prompts]
+            sess.run()
+            logits, _ = prefill(sess.params, c,
+                                tokens=torch.from_numpy(prompts).to(dev),
+                                max_len=plen + 12)
+            out[name, str(dev)] = (np.stack([h.result() for h in hs]),
+                                   logits.float().cpu().numpy())
+    err = 0.0
+    for name, _, _ in cases:
+        (tok_d, lo_d), (tok_c, lo_c) = out[name, str(device)], out[name, cpu]
+        check(np.array_equal(tok_d, tok_c), f"moe {name}: greedy tokens "
+              f"differ between {device} and cpu:\n{tok_d}\n{tok_c}")
+        err = max(err, float(np.max(np.abs(lo_d - lo_c))
+                             / np.max(np.abs(lo_c))))
+    check(err <= TOL_F32 * 10, f"moe prefill logits differ: rel {err:.3g}")
+    mism = {str(dt)[6:]: q8_mismatches(
+        {k: v.to(dt) for k, v in flatten_tree(raw).items()}, device)
+        for dt in (torch.float32, torch.bfloat16)}
+    check(not any(mism.values()), f"moe q8 entries quantized on {device} "
+          f"that differ from the CPU's: {mism}")
+    log(f"[parity] smoke deepseek-moe-16b q8 f32: greedy tokens identical on "
+        f"{device} and cpu, as configured and with >= {dropped} tokens "
+        f"dropped per row and MoE layer at prefill; prefill logits rel diff "
+        f"{err:.2e}; q8 levels and scales (4-D expert banks included) made "
+        f"on the card equal the CPU's (f32 and bf16 trees)")
+    return {"tokens_identical": True, "logits_rel_diff": err,
+            "q8_mismatch_card_vs_cpu": mism,
+            "drops": {"capacity_factor": dcfg.capacity_factor,
+                      "prompt_len": dlen,
+                      "dropped_per_row_at_least": dropped}}
+
+
 def phase_deploy_rd(params, policy):
     """Eq. (11) assignment of every covered leaf of the full-width tree
     through the kernel (the tentpole's device route), traced."""
@@ -620,7 +783,7 @@ def phase_deploy_serve(device):
     rng = np.random.default_rng(0)
     prompts = rng.integers(0, cfg.vocab_size, (4, 128)).astype(np.int32)
     new_tokens = 32
-    per_fwd = 7 * cfg.num_layers + 1
+    per_fwd = per_forward_launches(cfg)["dequant_matmul"]
     out = {"layers": DEPLOY_LAYERS, "params": n_params, "rd_coded": n_coded,
            "leaves": len(leaves), "rd_quant_launches": launches,
            "rd_s": rd_s, "encode_s": enc_s, "decode_s": dec_s,
@@ -765,20 +928,42 @@ def _device_time(prof):
     return sum(t for _, t in rows), rows[:5]
 
 
-def init_full(device):
+def per_forward_launches(cfg) -> dict:
+    """Kernel launches of one q8 forward pass, counted from the model's
+    structure: 7 projections per dense layer (4 attention, 3 MLP); per MoE
+    layer 4 attention, the router and 3 shared-expert projections through
+    dequant_matmul and 3 expert-bank products through
+    dequant_matmul_grouped; the untied head."""
+    n_layers = cfg.num_layers
+    if cfg.family == "dense":
+        return {"dequant_matmul": 7 * n_layers + 1,
+                "dequant_matmul_grouped": 0}
+    nd = cfg.first_dense_layers
+    return {"dequant_matmul": 7 * nd + 8 * (n_layers - nd) + 1,
+            "dequant_matmul_grouped": 3 * (n_layers - nd)}
+
+
+def init_full(device, arch, **overrides):
     import torch
     from repro_torch import configs
     from repro_torch.models.transformer import init_params
 
-    cfg = configs.get("llama3-8b")
+    cfg = configs.get(arch).replace(**overrides)
     t0 = time.perf_counter()
     params = init_params(cfg, 0, device=device)
     torch.cuda.synchronize()
     n_params = sum(t.numel() for t in _leaves(params))
-    log(f"[serve] llama3-8b full width: {n_params / 1e9:.3f} B parameters "
-        f"({cfg.param_dtype}) initialised in "
-        f"{time.perf_counter() - t0:.1f} s")
+    log(f"[serve] {arch} full width, {cfg.num_layers} layers: "
+        f"{n_params / 1e9:.3f} B parameters ({cfg.param_dtype}) initialised "
+        f"in {time.perf_counter() - t0:.1f} s")
     return cfg, params
+
+
+def _layer0_sample(params) -> dict:
+    """Layer 0 of every stacked leaf, and every unstacked leaf."""
+    from repro_torch.compression import flatten_tree
+    return {k: (v[:1] if k.split("/", 1)[0] in ("layers", "dense_layers")
+                else v) for k, v in flatten_tree(params).items()}
 
 
 def phase_serve(cfg, params, device):
@@ -787,46 +972,114 @@ def phase_serve(cfg, params, device):
     import torch
     # the q8 backend quantizes this tree on the card: hold layer 0 of every
     # stacked leaf, the embedding and the head against the CPU, bit for bit
-    from repro_torch.compression import flatten_tree
     t0 = time.perf_counter()
-    sample = {k: (v[:1] if k.startswith("layers/") else v)
-              for k, v in flatten_tree(params).items()}
-    mism = q8_mismatches(sample, device)
-    check(mism == 0, f"full width: {mism} q8 entries quantized on the card "
-          "differ from the CPU's")
-    log(f"[serve] full width q8 of layer 0, embed and head: card equals CPU "
-        f"bit for bit ({time.perf_counter() - t0:.1f} s)")
+    mism = q8_mismatches(_layer0_sample(params), device)
+    check(mism == 0, f"{cfg.name} full width: {mism} q8 entries quantized "
+          "on the card differ from the CPU's")
+    log(f"[serve] {cfg.name} full width q8 of layer 0 (of each stack), "
+        f"embed and head: card equals CPU bit for bit "
+        f"({time.perf_counter() - t0:.1f} s)")
     rng = np.random.default_rng(0)
     prompts = rng.integers(0, cfg.vocab_size, (4, 128)).astype(np.int32)
     new_tokens = 32
-    per_fwd = 7 * cfg.num_layers + 1
+    per_fwd = per_forward_launches(cfg)
     out = {"q8_mismatch_card_vs_cpu": mism}
     for backend in ("q8", "bf16"):
         r = _serve_full(cfg, params, backend, device, prompts, new_tokens)
         gc.collect()
         torch.cuda.empty_cache()
         fwd = 1 + r["decode_steps"]
-        log(f"[serve] {backend}: prefill {r['prefill_ms']:.1f} ms (first "
+        log(f"[serve] {cfg.name} {backend}: prefill {r['prefill_ms']:.1f} ms "
+            f"(first "
             f"tick {r['first_step_ms']:.1f} ms), decode "
             f"{r['decode_ms_per_step_median']:.2f} ms/step median "
             f"({r['decode_tokens_per_s']:.1f} tok/s at 4 slots), peak "
-            f"{r['max_memory_allocated'] / 2**30:.2f} GiB, device idle "
+            f"{r['max_memory_allocated'] / 2**30:.2f} GiB, device busy "
+            f"{r['device_busy_ms_per_step']} ms and idle "
             f"{r['device_idle_share']} of the traced ticks, launches "
             f"{r['launches']}, report {len(r['dispatch_report'])} records")
-        check(r["logits_finite"], f"{backend}: non-finite logits")
+        what = f"{cfg.name} {backend}"
+        check(r["logits_finite"], f"{what}: non-finite logits")
         check(r["logits_shape"] == [4, cfg.vocab_size],
-              f"{backend}: logits shape {r['logits_shape']}")
+              f"{what}: logits shape {r['logits_shape']}")
         check(not r["dispatch_report"],
-              f"{backend}: dispatch report not empty: {r['dispatch_report']}")
+              f"{what}: dispatch report not empty: {r['dispatch_report']}")
         check(r["launches"]["flash_attention"] == cfg.num_layers,
-              f"{backend}: {r['launches']['flash_attention']} flash launches,"
-              f" want {cfg.num_layers} (one prefill)")
+              f"{what}: {r['launches']['flash_attention']} flash launches, "
+              f"want {cfg.num_layers} (one prefill)")
         if backend == "q8":
-            check(r["launches"]["dequant_matmul"] == per_fwd * fwd,
-                  f"q8: {r['launches']['dequant_matmul']} dequant_matmul "
-                  f"launches, want {per_fwd} x {fwd} passes")
+            for kern, n in per_fwd.items():
+                check(r["launches"][kern] == n * fwd,
+                      f"{cfg.name} q8: {r['launches'][kern]} {kern} "
+                      f"launches, want {n} x {fwd} passes")
         out[backend] = r
     return out
+
+
+def phase_container_moe(device):
+    """deepseek-moe-16b at full width cut to DEPLOY_LAYERS layers (the
+    dense one and one MoE layer), packed as a serve-q8 container (int8
+    records, no entropy coding) and served through
+    ``ServeEngine.from_compressed`` on the container backend: tokens and
+    launch counts must equal the in-memory q8 session's."""
+    import numpy as np
+    import torch
+    from repro_torch import compression
+    from repro_torch.kernels import registry
+    from repro_torch.serve import ServeEngine
+
+    cfg, params = init_full(device, "deepseek-moe-16b",
+                            num_layers=DEPLOY_LAYERS)
+    t0 = time.perf_counter()
+    blob = compression.get("serve-q8").compress(params).blob
+    pack_s = time.perf_counter() - t0
+    rng = np.random.default_rng(3)
+    prompts = rng.integers(0, cfg.vocab_size, (4, 128)).astype(np.int32)
+    new_tokens = 32
+    res = {"layers": cfg.num_layers, "blob_bytes": len(blob),
+           "pack_s": pack_s}
+    for backend in ("q8", "container"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng = (ServeEngine(cfg, params, max_len=160, backend="q8",
+                           device=device) if backend == "q8" else
+               ServeEngine.from_compressed(cfg, blob, max_len=160,
+                                           backend="container",
+                                           device=device))
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        registry.clear_dispatch_report()
+        registry.reset_launch_counts()
+        toks = eng.generate(prompts, new_tokens)
+        counts = registry.launch_counts()
+        report = registry.dispatch_report()
+        fwd = 1 + eng._session(len(prompts)).stats["decode_steps"]
+        check(not report, f"moe {backend}: dispatch report not empty: "
+              f"{report}")
+        for kern, n in per_forward_launches(cfg).items():
+            check(counts[kern] == n * fwd, f"moe {backend}: {counts[kern]} "
+                  f"{kern} launches, want {n} x {fwd} passes")
+        check(counts["flash_attention"] == cfg.num_layers,
+              f"moe {backend}: {counts['flash_attention']} flash launches")
+        res[backend] = {"load_s": load_s, "launches": counts,
+                        "forward_passes": fwd, "tokens": toks}
+        del eng
+    check(np.array_equal(res["q8"]["tokens"], res["container"]["tokens"]),
+          "moe container: greedy tokens differ from the in-memory q8 "
+          "session's")
+    check(res["q8"]["launches"] == res["container"]["launches"],
+          "moe container: launch counts differ from the q8 session's")
+    for backend in ("q8", "container"):
+        res[backend]["first_row_tail"] = \
+            res[backend].pop("tokens")[0, -8:].tolist()
+    log(f"[deploy] deepseek-moe-16b full width, {cfg.num_layers} layers: "
+        f"serve-q8 container {len(blob) / 2**20:.1f} MiB packed in "
+        f"{pack_s:.1f} s, loaded on container in "
+        f"{res['container']['load_s']:.1f} s; 4 x 128 + 32 greedy tokens "
+        f"equal the in-memory q8 session's, launches "
+        f"{res['container']['launches']} on both, empty dispatch report")
+    del params, blob
+    return res
 
 
 def _leaves(tree):
@@ -837,39 +1090,59 @@ def _leaves(tree):
             yield v
 
 
-def summarize(dm_rows, fa_rows, serve, rd_rows, deploy):
-    """One entry per kernel.  dequant_matmul: one full-width decode step's
-    225 calls at 4 slots (bf16 x for projections, f32 x for the head);
-    flash_attention: one full-width prefill call (B=4, S=128, bf16);
-    rd_quant: one 2-pass assignment of each of the 11 full-width shapes
-    (layer 0 of each stacked leaf, embed, head; bf16), launches from the
-    deploy encode."""
+def summarize(dm_rows, fa_rows, grouped_rows, serve, serve_moe, rd_rows,
+              deploy):
+    """One entry per kernel.  dequant_matmul: one full-width llama3-8b
+    decode step's 225 calls at 4 slots (bf16 x for projections, f32 x for
+    the head); flash_attention: one full-width llama3-8b prefill call (B=4,
+    S=128, bf16); dequant_matmul_grouped: one full-width deepseek-moe-16b
+    decode step's 81 calls (M=32 rows per expert, bf16 x, the shared (N,)
+    scale); rd_quant: one 2-pass assignment of each of the 11 full-width
+    shapes (layer 0 of each stacked leaf, embed, head; bf16), launches from
+    the deploy encode.  Launches of the serving kernels come from each
+    model's q8 serve."""
     def row(m, k, n, x):
-        return next(r for r in dm_rows if (r["m"], r["k"], r["n"], r["x"])
-                    == (m, k, n, x))
+        return next(r for r in dm_rows if (r["arch"], r["m"], r["k"], r["n"],
+                                           r["x"]) ==
+                    ("llama3-8b", m, k, n, x))
     step = [(row(4, k, n, "float32" if names == "head" else "bfloat16"),
-             calls) for (k, n), calls, names in DM_SHAPES]
+             calls) for (k, n), calls, names in DM_SHAPES["llama3-8b"]]
     dm = {"name": "dequant_matmul", "route": "cuda",
           "source": "src/repro_torch/kernels/dequant_matmul/csrc/"
                     "dequant_matmul.cu",
           "replaces": "src/repro/kernels/dequant_matmul/kernel.py:35",
           "launches": serve["q8"]["launches"]["dequant_matmul"],
           "max_abs_err": max(r["max_abs_err"] for r in dm_rows),
-          "work": "one decode step: 225 calls at M=4",
+          "work": "one llama3-8b decode step: 225 calls at M=4",
           **{key: sum(r[key] * c for r, c in step)
              for key in ("ms", "plain_ms", "bound_ms", "library_ms")},
           "bound_by": "bytes"}
-    fa0 = next(r for r in fa_rows if r["s"] == 128 and r["dtype"] ==
-               "bfloat16")
+    fa0 = next(r for r in fa_rows if (r["s"], r["h"], r["dtype"]) ==
+               (128, 32, "bfloat16"))
     fa = {"name": "flash_attention", "route": "cuda",
           "source": "src/repro_torch/kernels/flash_attention/csrc/"
                     "flash_attention.cu",
           "replaces": "src/repro/kernels/flash_attention/kernel.py:72",
           "launches": serve["q8"]["launches"]["flash_attention"],
           "max_abs_err": max(r["max_abs_err"] for r in fa_rows),
-          "work": "one prefill call: B=4 S=128 H=32 G=8 D=128 bf16",
+          "work": "one llama3-8b prefill call: B=4 S=128 H=32 G=8 D=128 bf16",
           **{key: fa0[key] for key in ("ms", "plain_ms", "bound_ms",
                                        "library_ms", "bound_by")}}
+    gstep = [(next(r for r in grouped_rows if (r["m"], r["k"], r["n"],
+                                               r["scale"]) ==
+                   (GROUPED_ROWS[0], k, n, "shared")), calls)
+             for (k, n), calls, _ in GROUPED_SHAPES]
+    gm = {"name": "dequant_matmul_grouped", "route": "cuda",
+          "source": "src/repro_torch/kernels/dequant_matmul/csrc/"
+                    "dequant_matmul_grouped.cu",
+          "replaces": "src/repro/kernels/dequant_matmul/kernel.py:70",
+          "launches": serve_moe["q8"]["launches"]["dequant_matmul_grouped"],
+          "max_abs_err": max(r["max_abs_err"] for r in grouped_rows),
+          "work": "one deepseek-moe-16b decode step: 81 calls, E=64, M=32 "
+                  "per expert, bf16 x, shared (N,) scale",
+          **{key: sum(r[key] * c for r, c in gstep)
+             for key in ("ms", "plain_ms", "bound_ms", "library_ms")},
+          "bound_by": gstep[0][0]["bound_by"]}
     t_b = sum(r["bytes_ms"] for r in rd_rows)
     t_f = sum(r["ops_ms"] for r in rd_rows)
     rd = {"name": "rd_quant", "route": "cuda",
@@ -883,7 +1156,7 @@ def summarize(dm_rows, fa_rows, serve, rd_rows, deploy):
              for key in ("ms", "plain_ms", "bound_ms")},
           "bound_by": "bytes" if t_b >= t_f else "operations",
           "library_ms": None}
-    return [dm, fa, rd]
+    return [dm, fa, gm, rd]
 
 
 def main() -> int:
@@ -901,9 +1174,11 @@ def main() -> int:
     results["build"] = phase_build()
     results["dequant_matmul"] = phase_kernels_dequant(device)
     results["flash_attention"] = phase_kernels_flash(device)
+    results["dequant_matmul_grouped"] = phase_kernels_grouped(device)
     results["parity"] = phase_parity(device)
     results["parity_codec"] = phase_parity_codec(device)
-    cfg, params = init_full(device)
+    results["parity_moe"] = phase_parity_moe(device)
+    cfg, params = init_full(device, "llama3-8b")
     policy = rd_policy_rules(covered_leaves(params))
     results["rd_quant"] = phase_kernels_rd(params, policy)
     results["deploy_rd"] = phase_deploy_rd(params, policy)
@@ -912,9 +1187,18 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     results["deploy"] = phase_deploy_serve(device)
+    # deepseek-moe-16b once every llama3-8b tensor is freed
+    cfg, params = init_full(device, "deepseek-moe-16b")
+    results["serve_moe"] = phase_serve(cfg, params, device)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    results["container_moe"] = phase_container_moe(device)
     kernels = summarize(results["dequant_matmul"],
-                        results["flash_attention"], results["serve"],
-                        results["rd_quant"], results["deploy"])
+                        results["flash_attention"],
+                        results["dequant_matmul_grouped"], results["serve"],
+                        results["serve_moe"], results["rd_quant"],
+                        results["deploy"])
     results["kernels"] = kernels
     results["seconds"] = time.perf_counter() - t0
     out_dir = ROOT / "chiprun_out"

@@ -1,12 +1,13 @@
 """Build the hand-written CUDA kernels with ``nvcc`` and load them.
 
-Each kernel's ``csrc/<name>.cu`` exposes a plain C interface and compiles
-to its own shared library, loaded with ``ctypes`` (no PyTorch headers, so
-a build takes seconds).  Libraries go to ``build/kernels/`` at the root of
-the checkout, named by a hash of the source and the flags, so an edited
-source rebuilds and an unchanged one is reused.  Nothing is built at
-import: :func:`load` builds on the first CUDA call, and
-:func:`build_all` starts one ``nvcc`` per source at once.
+Each kernel's ``csrc/<name>.cu`` exposes a plain C interface and compiles,
+with the ``*.cuh`` headers beside it, to its own shared library, loaded
+with ``ctypes`` (no PyTorch headers, so a build takes seconds).  Libraries
+go to ``build/kernels/`` at the root of the checkout, named by a hash of
+the sources and the flags, so an edited source rebuilds and an unchanged
+one is reused.  Nothing is built at import: :func:`load` builds on the
+first CUDA call, and :func:`build_all` starts one ``nvcc`` per source at
+once.
 """
 
 from __future__ import annotations
@@ -26,6 +27,8 @@ BUILD_DIR = KERNELS_DIR.parents[2] / "build" / "kernels"
 SOURCES = {
     "dequant_matmul": KERNELS_DIR / "dequant_matmul" / "csrc"
     / "dequant_matmul.cu",
+    "dequant_matmul_grouped": KERNELS_DIR / "dequant_matmul" / "csrc"
+    / "dequant_matmul_grouped.cu",
     "flash_attention": KERNELS_DIR / "flash_attention" / "csrc"
     / "flash_attention.cu",
     "rd_quant": KERNELS_DIR / "rd_quant" / "csrc" / "rd_quant.cu",
@@ -49,8 +52,11 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    src = SOURCES[name].read_bytes()
-    h = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    """Named by a hash of the source, the headers beside it and the flags."""
+    src = SOURCES[name]
+    text = b"".join(p.read_bytes()
+                    for p in (src, *sorted(src.parent.glob("*.cuh"))))
+    h = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"{name}-{h[:16]}.so"
 
 

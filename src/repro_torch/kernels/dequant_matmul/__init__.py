@@ -1,1 +1,1 @@
-from .ops import dequant_matmul  # noqa: F401
+from .ops import dequant_matmul, dequant_matmul_grouped  # noqa: F401

@@ -26,10 +26,11 @@
 //   shared buffer.  Narrow strips give N/32 blocks: 32 for the 4096x1024
 //   projections, which therefore use a quarter of the SMs.  At 1024 threads
 //   M = 6..8 would spill the accumulator, so those take the tiled path.
-// * M > 5 (prefill): a 64x64 output tile per block, K in steps of 16.  The
-//   x tile (converted to f32) and the weight tile (dequantized, q * scale,
-//   in f32) are staged in shared memory; each of 256 threads accumulates a
-//   4x4 register tile with f32 FMAs.
+// * M > 5 (prefill): a 64x64 output tile per block, K in steps of 16
+//   (dm_tiled.cuh, shared with dequant_matmul_grouped.cu).  The x tile
+//   (converted to f32) and the weight tile (dequantized, q * scale, in f32)
+//   are staged in shared memory; each of 256 threads accumulates a 4x4
+//   register tile with f32 FMAs.
 // Both mask the ragged edges of M, N and K themselves; no host padding.
 // Offsets are 64-bit: the head's K*N is 525 M.
 
@@ -37,12 +38,11 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "dm_tiled.cuh"
+
 namespace {
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
+using dm::to_f32;
 
 // ---- decode path: M <= 5 ------------------------------------------------
 constexpr int SM_MAXM = 5;
@@ -150,72 +150,6 @@ dm_small_m(const XT* __restrict__ x, const int8_t* __restrict__ w,
   }
 }
 
-// ---- prefill path: M > 5 ------------------------------------------------
-constexpr int TB_M = 64, TB_N = 64, TB_K = 16, TB_THREADS = 256;
-constexpr int TB_XPAD = 4;                  // keeps float4 rows, fewer conflicts
-
-template <typename XT>
-__global__ void __launch_bounds__(TB_THREADS)
-dm_tiled(const XT* __restrict__ x, const int8_t* __restrict__ w,
-         const float* __restrict__ scale, float* __restrict__ out,
-         int M, int K, int N) {
-  __shared__ __align__(16) float xs[TB_K][TB_M + TB_XPAD];
-  __shared__ __align__(16) float ws[TB_K][TB_N];
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
-  const long long m0 = (long long)blockIdx.y * TB_M;
-  const long long n0 = (long long)blockIdx.x * TB_N;
-  // the weight column this thread stages is the same on every K step
-  const int lcol = tid % TB_N;
-  const float sc = (n0 + lcol < N) ? scale[n0 + lcol] : 0.f;
-
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-
-  for (int k0 = 0; k0 < K; k0 += TB_K) {
-#pragma unroll
-    for (int i = 0; i < (TB_M * TB_K) / TB_THREADS; ++i) {
-      const int e = tid + TB_THREADS * i;
-      const int row = e / TB_K, kk = e % TB_K;
-      const long long m = m0 + row, k = k0 + kk;
-      xs[kk][row] = (m < M && k < K) ? to_f32(x[m * K + k]) : 0.f;
-    }
-#pragma unroll
-    for (int i = 0; i < (TB_K * TB_N) / TB_THREADS; ++i) {
-      const int e = tid + TB_THREADS * i;
-      const int kk = e / TB_N;
-      const long long k = k0 + kk, n = n0 + lcol;
-      ws[kk][lcol] = (k < K && n < N) ? (float)w[k * N + n] * sc : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < TB_K; ++kk) {
-      const float4 a = *reinterpret_cast<const float4*>(&xs[kk][ty * 4]);
-      const float4 b = *reinterpret_cast<const float4*>(&ws[kk][tx * 4]);
-      const float av[4] = {a.x, a.y, a.z, a.w};
-      const float bv[4] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const long long m = m0 + ty * 4 + i;
-    if (m >= M) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const long long n = n0 + tx * 4 + j;
-      if (n < N) out[m * N + n] = acc[i][j];
-    }
-  }
-}
-
 template <typename XT>
 int launch(const void* x, const void* w, const void* scale, void* out, int M,
            int K, int N, cudaStream_t st) {
@@ -235,11 +169,9 @@ int launch(const void* x, const void* w, const void* scale, void* out, int M,
       DM_SMALL(1) DM_SMALL(2) DM_SMALL(3) DM_SMALL(4) DM_SMALL(5)
     }
 #undef DM_SMALL
-  } else {
-    dim3 grid((N + TB_N - 1) / TB_N, (M + TB_M - 1) / TB_M);
-    dm_tiled<XT><<<grid, TB_THREADS, 0, st>>>(xp, wp, sp, op, M, K, N);
+    return (int)cudaGetLastError();
   }
-  return (int)cudaGetLastError();
+  return dm::launch_tiled<XT, false>(x, w, scale, out, M, K, N, 1, 0, st);
 }
 
 }  // namespace

@@ -21,8 +21,9 @@ import torch
 _REPORT: deque = deque(maxlen=512)
 
 # kernel name -> launches since the last reset_launch_counts()
-LAUNCHES: dict[str, int] = {"dequant_matmul": 0, "flash_attention": 0,
-                             "rd_quant": 0}
+LAUNCHES: dict[str, int] = {"dequant_matmul": 0,
+                             "dequant_matmul_grouped": 0,
+                             "flash_attention": 0, "rd_quant": 0}
 
 
 def dispatch_report() -> list[dict]:

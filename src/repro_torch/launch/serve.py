@@ -4,14 +4,18 @@ backend, optionally from a DeepCABAC container.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-8b \\
         --ckpt model.dcbc --backend container --batch 4 \\
         --prompt-len 128 --steps 32
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --arch deepseek-moe-16b --backend q8 --prompt-len 128
 
 ``--backend``: ``bf16`` (full-precision weights), ``q8`` (int8 matmul
 weights), ``container`` (stream the DCBC blob; serve-q8 records stay
 int8).  Without ``--ckpt`` the bf16/q8 backends take seeded random init,
 and the container backend packs a serve-q8 container in process first,
 so the streaming load still runs.  Runs on the card unless
-``--device cpu``.  Prints the generated tokens, the kernel launch counts
-and every ``dispatch_report()`` record (a fallback or loop dequant)."""
+``--device cpu``.  Prints the generated tokens, the launch count of every
+kernel (``dequant_matmul_grouped`` included: a MoE model's expert banks
+on q8) and every ``dispatch_report()`` record (a fallback or loop
+dequant)."""
 
 from __future__ import annotations
 

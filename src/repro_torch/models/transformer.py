@@ -1,10 +1,14 @@
-"""Decoder-only backbone, dense family (port of ``repro.models.transformer``).
+"""Decoder-only backbone, dense and MoE families (port of
+``repro.models.transformer``).
 
 Layers are stacked on a leading L axis with the reference's names and
 layouts; a Python loop over L takes the place of ``lax.scan``.  Stacked
 q8 leaves are sliced per layer (``q8[l]`` / ``q8s[l]``), so each layer's
-projections read int8 levels through ``dequant_matmul``.  Caches are
-updated in place (see ``models.attention``).  The MoE, SSM and hybrid
+projections read int8 levels through ``dequant_matmul`` and a MoE layer's
+expert banks through ``dequant_matmul_grouped``.  A MoE model runs its
+leading dense layers (``dense_layers``) first, then the MoE stack
+(``layers``), with nested caches ``{"dense": ..., "main": ...}``.  Caches
+are updated in place (see ``models.attention``).  The SSM and hybrid
 families, MLA and layernorm are not ported yet and raise."""
 
 from __future__ import annotations
@@ -19,13 +23,15 @@ from ..serve.quantized import dequant_leaf, is_q8
 from .attention import gqa_attention
 from .config import ModelConfig
 from .layers import rms_norm, swiglu_mlp
+from .moe import moe_block
 
 # q8 leaves the fused dequant_matmul path consumes in place; anything else
 # is dequantized in the loop body and reported once per tensor.
-# (The MLA and MoE names join with the slices that port those families.)
+# (The MLA names join with the slice that ports that attention.)
 _FUSED_ELIGIBLE = frozenset({
     "wq", "wk", "wv", "wo",                       # gqa projections
-    "w_gate", "w_up", "w_down",                   # dense MLP
+    "w_gate", "w_up", "w_down",                   # dense MLP / expert banks
+    "sh_gate", "sh_up", "sh_down", "router",      # MoE shared + router
 })
 
 # (tensor name) already reported — loop-body dequant is a per-tensor
@@ -38,12 +44,12 @@ def _dtype(name: str) -> torch.dtype:
             "float16": torch.float16}[name]
 
 
-def _require_dense(cfg: ModelConfig) -> None:
-    if cfg.family != "dense" or cfg.attention != "gqa" or \
+def _require_ported(cfg: ModelConfig) -> None:
+    if cfg.family not in ("dense", "moe") or cfg.attention != "gqa" or \
             cfg.norm != "rmsnorm":
         raise NotImplementedError(
             f"{cfg.family}/{cfg.attention}/{cfg.norm} model: not yet ported "
-            "(dense GQA with RMSNorm only)")
+            "(dense and MoE GQA with RMSNorm only)")
 
 
 def _record_loop_dequant(name: str, reason: str, platform: str) -> None:
@@ -93,50 +99,81 @@ def _normal(gen, shape, scale, dtype, device):
                         device=device) * scale).to(dtype)
 
 
-def _stacked(gen, n, d_in, d_out, dtype, device):
-    """(n, d_in, d_out) weights, one layer at a time (no f32 stack)."""
-    out = torch.empty((n, d_in, d_out), dtype=dtype, device=device)
-    for i in range(n):
-        out[i] = _normal(gen, (d_in, d_out), d_in ** -0.5, dtype, device)
+def _stacked(gen, shape, std, dtype, device):
+    """(L, ...) weights drawn one layer at a time (no f32 copy of the
+    stack)."""
+    out = torch.empty(shape, dtype=dtype, device=device)
+    for i in range(shape[0]):
+        out[i] = _normal(gen, shape[1:], std, dtype, device)
     return out
 
 
 def _layout(cfg: ModelConfig) -> dict:
-    """Flat name -> (shape, init) of the parameters, in draw order.  init
-    is ("normal", std), ("stacked", d_in) for (L, d_in, d_out) weights
-    drawn one layer at a time with std d_in ** -0.5, "zeros" or "ones"."""
-    _require_dense(cfg)
-    L = cfg.num_layers
+    """Flat name -> (shape, init, dtype) of the parameters, in draw order.
+    init is ("normal", std), ("stacked", std) for (L, ...) weights drawn
+    one layer at a time, "zeros" or "ones".  Every leaf has the param dtype
+    except a MoE router, which is f32 as in the reference."""
+    _require_ported(cfg)
+    pdt = _dtype(cfg.param_dtype)
     h, g, dh, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, cfg.d_model
     out: dict = {}
+
+    def add(name, shape, init, dtype=pdt):
+        out[name] = (shape, init, dtype)
+
+    def mat(name, shape, dtype=pdt):      # std d_in ** -0.5, d_in = shape[-2]
+        add(name, shape, ("stacked", shape[-2] ** -0.5), dtype)
+
+    def layer_stack(top, n, d_ff):        # attention, norms, dense MLP
+        for name, d_in, d_out in (("wq", d, h * dh), ("wk", d, g * dh),
+                                  ("wv", d, g * dh), ("wo", h * dh, d)):
+            mat(f"{top}/attn/{name}", (n, d_in, d_out))
+        if cfg.qkv_bias:
+            for name, width in (("bq", h * dh), ("bk", g * dh),
+                                ("bv", g * dh)):
+                add(f"{top}/attn/{name}", (n, width), "zeros")
+        if cfg.qk_norm:
+            add(f"{top}/attn/q_norm", (n, dh), "ones")
+            add(f"{top}/attn/k_norm", (n, dh), "ones")
+        add(f"{top}/attn_norm", (n, d), "ones")
+        add(f"{top}/mlp_norm", (n, d), "ones")
+        if d_ff:
+            for name, d_in, d_out in (("w_gate", d, d_ff), ("w_up", d, d_ff),
+                                      ("w_down", d_ff, d)):
+                mat(f"{top}/mlp/{name}", (n, d_in, d_out))
+
     if cfg.embed_input:
-        out["embed"] = ((cfg.vocab_size, d), ("normal", 0.02))
-    for name, d_in, d_out in (("wq", d, h * dh), ("wk", d, g * dh),
-                              ("wv", d, g * dh), ("wo", h * dh, d)):
-        out[f"layers/attn/{name}"] = ((L, d_in, d_out), ("stacked", d_in))
-    if cfg.qkv_bias:
-        for name, width in (("bq", h * dh), ("bk", g * dh), ("bv", g * dh)):
-            out[f"layers/attn/{name}"] = ((L, width), "zeros")
-    if cfg.qk_norm:
-        out["layers/attn/q_norm"] = ((L, dh), "ones")
-        out["layers/attn/k_norm"] = ((L, dh), "ones")
-    out["layers/attn_norm"] = ((L, d), "ones")
-    out["layers/mlp_norm"] = ((L, d), "ones")
-    for name, d_in, d_out in (("w_gate", d, cfg.d_ff), ("w_up", d, cfg.d_ff),
-                              ("w_down", cfg.d_ff, d)):
-        out[f"layers/mlp/{name}"] = ((L, d_in, d_out), ("stacked", d_in))
-    out["final_norm"] = ((d,), "ones")
+        add("embed", (cfg.vocab_size, d), ("normal", 0.02))
+    if cfg.family == "dense":
+        layer_stack("layers", cfg.num_layers, cfg.d_ff)
+    else:
+        nd = cfg.first_dense_layers
+        if nd:
+            layer_stack("dense_layers", nd, cfg.d_ff)
+        n = cfg.num_layers - nd
+        layer_stack("layers", n, 0)
+        e, f = cfg.num_experts, cfg.moe_d_ff
+        mat("layers/moe/router", (n, d, e), torch.float32)
+        for name, d_in, d_out in (("w_gate", d, f), ("w_up", d, f),
+                                  ("w_down", f, d)):
+            mat(f"layers/moe/{name}", (n, e, d_in, d_out))
+        if cfg.num_shared_experts:
+            fs = cfg.num_shared_experts * f
+            for name, d_in, d_out in (("sh_gate", d, fs), ("sh_up", d, fs),
+                                      ("sh_down", fs, d)):
+                mat(f"layers/moe/{name}", (n, d_in, d_out))
+    add("final_norm", (d,), "ones")
     if not cfg.tie_embeddings:
-        out["head"] = ((d, cfg.vocab_size), ("normal", d ** -0.5))
+        add("head", (d, cfg.vocab_size), ("normal", d ** -0.5))
     return out
 
 
 def param_specs(cfg: ModelConfig) -> dict:
-    """Flat name -> (shape, dtype) of ``init_params(cfg)``'s tree, with no
-    weight memory allocated (the template a container load checks
-    against)."""
-    dtype = _dtype(cfg.param_dtype)
-    return {name: (shape, dtype) for name, (shape, _) in _layout(cfg).items()}
+    """Flat name -> (shape, dtype) of ``init_params(cfg)``'s tree, leaf by
+    leaf, with no weight memory allocated (the template a container load
+    checks against)."""
+    return {name: (shape, dtype)
+            for name, (shape, _, dtype) in _layout(cfg).items()}
 
 
 def init_params(cfg: ModelConfig, seed: int = 0, *, device="cuda") -> dict:
@@ -145,17 +182,16 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, device="cuda") -> dict:
     differ from ``jax.random``'s; tests carry JAX parameters across with
     ``repro_torch.convert``)."""
     dev = resolve_device(device)
-    dtype = _dtype(cfg.param_dtype)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
     flat = {}
-    for name, (shape, init) in _layout(cfg).items():
+    for name, (shape, init, dtype) in _layout(cfg).items():
         if init == "zeros":
             flat[name] = torch.zeros(shape, dtype=dtype, device=dev)
         elif init == "ones":
             flat[name] = torch.ones(shape, dtype=dtype, device=dev)
         elif init[0] == "stacked":
-            flat[name] = _stacked(gen, *shape, dtype, dev)
+            flat[name] = _stacked(gen, shape, init[1], dtype, dev)
         else:
             flat[name] = _normal(gen, shape, init[1], dtype, dev)
     return unflatten(flat)
@@ -165,15 +201,41 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, device="cuda") -> dict:
 # Forward / prefill / decode
 # ---------------------------------------------------------------------------
 
-def _dense_block(x, lp, cfg, positions, cache, cache_pos, qpos_canonical):
+def _attn_block(x, lp, cfg, positions, cache, cache_pos, qpos_canonical):
     h = rms_norm(x, lp["attn_norm"], cfg.norm_eps)
-    a, new_cache = gqa_attention(h, lp["attn"], cfg, positions, cache=cache,
-                                 cache_pos=cache_pos,
-                                 qpos_canonical=qpos_canonical)
-    x = x + a
+    a, _ = gqa_attention(h, lp["attn"], cfg, positions, cache=cache,
+                         cache_pos=cache_pos, qpos_canonical=qpos_canonical)
+    return x + a
+
+
+def _dense_block(x, lp, cfg, *attn_args):
+    x = _attn_block(x, lp, cfg, *attn_args)
     x = x + swiglu_mlp(rms_norm(x, lp["mlp_norm"], cfg.norm_eps), lp["mlp"],
                        cfg.act)
-    return x, new_cache
+    return x, None
+
+
+def _moe_layer_block(x, lp, cfg, *attn_args):
+    x = _attn_block(x, lp, cfg, *attn_args)
+    m, aux = moe_block(rms_norm(x, lp["mlp_norm"], cfg.norm_eps), lp["moe"],
+                       cfg)
+    return x + m, aux
+
+
+_BLOCKS = {"dense": _dense_block, "moe": _moe_layer_block}
+
+
+def _stacks(params, cfg: ModelConfig, caches):
+    """(stacked params, layer count, block, caches) of each layer stack in
+    the order they run: a MoE model's leading dense layers, then the rest."""
+    nd = cfg.first_dense_layers if cfg.family == "moe" else 0
+    if not nd:
+        return [(params["layers"], cfg.num_layers, _BLOCKS[cfg.family],
+                 caches)]
+    return [(params["dense_layers"], nd, _dense_block,
+             None if caches is None else caches["dense"]),
+            (params["layers"], cfg.num_layers - nd, _moe_layer_block,
+             None if caches is None else caches["main"])]
 
 
 def forward(params, cfg: ModelConfig, *, tokens, positions=None,
@@ -183,9 +245,10 @@ def forward(params, cfg: ModelConfig, *, tokens, positions=None,
 
     tokens (B, S) int.  ``last_only`` projects position -1 only;
     ``last_index`` (B,) gathers one position per row (padded-bucket
-    prefill).  ``caches`` (a dict of (L, B, Smax, G, D) tensors) is
-    written in place and returned."""
-    _require_dense(cfg)
+    prefill).  ``caches`` (``init_cache``'s tree of (L, B, Smax, G, D)
+    tensors) is written in place and returned.  ``aux`` is the MoE
+    load-balance loss summed over layers (0 for a dense model)."""
+    _require_ported(cfg)
     dt = _dtype(cfg.compute_dtype)
     x = embed_lookup_q8(params["embed"], tokens, dt)
     b, s = x.shape[0], x.shape[1]
@@ -201,13 +264,16 @@ def forward(params, cfg: ModelConfig, *, tokens, positions=None,
             cp = torch.as_tensor(cache_pos, device=dev)
             positions = (cp[:, None] if cp.dim() == 1 else cp) + ar
 
-    stacked = params["layers"]
-    for i in range(cfg.num_layers):
-        lp = _fused_layer_params(_layer_slice(stacked, i), dt, platform)
-        cache_l = None if caches is None else {k: c[i]
-                                               for k, c in caches.items()}
-        x, _ = _dense_block(x, lp, cfg, positions, cache_l, cache_pos,
-                            qpos_canonical)
+    aux = torch.zeros((), dtype=torch.float32, device=dev)
+    for stacked, n, block, stack_caches in _stacks(params, cfg, caches):
+        for i in range(n):
+            lp = _fused_layer_params(_layer_slice(stacked, i), dt, platform)
+            cache_l = None if stack_caches is None else {
+                k: c[i] for k, c in stack_caches.items()}
+            x, a = block(x, lp, cfg, positions, cache_l, cache_pos,
+                         qpos_canonical)
+            if a is not None:
+                aux = aux + a
 
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     if last_index is not None:
@@ -216,7 +282,7 @@ def forward(params, cfg: ModelConfig, *, tokens, positions=None,
     elif last_only:
         x = x[:, -1:, :]
     logits = _head_logits(x, params, cfg)
-    return logits, caches, torch.zeros((), device=dev)
+    return logits, caches, aux
 
 
 def _head_logits(x, params, cfg: ModelConfig):
@@ -242,13 +308,23 @@ def _head_logits(x, params, cfg: ModelConfig):
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
                device="cuda") -> dict:
-    """Preallocated decode caches, stacked on the layer axis."""
-    _require_dense(cfg)
+    """Preallocated decode caches, stacked on the layer axis: {"k", "v"}
+    of (L, B, Smax, G, D), or for a MoE model with leading dense layers
+    {"dense": {"k", "v"}, "main": {"k", "v"}}."""
+    _require_ported(cfg)
     dev = resolve_device(device)
     dt = torch.int8 if cfg.q8_cache else _dtype(cfg.compute_dtype)
-    shape = (cfg.num_layers, batch, max_len, cfg.num_kv_heads, cfg.head_dim)
-    return {"k": torch.zeros(shape, dtype=dt, device=dev),
-            "v": torch.zeros(shape, dtype=dt, device=dev)}
+
+    def attn_cache(n_layers):
+        shape = (n_layers, batch, max_len, cfg.num_kv_heads, cfg.head_dim)
+        return {"k": torch.zeros(shape, dtype=dt, device=dev),
+                "v": torch.zeros(shape, dtype=dt, device=dev)}
+
+    nd = cfg.first_dense_layers if cfg.family == "moe" else 0
+    if nd:
+        return {"dense": attn_cache(nd),
+                "main": attn_cache(cfg.num_layers - nd)}
+    return attn_cache(cfg.num_layers)
 
 
 def prefill(params, cfg: ModelConfig, *, tokens, max_len: int | None = None,

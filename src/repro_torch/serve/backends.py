@@ -15,11 +15,13 @@
 
 Blob loads keep the reference's layer-bound contract: one decoded record
 is on the host at a time, moved to the device before the next is decoded,
-and the template comes from the model's shapes alone
-(``models.transformer.param_specs``).  ``policy_table=`` applies a
-per-tensor RD policy to *tree* sources (quantize, then dequantize back),
-so a tree session equals one cold-started from the matching
-``deepcabac-rd`` container.  Sharded-manifest sources (a path) are not
+and the template comes from the model's shapes and dtypes alone, leaf by
+leaf (``models.transformer.param_specs``: a MoE router stays f32 in a bf16
+model).  A ``serve-q8`` record of a stacked 4-D expert bank (L, E, K, N)
+keeps its (L, N) scale, so each layer hands ``dequant_matmul_grouped`` the
+shared (N,) form.  ``policy_table=`` applies a per-tensor RD policy to
+*tree* sources (quantize, then dequantize back), so a tree session equals
+one cold-started from the matching ``deepcabac-rd`` container.  Sharded-manifest sources (a path) are not
 ported yet and raise.
 """
 

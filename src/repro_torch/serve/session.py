@@ -21,6 +21,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from ..compression.tree import flatten_tree
 from ..kernels.registry import resolve_device
 from ..models.config import ModelConfig
 from ..models.transformer import decode_step, init_cache, prefill
@@ -249,11 +250,13 @@ class ServeSession:
                 self._maybe_evict(slot)
 
     def _place(self, caches_g: dict, slots_idx: list) -> None:
-        """Copy a batch-k prefill's caches into slots ``slots_idx`` (axis 1
-        of every cache leaf is the slot axis)."""
+        """Copy a batch-k prefill's caches into slots ``slots_idx``: axis 1
+        of every cache leaf is the slot axis, in a flat {"k", "v"} tree or a
+        MoE model's nested {"dense": ..., "main": ...} one."""
         idx = torch.as_tensor(slots_idx, device=self.device)
-        for name, full in self._caches.items():
-            full[:, idx] = caches_g[name].to(full.dtype)
+        part = flatten_tree(caches_g)
+        for name, full in flatten_tree(self._caches).items():
+            full[:, idx] = part[name].to(full.dtype)
 
     def _maybe_evict(self, slot: _Slot) -> None:
         req = slot.req

@@ -7,7 +7,9 @@ card: ``python -m pytest -m cuda tests/test_torch_cuda.py``.  This file
 imports no JAX, so it runs where only PyTorch is installed.  Tolerances
 are relative to the largest magnitude of the plain result: 1e-4 where both
 sides compute in f32 (sums in another order), 2e-2 for bf16 attention (the
-kernel rounds p to bf16 before the PV product, as the TPU kernel did).
+kernel rounds p to bf16 before the PV product, as the TPU kernel did), 1e-3
+for a smoke model's logits on the card against the CPU (f32 through every
+layer, as in ``chip_smoke.py``'s parity phases).
 """
 
 import importlib.util
@@ -20,8 +22,11 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch import kernels  # noqa: E402
-from repro_torch.kernels.dequant_matmul import dequant_matmul  # noqa: E402
-from repro_torch.kernels.dequant_matmul.ref import dequant_matmul_ref  # noqa: E402
+from repro_torch.kernels.dequant_matmul import (dequant_matmul,  # noqa: E402
+                                                dequant_matmul_grouped)
+from repro_torch.kernels.dequant_matmul import ops as dmops  # noqa: E402
+from repro_torch.kernels.dequant_matmul.ref import (  # noqa: E402
+    dequant_matmul_grouped_ref, dequant_matmul_ref)
 from repro_torch.kernels.flash_attention import ops as fops  # noqa: E402
 
 REPO = Path(__file__).resolve().parents[1]
@@ -76,7 +81,94 @@ def test_dequant_matmul_rejects_what_the_kernel_does_not_take():
         dequant_matmul(x, wq.cpu(), sc)
 
 
+@pytest.mark.parametrize("scale_form", ["shared", "per_expert"])
+@pytest.mark.parametrize("e,m,k,n", [(4, 8, 160, 96), (3, 5, 70, 33),
+                                     (2, 130, 300, 257), (64, 32, 2048, 1408),
+                                     (64, 64, 1408, 2048)])
+def test_dequant_matmul_grouped_kernel_matches_plain(e, m, k, n, scale_form):
+    _needs_card()
+    g = torch.Generator(device="cuda").manual_seed(e + m + k + n)
+    wq = torch.randint(-127, 128, (e, k, n), generator=g, device="cuda",
+                       dtype=torch.int8)
+    sc = torch.rand((n,) if scale_form == "shared" else (e, n), generator=g,
+                    device="cuda") * 0.01 + 1e-4
+    for xdt in (torch.float32, torch.bfloat16):
+        x = torch.randn((e, m, k), generator=g, device="cuda").to(xdt)
+        before = kernels.launch_counts()["dequant_matmul_grouped"]
+        got = dequant_matmul_grouped(x, wq, sc)
+        want = dequant_matmul_grouped_ref(x, wq, sc)
+        torch.cuda.synchronize()
+        assert kernels.launch_counts()["dequant_matmul_grouped"] == \
+            before + 1
+        assert got.dtype == torch.float32 and got.shape == (e, m, n)
+        assert want.abs().max() > 0
+        assert torch.isfinite(got).all()
+        assert _rel(got, want) <= 1e-4
+        # the plain version on the CPU agrees as well
+        assert _rel(got, dequant_matmul_grouped_ref(x.cpu(), wq.cpu(),
+                                                    sc.cpu())) <= 1e-4
+
+
+def test_dequant_matmul_grouped_rejects_and_never_takes_the_plain_version(
+        monkeypatch):
+    _needs_card()
+
+    def plain(*args):
+        raise AssertionError("a CUDA tensor reached the plain version")
+    monkeypatch.setattr(dmops, "dequant_matmul_grouped_ref", plain)
+    x = torch.randn(2, 4, 64, device="cuda")
+    wq = torch.zeros(2, 64, 32, dtype=torch.int8, device="cuda")
+    sc = torch.ones(32, device="cuda")
+    before = kernels.launch_counts()["dequant_matmul_grouped"]
+    with pytest.raises(TypeError, match="dtype"):
+        dmops.dequant_matmul_grouped(x.half(), wq, sc)
+    with pytest.raises(TypeError, match="int8"):
+        dmops.dequant_matmul_grouped(x, wq.float(), sc)
+    with pytest.raises(ValueError, match="scale"):
+        dmops.dequant_matmul_grouped(x, wq, torch.ones(3, 32, device="cuda"))
+    with pytest.raises(ValueError, match="cpu"):
+        dmops.dequant_matmul_grouped(x, wq.cpu(), sc)
+    with pytest.raises(ValueError, match="contiguous"):
+        dmops.dequant_matmul_grouped(x, wq.transpose(1, 2).contiguous()
+                                     .transpose(1, 2), sc)
+    with pytest.raises(ValueError, match="E, M, K"):
+        dmops.dequant_matmul_grouped(x[0], wq, sc)
+    assert kernels.launch_counts()["dequant_matmul_grouped"] == before
+    dmops.dequant_matmul_grouped(x, wq, sc)
+    assert kernels.launch_counts()["dequant_matmul_grouped"] == before + 1
+
+
+def test_moe_prefill_routes_through_the_grouped_kernel():
+    """Smoke deepseek-moe-16b on q8: every routed-expert product launches
+    the grouped kernel, the router, shared experts, attention, dense layer
+    and head the dense one, and the tokens equal the CPU's."""
+    _needs_card()
+    from repro_torch import configs
+    from repro_torch.compression.tree import flatten_tree, unflatten
+    from repro_torch.models.transformer import init_params, prefill
+    from repro_torch.serve.quantized import quantize_tree_q8
+    cfg = configs.get("deepseek-moe-16b", smoke=True)
+    p_cpu = quantize_tree_q8(init_params(cfg, 0, device="cpu"))
+    p = unflatten({k: v.cuda() for k, v in flatten_tree(p_cpu).items()})
+    toks = torch.randint(0, cfg.vocab_size, (3, 9),
+                         generator=torch.Generator().manual_seed(0))
+    kernels.reset_launch_counts()
+    kernels.clear_dispatch_report()
+    lo, caches = prefill(p, cfg, tokens=toks.cuda(), max_len=12)
+    nd, nm = cfg.first_dense_layers, cfg.num_layers - cfg.first_dense_layers
+    assert kernels.launch_counts() == {
+        "dequant_matmul": 7 * nd + 8 * nm + 1,
+        "dequant_matmul_grouped": 3 * nm,
+        "flash_attention": cfg.num_layers, "rd_quant": 0}
+    assert sorted(caches) == ["dense", "main"]
+    assert kernels.dispatch_report() == []
+    want, _ = prefill(p_cpu, cfg, tokens=toks, max_len=12)
+    assert _rel(lo, want) <= 1e-3
+    assert torch.equal(lo.argmax(-1).cpu(), want.argmax(-1))
+
+
 @pytest.mark.parametrize("s,d,h,g", [(128, 128, 32, 8), (100, 128, 32, 8),
+                                     (128, 128, 16, 16),
                                      (7, 32, 4, 2), (33, 32, 8, 8)])
 def test_flash_kernel_matches_plain(s, d, h, g):
     _needs_card()
@@ -159,6 +251,7 @@ def test_prefill_routes_to_the_kernel_and_decode_does_not():
     lo, caches = prefill(p, cfg, tokens=toks, max_len=12)
     assert kernels.launch_counts() == {
         "dequant_matmul": 7 * cfg.num_layers + 1,
+        "dequant_matmul_grouped": 0,
         "flash_attention": cfg.num_layers, "rd_quant": 0}
     decode_step(p, cfg, caches, torch.full((3,), 9, device="cuda"),
                 tokens=lo.argmax(-1))

@@ -71,7 +71,7 @@ def test_config_matches_reference_field_for_field():
         got = dataclasses.asdict(configs.get("llama3-8b", smoke=smoke_))
         assert got == want
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        configs.get("deepseek-moe-16b")
+        configs.get("mamba2-2.7b")
     with pytest.raises(KeyError):
         configs.get("no-such-model")
 
@@ -239,7 +239,7 @@ def test_fused_params_and_loop_dequant_report():
 
 def test_unported_paths_raise(smoke):
     with pytest.raises(NotImplementedError):
-        ttf.init_params(smoke["tcfg"].replace(family="moe"), 0,
+        ttf.init_params(smoke["tcfg"].replace(family="ssm"), 0,
                         device="cpu")
     with pytest.raises(NotImplementedError):
         tattn.gqa_attention(None, None, smoke["tcfg"], None,
