@@ -25,7 +25,9 @@ Phases (each fails the run on its own; nothing is caught and ignored):
              written from the card equal the CPU's byte for byte, and a
              container served on the card gives the CPU's greedy tokens;
              then the deepseek-moe-16b smoke model the same way, once with
-             tokens dropped past the experts' capacity;
+             tokens dropped past the experts' capacity, and once in bf16
+             (the bf16 kernel instances the full-width models run: logits
+             within TOL_MOE_BF16_LOGITS, no greedy token may differ);
 5. deploy RD — eq. (11) level assignment of the whole full-width tree
              (11 leaves) through the kernel, 44 launches, device time
              against its bound and the rate model's bits per parameter;
@@ -99,6 +101,10 @@ GROUPED_ROWS = (32, 64)
 FLASH_HEADS = ((32, 8), (16, 16))
 TOL_F32 = 1e-4               # relative to max|plain|: f32 sums in other order
 TOL_FLASH_BF16 = 2e-2        # bf16 output and p rounded to bf16 before PV
+# bf16 smoke deepseek-moe-16b, card against CPU, relative to max|logit|:
+# the reading is 3.4e-7 (NVIDIA H100 80GB HBM3, 700 W), so a kernel fault
+# that moves the logits by 1e-4 or more fails
+TOL_MOE_BF16_LOGITS = 1e-4
 PROF_STEPS = (4, 8)          # decode ticks traced by torch.profiler
 # rd_quant: the llama3-8b winner of the committed RD sweep (BENCH_rd.json)
 RD_DELTA_REL, RD_LAM, RD_WINDOW, RD_PASSES = 0.006, 1e-5, 4, 2
@@ -157,6 +163,36 @@ def time_ms(fn, min_ms: float = 30.0, max_iters: int = 200) -> float:
     return start.elapsed_time(end) / iters
 
 
+def time_ms_graph(fn) -> float:
+    """Mean device time of ``fn()`` in ms without the host's cost of
+    issuing it: as many calls as take about 2 ms (1 to 20) captured in one
+    CUDA graph, whose replays are timed by :func:`time_ms`.  The serving
+    kernels' rows and their library yardsticks are all timed so: an eager
+    loop of a call of a few microseconds measures Python and the launch
+    path (15-30 us per call beside an H100) rather than the card, and one
+    yardstick serves every row."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    est = max((time.perf_counter() - t0) * 1e3, 1e-3)
+    reps = max(1, min(20, int(2.0 / est)))
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    ms = time_ms(graph.replay) / reps
+    del graph
+    return ms
+
+
 def rel_err(got, want):
     import torch
     d = (got.float() - want.float()).abs().max().item()
@@ -212,10 +248,23 @@ def phase_build():
             "cabac_threads": cabac_vec.default_threads()}
 
 
+def _matmul_peak(x_bytes):
+    """The rate a dequantize-matmul's operations can reach.  A bf16 x times
+    an int8 level (exactly a bf16) is exact in f32, and the per-column scale
+    factors out of the sum over K, so the bf16 tensor cores with f32 sums
+    compute the function: the bf16 peak bounds it.  A f32 x has 24
+    significant bits: its products are counted at the f32 rate, which
+    assumes no split.  Split exactly into three bf16 pieces (8 bits each,
+    each piece times a level exact in f32), the same function would run on
+    the tensor cores at BF16_FLOPS / 3, about 5x the f32 rate, and would
+    then be bound by bytes; no kernel of the port does that yet."""
+    return BF16_FLOPS if x_bytes == 2 else F32_FLOPS
+
+
 def _dm_bound(m, k, n, x_bytes):
     nbytes = m * k * x_bytes + k * n + 4 * n + 4 * m * n
     flops = 2.0 * m * k * n
-    t_b, t_f = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS
+    t_b, t_f = nbytes / HBM_BYTES_PER_S, flops / _matmul_peak(x_bytes)
     return max(t_b, t_f) * 1e3, ("bytes" if t_b >= t_f else "operations")
 
 
@@ -251,22 +300,25 @@ def phase_kernels_dequant(device):
                       f"dequant_matmul m={m} k={k} n={n} {xdt}: rel err "
                       f"{rel_e:.3g} > {TOL_F32}")
                 it = iter(range(1 << 30))
-                ms = time_ms(lambda: dequant_matmul_cuda(
-                    x, ws[next(it) % copies], sc))
+
+                def kernel():
+                    return dequant_matmul_cuda(x, ws[next(it) % copies], sc)
+                ms, eager = time_ms_graph(kernel), time_ms(kernel)
                 plain = time_ms(lambda: dequant_matmul_ref(x, ws[0], sc))
                 xf = x.float()
-                lib = time_ms(lambda: torch.matmul(xf, w_deq))
+                lib = time_ms_graph(lambda: torch.matmul(xf, w_deq))
                 bound, by = _dm_bound(m, k, n, x.element_size())
                 rows.append({"arch": arch, "m": m, "k": k, "n": n,
                              "x": str(xdt)[6:],
                              "calls_per_forward": calls, "weights": names,
                              "max_abs_err": abs_e, "max_rel_err": rel_e,
-                             "ms": ms, "plain_ms": plain, "library_ms": lib,
-                             "bound_ms": bound, "bound_by": by})
+                             "ms": ms, "eager_ms": eager, "plain_ms": plain,
+                             "library_ms": lib, "bound_ms": bound,
+                             "bound_by": by})
                 log(f"[kernels] dequant_matmul m={m:4d} k={k:5d} n={n:6d} "
                     f"x={str(xdt)[6:]:8s} err {rel_e:.2e}  kernel {ms:.4f} ms"
-                    f"  plain {plain:.4f}  library {lib:.4f}  bound "
-                    f"{bound:.4f} ({by})")
+                    f" (eager {eager:.4f})  plain {plain:.4f}  library "
+                    f"{lib:.4f}  bound {bound:.4f} ({by})")
         del ws, w_deq
     return rows
 
@@ -318,34 +370,48 @@ def phase_kernels_flash(device):
                   f"flash_attention non-finite at S={s} {dt}")
             check(rel_e <= tol, f"flash_attention S={s} {dt}: rel err "
                   f"{rel_e:.3g} > {tol}")
-            ms = time_ms(lambda: _flash_cuda(q, k, v))
+            # ms and library_ms from CUDA-graph replays (time_ms_graph); the
+            # eager loops' times are kept beside them
+            ms = time_ms_graph(lambda: _flash_cuda(q, k, v))
+            eager = time_ms(lambda: _flash_cuda(q, k, v))
             plain_ms = time_ms(plain)
             qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-            lib = time_ms(lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=True, enable_gqa=True))
+
+            def sdpa():
+                return F.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=True, enable_gqa=True)
+            lib = time_ms_graph(sdpa)
+            lib_eager = time_ms(sdpa)
             bound, by = _flash_bound(b, s, s, h, g, d, q.element_size())
             rows.append({"b": b, "s": s, "h": h, "g": g, "d": d,
-                         "dtype": str(dt)[6:], "max_abs_err": abs_e,
-                         "max_rel_err": rel_e, "ms": ms, "plain_ms": plain_ms,
-                         "library_ms": lib, "bound_ms": bound,
+                         "dtype": str(dt)[6:],
+                         "instance": ("tc_bf16" if dt == torch.bfloat16
+                                      else "f32_simt"),
+                         "max_abs_err": abs_e,
+                         "max_rel_err": rel_e, "ms": ms, "eager_ms": eager,
+                         "plain_ms": plain_ms, "library_ms": lib,
+                         "library_eager_ms": lib_eager, "bound_ms": bound,
                          "bound_by": by})
             log(f"[kernels] flash_attention B={b} S={s} H={h} G={g} D={d} "
-                f"{str(dt)[6:]:8s} err {rel_e:.2e}  kernel {ms:.4f} ms  "
-                f"plain {plain_ms:.4f}  library {lib:.4f}  bound "
-                f"{bound:.5f} ({by})")
+                f"{str(dt)[6:]:8s} err {rel_e:.2e}  kernel {ms:.4f} ms "
+                f"(eager {eager:.4f})  plain {plain_ms:.4f}  library "
+                f"{lib:.4f} (eager {lib_eager:.4f})  bound {bound:.5f} "
+                f"({by})")
     return rows
 
 
 def _grouped_bound(e, m, k, n, x_bytes, scale_floats):
     nbytes = e * m * k * x_bytes + e * k * n + 4 * scale_floats + 4 * e * m * n
     flops = 2.0 * e * m * k * n
-    t_b, t_f = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS
+    t_b, t_f = nbytes / HBM_BYTES_PER_S, flops / _matmul_peak(x_bytes)
     return max(t_b, t_f) * 1e3, ("bytes" if t_b >= t_f else "operations")
 
 
 def phase_kernels_grouped(device):
     """dequant_matmul_grouped vs its plain version at deepseek-moe-16b's
-    expert shapes, both scale forms, decode and prefill rows, bf16 x."""
+    expert shapes: bf16 x (the main path, the tensor-core instance) in both
+    scale forms at decode and prefill rows, and f32 x (the f32 tile) at
+    decode rows with the shared scale."""
     import torch
     from repro_torch.kernels.dequant_matmul.ops import \
         dequant_matmul_grouped_cuda
@@ -364,37 +430,47 @@ def phase_kernels_grouped(device):
             sc = torch.rand(sshape, generator=gen, device=device) * 0.01 \
                 + 1e-4
             w_deq = wq.float() * (sc if sc.dim() == 1 else sc[:, None, :])
-            for m in GROUPED_ROWS:
+            cases = [(m, torch.bfloat16) for m in GROUPED_ROWS]
+            if form == "shared":
+                cases.append((GROUPED_ROWS[0], torch.float32))
+            for m, xdt in cases:
                 x = torch.randn((e, m, k), generator=gen, device=device
-                                ).to(torch.bfloat16)
+                                ).to(xdt)
+                inst = "tc_bf16" if xdt == torch.bfloat16 else "f32_tile"
                 got = dequant_matmul_grouped_cuda(x, wq, sc)
                 want = dequant_matmul_grouped_ref(x, wq, sc)
                 torch.cuda.synchronize()
                 abs_e, rel_e = rel_err(got, want)
                 check(torch.isfinite(got).all().item(),
                       f"dequant_matmul_grouped non-finite at E={e} m={m} "
-                      f"k={k} n={n} {form}")
+                      f"k={k} n={n} {form} {xdt}")
                 check(rel_e <= TOL_F32,
                       f"dequant_matmul_grouped E={e} m={m} k={k} n={n} "
-                      f"{form}: rel err {rel_e:.3g} > {TOL_F32}")
+                      f"{form} {xdt}: rel err {rel_e:.3g} > {TOL_F32}")
                 del got, want
-                ms = time_ms(lambda: dequant_matmul_grouped_cuda(x, wq, sc))
+                def kernel():
+                    return dequant_matmul_grouped_cuda(x, wq, sc)
+                ms, eager = time_ms_graph(kernel), time_ms(kernel)
                 plain = time_ms(lambda: dequant_matmul_grouped_ref(x, wq, sc),
                                 max_iters=20)
                 xf = x.float()
-                lib = time_ms(lambda: torch.bmm(xf, w_deq))
+                lib = time_ms_graph(lambda: torch.bmm(xf, w_deq))
                 bound, by = _grouped_bound(e, m, k, n, x.element_size(),
                                            sc.numel())
-                rows.append({"e": e, "m": m, "k": k, "n": n, "x": "bfloat16",
+                rows.append({"e": e, "m": m, "k": k, "n": n,
+                             "x": str(xdt)[6:], "instance": inst,
                              "scale": form, "calls_per_forward": calls,
                              "weights": names, "max_abs_err": abs_e,
                              "max_rel_err": rel_e, "ms": ms,
-                             "plain_ms": plain, "library_ms": lib,
-                             "bound_ms": bound, "bound_by": by})
+                             "eager_ms": eager, "plain_ms": plain,
+                             "library_ms": lib, "bound_ms": bound,
+                             "bound_by": by})
                 log(f"[kernels] dequant_matmul_grouped E={e} m={m:3d} "
-                    f"k={k:5d} n={n:5d} scale={form:10s} err {rel_e:.2e}  "
-                    f"kernel {ms:.4f} ms  plain {plain:.4f}  library "
-                    f"{lib:.4f}  bound {bound:.4f} ({by})")
+                    f"k={k:5d} n={n:5d} x={str(xdt)[6:]:8s} ({inst}) "
+                    f"scale={form:10s} err {rel_e:.2e}  "
+                    f"kernel {ms:.4f} ms (eager {eager:.4f})  plain "
+                    f"{plain:.4f}  library {lib:.4f}  bound {bound:.4f} "
+                    f"({by})")
             del w_deq
         del wq
     return rows
@@ -674,6 +750,63 @@ def phase_parity_moe(device, cpu="cpu"):
             "drops": {"capacity_factor": dcfg.capacity_factor,
                       "prompt_len": dlen,
                       "dropped_per_row_at_least": dropped}}
+
+
+def phase_parity_moe_bf16(device, cpu="cpu"):
+    """Smoke deepseek-moe-16b in bf16 (params and compute), q8, on
+    ``device`` and on the CPU from the same converted weights: the path of
+    the full-width models' bf16 kernel instances (flash attention's and the
+    grouped matmul's tensor-core ones) held at model level.  Prefill logits
+    must agree within TOL_MOE_BF16_LOGITS of max|logit|; greedy tokens that
+    differ are counted, 0 expected, and any fails the phase."""
+    import numpy as np
+    import torch
+    from repro_torch import configs
+    from repro_torch.compression import flatten_tree, quantize_tree_q8
+    from repro_torch.convert import params_from_numpy, tensor_to_numpy
+    from repro_torch.kernels import registry
+    from repro_torch.models.transformer import init_params, prefill
+    from repro_torch.serve.session import ServeConfig, ServeSession
+
+    cfg = configs.get("deepseek-moe-16b", smoke=True).replace(
+        param_dtype="bfloat16", compute_dtype="bfloat16")
+    raw = init_params(cfg, 0, device=cpu)
+    flat_q8 = {k: tensor_to_numpy(v)
+               for k, v in flatten_tree(quantize_tree_q8(raw)).items()}
+    rng = np.random.default_rng(4)
+    prompts = rng.integers(0, cfg.vocab_size, (4, 16)).astype(np.int32)
+    out, launches = {}, None
+    for dev in (device, cpu):
+        tree = params_from_numpy(flat_q8, dev)
+        sess = ServeSession(cfg, tree, backend="q8", device=dev,
+                            serve_cfg=ServeConfig(slots=4, max_len=28))
+        hs = [sess.submit(p, max_new_tokens=12) for p in prompts]
+        registry.reset_launch_counts()
+        sess.run()
+        if dev == device:
+            launches = registry.launch_counts()
+        logits, _ = prefill(sess.params, cfg,
+                            tokens=torch.from_numpy(prompts).to(dev),
+                            max_len=28)
+        out[str(dev)] = (np.stack([h.result() for h in hs]),
+                         logits.float().cpu().numpy())
+    (tok_d, lo_d), (tok_c, lo_c) = out[str(device)], out[cpu]
+    check(np.isfinite(lo_d).all(), "moe bf16 smoke: non-finite logits")
+    err = float(np.max(np.abs(lo_d - lo_c)) / np.max(np.abs(lo_c)))
+    differ = int((tok_d != tok_c).sum())
+    log(f"[parity] smoke deepseek-moe-16b q8 bf16: prefill logits rel diff "
+        f"{err:.2e} (tolerance {TOL_MOE_BF16_LOGITS}); {differ} of "
+        f"{tok_d.size} greedy tokens differ between {device} and cpu; "
+        f"launches on the card {launches}")
+    check(launches["dequant_matmul_grouped"] > 0 and
+          launches["flash_attention"] > 0,
+          f"moe bf16 smoke: the bf16 kernels did not run: {launches}")
+    check(err <= TOL_MOE_BF16_LOGITS,
+          f"moe bf16 prefill logits differ: rel {err:.3g}")
+    check(differ == 0, f"moe bf16 smoke: {differ} greedy tokens differ "
+          f"between {device} and cpu:\n{tok_d}\n{tok_c}")
+    return {"logits_rel_diff": err, "tokens_differ": differ,
+            "tokens": int(tok_d.size), "launches": launches}
 
 
 def phase_deploy_rd(params, policy):
@@ -1100,7 +1233,9 @@ def summarize(dm_rows, fa_rows, grouped_rows, serve, serve_moe, rd_rows,
     scale); rd_quant: one 2-pass assignment of each of the 11 full-width
     shapes (layer 0 of each stacked leaf, embed, head; bf16), launches from
     the deploy encode.  Launches of the serving kernels come from each
-    model's q8 serve."""
+    model's q8 serve.  The serving kernels' ``ms`` and ``library_ms`` are
+    CUDA-graph replays (``timing``), their eager loops' ``eager_ms``
+    beside them; rd_quant's calls take milliseconds and are timed eagerly."""
     def row(m, k, n, x):
         return next(r for r in dm_rows if (r["arch"], r["m"], r["k"], r["n"],
                                            r["x"]) ==
@@ -1115,8 +1250,9 @@ def summarize(dm_rows, fa_rows, grouped_rows, serve, serve_moe, rd_rows,
           "max_abs_err": max(r["max_abs_err"] for r in dm_rows),
           "work": "one llama3-8b decode step: 225 calls at M=4",
           **{key: sum(r[key] * c for r, c in step)
-             for key in ("ms", "plain_ms", "bound_ms", "library_ms")},
-          "bound_by": "bytes"}
+             for key in ("ms", "eager_ms", "plain_ms", "bound_ms",
+                         "library_ms")},
+          "bound_by": "bytes", "timing": "cuda_graph"}
     fa0 = next(r for r in fa_rows if (r["s"], r["h"], r["dtype"]) ==
                (128, 32, "bfloat16"))
     fa = {"name": "flash_attention", "route": "cuda",
@@ -1126,11 +1262,13 @@ def summarize(dm_rows, fa_rows, grouped_rows, serve, serve_moe, rd_rows,
           "launches": serve["q8"]["launches"]["flash_attention"],
           "max_abs_err": max(r["max_abs_err"] for r in fa_rows),
           "work": "one llama3-8b prefill call: B=4 S=128 H=32 G=8 D=128 bf16",
-          **{key: fa0[key] for key in ("ms", "plain_ms", "bound_ms",
-                                       "library_ms", "bound_by")}}
+          "instance": fa0["instance"], "timing": "cuda_graph",
+          **{key: fa0[key] for key in ("ms", "eager_ms", "plain_ms",
+                                       "bound_ms", "library_ms",
+                                       "bound_by")}}
     gstep = [(next(r for r in grouped_rows if (r["m"], r["k"], r["n"],
-                                               r["scale"]) ==
-                   (GROUPED_ROWS[0], k, n, "shared")), calls)
+                                               r["scale"], r["x"]) ==
+                   (GROUPED_ROWS[0], k, n, "shared", "bfloat16")), calls)
              for (k, n), calls, _ in GROUPED_SHAPES]
     gm = {"name": "dequant_matmul_grouped", "route": "cuda",
           "source": "src/repro_torch/kernels/dequant_matmul/csrc/"
@@ -1140,9 +1278,11 @@ def summarize(dm_rows, fa_rows, grouped_rows, serve, serve_moe, rd_rows,
           "max_abs_err": max(r["max_abs_err"] for r in grouped_rows),
           "work": "one deepseek-moe-16b decode step: 81 calls, E=64, M=32 "
                   "per expert, bf16 x, shared (N,) scale",
+          "instance": gstep[0][0]["instance"],
           **{key: sum(r[key] * c for r, c in gstep)
-             for key in ("ms", "plain_ms", "bound_ms", "library_ms")},
-          "bound_by": gstep[0][0]["bound_by"]}
+             for key in ("ms", "eager_ms", "plain_ms", "bound_ms",
+                         "library_ms")},
+          "bound_by": gstep[0][0]["bound_by"], "timing": "cuda_graph"}
     t_b = sum(r["bytes_ms"] for r in rd_rows)
     t_f = sum(r["ops_ms"] for r in rd_rows)
     rd = {"name": "rd_quant", "route": "cuda",
@@ -1155,7 +1295,7 @@ def summarize(dm_rows, fa_rows, grouped_rows, serve, serve_moe, rd_rows,
           **{key: sum(r[key] for r in rd_rows)
              for key in ("ms", "plain_ms", "bound_ms")},
           "bound_by": "bytes" if t_b >= t_f else "operations",
-          "library_ms": None}
+          "library_ms": None, "timing": "eager"}
     return [dm, fa, gm, rd]
 
 
@@ -1178,6 +1318,7 @@ def main() -> int:
     results["parity"] = phase_parity(device)
     results["parity_codec"] = phase_parity_codec(device)
     results["parity_moe"] = phase_parity_moe(device)
+    results["parity_moe_bf16"] = phase_parity_moe_bf16(device)
     cfg, params = init_full(device, "llama3-8b")
     policy = rd_policy_rules(covered_leaves(params))
     results["rd_quant"] = phase_kernels_rd(params, policy)

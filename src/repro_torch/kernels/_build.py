@@ -1,7 +1,8 @@
 """Build the hand-written CUDA kernels with ``nvcc`` and load them.
 
 Each kernel's ``csrc/<name>.cu`` exposes a plain C interface and compiles,
-with the ``*.cuh`` headers beside it, to its own shared library, loaded
+with the ``*.cuh`` headers beside it and those in ``common/`` (PTX
+wrappers shared by several kernels), to its own shared library, loaded
 with ``ctypes`` (no PyTorch headers, so a build takes seconds).  Libraries
 go to ``build/kernels/`` at the root of the checkout, named by a hash of
 the sources and the flags, so an edited source rebuilds and an unchanged
@@ -22,6 +23,7 @@ from pathlib import Path
 
 KERNELS_DIR = Path(__file__).resolve().parent
 BUILD_DIR = KERNELS_DIR.parents[2] / "build" / "kernels"
+COMMON_DIR = KERNELS_DIR / "common"        # headers shared by several sources
 
 # kernel name -> source, relative to this package
 SOURCES = {
@@ -52,10 +54,12 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    """Named by a hash of the source, the headers beside it and the flags."""
+    """Named by a hash of the source, the headers beside it, the shared
+    headers in ``common/`` and the flags."""
     src = SOURCES[name]
-    text = b"".join(p.read_bytes()
-                    for p in (src, *sorted(src.parent.glob("*.cuh"))))
+    headers = (*sorted(src.parent.glob("*.cuh")),
+               *sorted(COMMON_DIR.glob("*.cuh")))
+    text = b"".join(p.read_bytes() for p in (src, *headers))
     h = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"{name}-{h[:16]}.so"
 

@@ -6,7 +6,9 @@ the way out.  ``dequant_matmul_grouped(x (E, M, K), w_q (E, K, N) int8,
 scale (E, N) | (N,) f32) -> (E, M, N) f32``: one product per expert.  A
 CPU tensor takes the plain version (``ref.py``); a CUDA tensor launches
 the hand-written kernel (``csrc/dequant_matmul.cu``,
-``csrc/dequant_matmul_grouped.cu``) or raises — there is no fallback.
+``csrc/dequant_matmul_grouped.cu``) or raises — there is no fallback.  The
+grouped kernel runs its tensor-core instance for a bf16 x and its f32 tile
+for a f32 x.
 """
 
 from __future__ import annotations

@@ -17,7 +17,8 @@ tile divides S" constraints are gone; the function computed is unchanged.
 
 :func:`flash_attention` is the kernel's wrapper: a CUDA tensor launches
 ``csrc/flash_attention.cu`` (or raises), a CPU tensor takes the plain
-version in ``ref.py``.
+version in ``ref.py``.  bf16 runs the kernel's tensor-core instance, f32
+its f32 instance.
 """
 
 from __future__ import annotations
@@ -50,6 +51,12 @@ def _launcher():
     return _FN
 
 
+def _aligned(t):
+    """The bf16 instance copies 16-byte rows with cp.async: a view that
+    starts off a 16-byte boundary is copied to a fresh allocation."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def _flash_cuda(q, k, v):
     b, sq, h, d = q.shape
     skv, g = k.shape[1], k.shape[2]
@@ -71,7 +78,7 @@ def _flash_cuda(q, k, v):
         if not t.is_cuda or t.device != q.device:
             raise ValueError(f"flash_attention: {name} on {t.device}, q on "
                              f"{q.device}")
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    q, k, v = (_aligned(t.contiguous()) for t in (q, k, v))
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = _launcher()(q.data_ptr(), k.data_ptr(), v.data_ptr(),

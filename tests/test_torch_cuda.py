@@ -6,8 +6,10 @@ inside the test body, so every worker collects the same tests).  On the
 card: ``python -m pytest -m cuda tests/test_torch_cuda.py``.  This file
 imports no JAX, so it runs where only PyTorch is installed.  Tolerances
 are relative to the largest magnitude of the plain result: 1e-4 where both
-sides compute in f32 (sums in another order), 2e-2 for bf16 attention (the
-kernel rounds p to bf16 before the PV product, as the TPU kernel did), 1e-3
+sides compute in f32 (sums in another order; for the grouped kernel's bf16-x
+instance too, whose bf16 x int8 products are exact in f32 and whose scale
+multiplies after the sum), 2e-2 for bf16 attention (the kernel rounds p to
+bf16 before the PV product, as the TPU kernel did), 1e-3
 for a smoke model's logits on the card against the CPU (f32 through every
 layer, as in ``chip_smoke.py``'s parity phases).
 """
@@ -26,10 +28,12 @@ from repro_torch.kernels.dequant_matmul import (dequant_matmul,  # noqa: E402
                                                 dequant_matmul_grouped)
 from repro_torch.kernels.dequant_matmul import ops as dmops  # noqa: E402
 from repro_torch.kernels.dequant_matmul.ref import (  # noqa: E402
-    dequant_matmul_grouped_ref, dequant_matmul_ref)
+    dequant_matmul_grouped_ref, dequant_matmul_grouped_scale_after,
+    dequant_matmul_ref)
 from repro_torch.kernels.flash_attention import ops as fops  # noqa: E402
 
 REPO = Path(__file__).resolve().parents[1]
+TOL_FLASH_BF16 = 2e-2
 
 pytestmark = pytest.mark.cuda
 
@@ -83,9 +87,14 @@ def test_dequant_matmul_rejects_what_the_kernel_does_not_take():
 
 @pytest.mark.parametrize("scale_form", ["shared", "per_expert"])
 @pytest.mark.parametrize("e,m,k,n", [(4, 8, 160, 96), (3, 5, 70, 33),
-                                     (2, 130, 300, 257), (64, 32, 2048, 1408),
+                                     (2, 130, 300, 257), (4, 17, 256, 160),
+                                     (64, 32, 2048, 1408),
                                      (64, 64, 1408, 2048)])
 def test_dequant_matmul_grouped_kernel_matches_plain(e, m, k, n, scale_form):
+    """f32 x: the f32 tile; bf16 x: the tensor-core instance (16-byte
+    copies at aligned shapes, element-wise loads at (3, 5, 70, 33) and
+    (2, 130, 300, 257); the 32-row M tile, which also takes M <= 16,
+    and the 64-row one)."""
     _needs_card()
     g = torch.Generator(device="cuda").manual_seed(e + m + k + n)
     wq = torch.randint(-127, 128, (e, k, n), generator=g, device="cuda",
@@ -104,6 +113,9 @@ def test_dequant_matmul_grouped_kernel_matches_plain(e, m, k, n, scale_form):
         assert want.abs().max() > 0
         assert torch.isfinite(got).all()
         assert _rel(got, want) <= 1e-4
+        if xdt == torch.bfloat16:           # and the kernel's own order
+            assert _rel(got, dequant_matmul_grouped_scale_after(
+                x, wq, sc)) <= 1e-4
         # the plain version on the CPU agrees as well
         assert _rel(got, dequant_matmul_grouped_ref(x.cpu(), wq.cpu(),
                                                     sc.cpu())) <= 1e-4
@@ -136,6 +148,88 @@ def test_dequant_matmul_grouped_rejects_and_never_takes_the_plain_version(
     assert kernels.launch_counts()["dequant_matmul_grouped"] == before
     dmops.dequant_matmul_grouped(x, wq, sc)
     assert kernels.launch_counts()["dequant_matmul_grouped"] == before + 1
+
+
+def test_grouped_tc_instance_takes_operands_off_a_16_byte_boundary():
+    """Aligned shapes, but x starts 2 bytes off a 16-byte boundary: the
+    tensor-core instance takes its element-wise loader."""
+    _needs_card()
+    g = torch.Generator(device="cuda").manual_seed(11)
+    e, m, k, n = 2, 16, 128, 128
+    wq = torch.randint(-127, 128, (e, k, n), generator=g, device="cuda",
+                       dtype=torch.int8)
+    sc = torch.rand((e, n), generator=g, device="cuda") * 0.01 + 1e-4
+    buf = torch.randn(e * m * k + 1, generator=g, device="cuda").to(
+        torch.bfloat16)
+    x = buf[1:].view(e, m, k)
+    assert x.data_ptr() % 16 != 0
+    before = kernels.launch_counts()["dequant_matmul_grouped"]
+    got = dequant_matmul_grouped(x, wq, sc)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["dequant_matmul_grouped"] == before + 1
+    assert _rel(got, dequant_matmul_grouped_ref(x, wq, sc)) <= 1e-4
+
+
+@pytest.mark.parametrize("h,g", [(32, 8), (16, 16), (4, 1)])
+@pytest.mark.parametrize("s", [1, 100, 128, 257])
+@pytest.mark.parametrize("d", [32, 128])
+def test_flash_tc_instance_matches_plain(d, s, h, g):
+    """The bf16 (tensor-core) instance at both head dims, ragged S and
+    every main-path group size."""
+    _needs_card()
+    gen = torch.Generator(device="cuda").manual_seed(s * 7 + d + h + g)
+    q, k, v = (torch.randn(shape, generator=gen, device="cuda").to(
+        torch.bfloat16) for shape in ((2, s, h, d), (2, s, g, d),
+                                      (2, s, g, d)))
+    before = kernels.launch_counts()["flash_attention"]
+    got = fops.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["flash_attention"] == before + 1
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    assert torch.isfinite(got.float()).all()
+    want = fops.flash_attention(q.cpu(), k.cpu(), v.cpu())
+    assert _rel(got, want) <= TOL_FLASH_BF16
+
+
+def test_tc_instances_raise_and_never_take_the_plain_version(monkeypatch):
+    _needs_card()
+
+    def plain(*args, **kwargs):
+        raise AssertionError("a CUDA tensor reached the plain version")
+    monkeypatch.setattr(dmops, "dequant_matmul_grouped_ref", plain)
+    monkeypatch.setattr(fops, "flash_attention_ref", plain)
+    x = torch.randn(2, 5, 70, device="cuda").to(torch.bfloat16)
+    wq = torch.zeros(2, 70, 33, dtype=torch.int8, device="cuda")
+    sc = torch.ones(33, device="cuda")
+    before = kernels.launch_counts()
+    with pytest.raises(TypeError, match="int8"):
+        dmops.dequant_matmul_grouped(x, wq.float(), sc)
+    with pytest.raises(ValueError, match="scale"):
+        dmops.dequant_matmul_grouped(x, wq, torch.ones(3, 33, device="cuda"))
+    with pytest.raises(ValueError, match="cpu"):
+        dmops.dequant_matmul_grouped(x, wq.cpu(), sc)
+    q = torch.zeros((1, 8, 4, 128), device="cuda", dtype=torch.bfloat16)
+    kv = torch.zeros((1, 8, 2, 128), device="cuda", dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head dim"):
+        fops.flash_attention(q[..., :64].contiguous(),
+                             kv[..., :64].contiguous(),
+                             kv[..., :64].contiguous())
+    with pytest.raises(TypeError, match="dtype"):
+        fops.flash_attention(q, kv.float(), kv)
+    with pytest.raises(ValueError, match="divide"):
+        fops.flash_attention(q, kv[:, :, :1].expand(1, 8, 3, 128)
+                             .contiguous(), kv[:, :, :1].expand(
+                                 1, 8, 3, 128).contiguous())
+    with pytest.raises(ValueError, match="cpu"):
+        fops.flash_attention(q, kv.cpu(), kv)
+    assert kernels.launch_counts() == before
+    dmops.dequant_matmul_grouped(x, wq, sc)
+    fops.flash_attention(q, kv, kv)
+    torch.cuda.synchronize()
+    after = kernels.launch_counts()
+    assert after["dequant_matmul_grouped"] == \
+        before["dequant_matmul_grouped"] + 1
+    assert after["flash_attention"] == before["flash_attention"] + 1
 
 
 def test_moe_prefill_routes_through_the_grouped_kernel():
@@ -226,15 +320,37 @@ def test_kv_cache_quantization_on_card_equals_cpu():
                            quantize_cache_value(x, delta))
 
 
-def test_flash_kernel_skv_longer_than_sq():
+@pytest.mark.parametrize("dtype,sq,skv,d", [
+    ("float32", 20, 45, 32), ("bfloat16", 20, 45, 32),
+    ("bfloat16", 1, 9, 128), ("bfloat16", 64, 200, 128),
+    ("bfloat16", 100, 257, 32)])
+def test_flash_kernel_skv_longer_than_sq(dtype, sq, skv, d):
     _needs_card()
+    dt = getattr(torch, dtype)
     gen = torch.Generator(device="cuda").manual_seed(3)
-    q = torch.randn((2, 20, 4, 32), generator=gen, device="cuda")
-    k = torch.randn((2, 45, 2, 32), generator=gen, device="cuda")
-    v = torch.randn((2, 45, 2, 32), generator=gen, device="cuda")
+    q = torch.randn((2, sq, 4, d), generator=gen, device="cuda").to(dt)
+    k = torch.randn((2, skv, 2, d), generator=gen, device="cuda").to(dt)
+    v = torch.randn((2, skv, 2, d), generator=gen, device="cuda").to(dt)
     got = fops.flash_attention(q, k, v)
     want = fops.flash_attention(q.cpu(), k.cpu(), v.cpu())
-    assert _rel(got, want) <= 1e-4
+    assert _rel(got, want) <= (1e-4 if dt == torch.float32
+                               else TOL_FLASH_BF16)
+
+
+def test_flash_tc_instance_takes_a_view_off_a_16_byte_boundary():
+    """The wrapper copies a bf16 operand whose rows do not start on a
+    16-byte boundary (the kernel stages rows with 16-byte copies)."""
+    _needs_card()
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    n = 2 * 33 * 4 * 128
+    buf = torch.randn(3 * n + 1, generator=gen, device="cuda").to(
+        torch.bfloat16)
+    q, k, v = (buf[1 + i * n:1 + (i + 1) * n].view(2, 33, 4, 128)
+               for i in range(3))
+    assert q.data_ptr() % 16 != 0
+    got = fops.flash_attention(q, k, v)
+    want = fops.flash_attention(q.cpu(), k.cpu(), v.cpu())
+    assert _rel(got, want) <= TOL_FLASH_BF16
 
 
 def test_prefill_routes_to_the_kernel_and_decode_does_not():

@@ -8,6 +8,7 @@ the same f32 products in a different order.  The CUDA kernels are held
 against these plain versions in ``test_torch_cuda.py``, on the card.
 """
 
+import os
 import subprocess
 import sys
 from pathlib import Path
@@ -176,6 +177,44 @@ def test_build_sources_exist_and_nothing_builds_at_import():
         assert "sm_90a" in " ".join(_build.NVCC_FLAGS)
     assert _build._LIBS == {}
     assert _build.BUILD_DIR == REPO / "build" / "kernels"
+
+
+def test_library_name_hashes_the_shared_headers(tmp_path, monkeypatch):
+    """A library is named by its source, the headers beside it and those in
+    ``common/``: an edit to a shared PTX wrapper rebuilds every kernel that
+    includes it."""
+    from repro_torch.kernels import _build
+    assert sorted(p.name for p in _build.COMMON_DIR.glob("*.cuh")) == \
+        ["ptx.cuh"]
+    for name in ("flash_attention", "dequant_matmul_grouped"):
+        assert '#include "../../common/ptx.cuh"' in \
+            _build.SOURCES[name].read_text()
+    before = {n: _build._lib_path(n) for n in _build.SOURCES}
+    edited = tmp_path / "ptx.cuh"
+    edited.write_text((_build.COMMON_DIR / "ptx.cuh").read_text() + "\n")
+    monkeypatch.setattr(_build, "COMMON_DIR", tmp_path)
+    for n in _build.SOURCES:
+        assert _build._lib_path(n) != before[n], n
+        assert _build._lib_path(n).parent == _build.BUILD_DIR
+
+
+def test_kernel_yardsticks_needs_a_card_and_imports_no_jax():
+    """The parent-against-change timing script fails without a card, prints
+    no result, and imports nothing of JAX or of the JAX package."""
+    script = REPO / "kernel_yardsticks.py"
+    res = subprocess.run([sys.executable, str(script), str(REPO)], cwd=REPO,
+                         capture_output=True, text=True, timeout=120,
+                         env={**os.environ, "CUDA_VISIBLE_DEVICES": ""})
+    assert res.returncode != 0
+    assert "{" not in res.stdout
+    code = ("import sys; sys.path[:0] = ['.']\n"
+            "import kernel_yardsticks\n"
+            "bad = sorted(m for m in sys.modules if m == 'jax' or "
+            "m.startswith(('jax.', 'jaxlib', 'repro.')) or m == 'repro')\n"
+            "assert not bad, bad\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
 
 
 def test_port_imports_no_jax_and_nothing_of_repro():
