@@ -89,7 +89,9 @@ DM_SHAPES = {
                          ((10944, 2048), 1, "dense w_down"),
                          ((2048, 102400), 1, "head")],
 }
-DM_ROWS = (1, 4, 512)        # decode rows at 1 and 4 slots; prefill B*S
+DM_ROWS = (1, 4, 16, 512)    # decode rows at 1 and 4 slots; 16
+#                              (continuous batching); prefill B*S
+DM_PREFILL_M = DM_ROWS[-1]
 # deepseek-moe-16b's expert banks: E experts, (K, N) with calls per forward
 # pass, and rows per expert: the capacity buffer of a 4-slot decode step
 # (4 x cap 8) and of a 4 x 128-token prefill (4 x cap 16)
@@ -252,13 +254,12 @@ def _matmul_peak(x_bytes):
     """The rate a dequantize-matmul's operations can reach.  A bf16 x times
     an int8 level (exactly a bf16) is exact in f32, and the per-column scale
     factors out of the sum over K, so the bf16 tensor cores with f32 sums
-    compute the function: the bf16 peak bounds it.  A f32 x has 24
-    significant bits: its products are counted at the f32 rate, which
-    assumes no split.  Split exactly into three bf16 pieces (8 bits each,
-    each piece times a level exact in f32), the same function would run on
-    the tensor cores at BF16_FLOPS / 3, about 5x the f32 rate, and would
-    then be bound by bytes; no kernel of the port does that yet."""
-    return BF16_FLOPS if x_bytes == 2 else F32_FLOPS
+    compute the function: the bf16 peak bounds it.  A f32 x splits exactly
+    into three bf16 pieces (bf16x3: 8 bits each, each piece times a level
+    exact in f32), so the same function runs on the tensor cores at three
+    MMAs per product: BF16_FLOPS / 3, the rate dequant_matmul's tensor-core
+    instance computes a f32 x at."""
+    return BF16_FLOPS if x_bytes == 2 else BF16_FLOPS / 3
 
 
 def _dm_bound(m, k, n, x_bytes):
@@ -269,11 +270,14 @@ def _dm_bound(m, k, n, x_bytes):
 
 
 def phase_kernels_dequant(device):
-    """dequant_matmul vs its plain version at every main-path shape."""
+    """dequant_matmul vs its plain version at every main-path shape and
+    DM_ROWS: the decode instance at M <= 8, the tensor-core one above."""
     import torch
-    from repro_torch.kernels.dequant_matmul.ops import dequant_matmul_cuda
+    from repro_torch.kernels.dequant_matmul.ops import (dequant_matmul_cuda,
+                                                        schedule)
     from repro_torch.kernels.dequant_matmul.ref import dequant_matmul_ref
 
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
     gen = torch.Generator(device=device)
     gen.manual_seed(0)
     rows = []
@@ -286,7 +290,10 @@ def phase_kernels_dequant(device):
                             dtype=torch.int8) for _ in range(copies)]
         sc = torch.rand(n, generator=gen, device=device) * 0.01 + 1e-4
         w_deq = ws[0].float() * sc        # library yardstick's operand
+        w_bf16 = w_deq.bfloat16()         # cuBLAS speed reference's
         for m in DM_ROWS:
+            kc, splits, _, bm = schedule(m, k, n, sms)
+            inst = "decode" if m <= 8 else "tensor_core"
             for xdt in (torch.float32, torch.bfloat16):
                 x = torch.randn((m, k), generator=gen, device=device
                                 ).to(xdt)
@@ -308,18 +315,29 @@ def phase_kernels_dequant(device):
                 xf = x.float()
                 lib = time_ms_graph(lambda: torch.matmul(xf, w_deq))
                 bound, by = _dm_bound(m, k, n, x.element_size())
-                rows.append({"arch": arch, "m": m, "k": k, "n": n,
-                             "x": str(xdt)[6:],
-                             "calls_per_forward": calls, "weights": names,
-                             "max_abs_err": abs_e, "max_rel_err": rel_e,
-                             "ms": ms, "eager_ms": eager, "plain_ms": plain,
-                             "library_ms": lib, "bound_ms": bound,
-                             "bound_by": by})
+                row = {"arch": arch, "m": m, "k": k, "n": n,
+                       "x": str(xdt)[6:], "instance": inst, "kc": kc,
+                       "splits": splits, "bm": bm,
+                       "calls_per_forward": calls, "weights": names,
+                       "max_abs_err": abs_e, "max_rel_err": rel_e,
+                       "ms": ms, "eager_ms": eager, "plain_ms": plain,
+                       "library_ms": lib, "bound_ms": bound,
+                       "bound_by": by}
+                extra = ""
+                if xdt == torch.bfloat16:
+                    # cuBLAS on a bf16 weight: a speed reference at this
+                    # shape, not the same function
+                    xb = x.bfloat16()
+                    row["bf16_matmul_ms"] = time_ms_graph(
+                        lambda: torch.matmul(xb, w_bf16))
+                    extra = f"  bf16 matmul {row['bf16_matmul_ms']:.4f}"
+                rows.append(row)
                 log(f"[kernels] dequant_matmul m={m:4d} k={k:5d} n={n:6d} "
-                    f"x={str(xdt)[6:]:8s} err {rel_e:.2e}  kernel {ms:.4f} ms"
-                    f" (eager {eager:.4f})  plain {plain:.4f}  library "
-                    f"{lib:.4f}  bound {bound:.4f} ({by})")
-        del ws, w_deq
+                    f"x={str(xdt)[6:]:8s} ({inst}, S={splits}) err "
+                    f"{rel_e:.2e}  kernel {ms:.4f} ms (eager {eager:.4f})  "
+                    f"plain {plain:.4f}  library {lib:.4f}{extra}  bound "
+                    f"{bound:.4f} ({by})")
+        del ws, w_deq, w_bf16
     return rows
 
 
@@ -1014,9 +1032,16 @@ def _serve_full(cfg, params, backend, device, prompts, new_tokens):
     report = registry.dispatch_report()
     peak = torch.cuda.max_memory_allocated()
     tokens = np.stack([h.result() for h in hs])
-    logits, _ = prefill(sess.params, cfg,
-                        tokens=torch.from_numpy(prompts).to(device),
+    # one prefill forward on its own, without the scheduler around it: the
+    # first tick also holds a decode step, and the host's share of a tick
+    # moves by more than a prefill's device time
+    prompt_t = torch.from_numpy(prompts).to(device)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, _ = prefill(sess.params, cfg, tokens=prompt_t,
                         max_len=s + new_tokens)
+    torch.cuda.synchronize()
+    prefill_fwd_ms = 1e3 * (time.perf_counter() - t0)
     finite = bool(torch.isfinite(logits).all().item())
     plain_steps = [t for j, t in enumerate(step_s)
                    if j > 0 and not PROF_STEPS[0] <= j < PROF_STEPS[1]]
@@ -1028,6 +1053,7 @@ def _serve_full(cfg, params, backend, device, prompts, new_tokens):
            "dispatch_report": report, "decode_steps":
            sess.stats["decode_steps"], "first_step_ms": 1e3 * step_s[0],
            "prefill_ms": 1e3 * step_s[0] - decode_ms,
+           "prefill_forward_ms": prefill_fwd_ms,
            "decode_ms_per_step_median": decode_ms,
            "decode_ms_per_step_mean": 1e3 * sum(decode) / len(decode),
            "profiled_steps": list(PROF_STEPS),
@@ -1123,8 +1149,8 @@ def phase_serve(cfg, params, device):
         torch.cuda.empty_cache()
         fwd = 1 + r["decode_steps"]
         log(f"[serve] {cfg.name} {backend}: prefill {r['prefill_ms']:.1f} ms "
-            f"(first "
-            f"tick {r['first_step_ms']:.1f} ms), decode "
+            f"(first tick {r['first_step_ms']:.1f} ms; one forward alone "
+            f"{r['prefill_forward_ms']:.1f} ms), decode "
             f"{r['decode_ms_per_step_median']:.2f} ms/step median "
             f"({r['decode_tokens_per_s']:.1f} tok/s at 4 slots), peak "
             f"{r['max_memory_allocated'] / 2**30:.2f} GiB, device busy "
@@ -1227,7 +1253,8 @@ def summarize(dm_rows, fa_rows, grouped_rows, serve, serve_moe, rd_rows,
               deploy):
     """One entry per kernel.  dequant_matmul: one full-width llama3-8b
     decode step's 225 calls at 4 slots (bf16 x for projections, f32 x for
-    the head); flash_attention: one full-width llama3-8b prefill call (B=4,
+    the head), and its prefill forward (``prefill_*``: 224 calls at M=512
+    and the head at M=4); flash_attention: one full-width llama3-8b prefill call (B=4,
     S=128, bf16); dequant_matmul_grouped: one full-width deepseek-moe-16b
     decode step's 81 calls (M=32 rows per expert, bf16 x, the shared (N,)
     scale); rd_quant: one 2-pass assignment of each of the 11 full-width
@@ -1242,6 +1269,11 @@ def summarize(dm_rows, fa_rows, grouped_rows, serve, serve_moe, rd_rows,
                     ("llama3-8b", m, k, n, x))
     step = [(row(4, k, n, "float32" if names == "head" else "bfloat16"),
              calls) for (k, n), calls, names in DM_SHAPES["llama3-8b"]]
+    # one llama3-8b prefill forward: 224 projections at M=512 (bf16 x), the
+    # head on the last positions only (M=4, f32 x)
+    prefill = [(row(DM_PREFILL_M, k, n, "bfloat16"), calls)
+               for (k, n), calls, names in DM_SHAPES["llama3-8b"]
+               if names != "head"] + [r for r in step if r[1] == 1]
     dm = {"name": "dequant_matmul", "route": "cuda",
           "source": "src/repro_torch/kernels/dequant_matmul/csrc/"
                     "dequant_matmul.cu",
@@ -1252,7 +1284,11 @@ def summarize(dm_rows, fa_rows, grouped_rows, serve, serve_moe, rd_rows,
           **{key: sum(r[key] * c for r, c in step)
              for key in ("ms", "eager_ms", "plain_ms", "bound_ms",
                          "library_ms")},
-          "bound_by": "bytes", "timing": "cuda_graph"}
+          "bound_by": "bytes", "timing": "cuda_graph",
+          "prefill_work": "one llama3-8b prefill forward: 224 calls at "
+                          "M=512 (bf16 x) and the head at M=4 (f32 x)",
+          **{f"prefill_{key}": sum(r[key] * c for r, c in prefill)
+             for key in ("ms", "bound_ms", "library_ms")}}
     fa0 = next(r for r in fa_rows if (r["s"], r["h"], r["dtype"]) ==
                (128, 32, "bfloat16"))
     fa = {"name": "flash_attention", "route": "cuda",

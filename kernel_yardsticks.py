@@ -17,7 +17,15 @@ named:
   and 64, the shared (N,) scale), with ``torch.bmm`` on the dequantized
   f32 bank;
 - dequant_matmul at one decode step (M=4) of each model, the head with a
-  f32 x, summed over the step's calls.
+  f32 x, summed over the step's calls;
+- dequant_matmul at one prefill forward (M=512) of each model, every
+  projection (bf16 x) and the MoE router (f32 x), summed over the
+  forward's calls (the head runs on the last positions only, M=4, and is
+  in the decode rows), each row beside ``torch.matmul`` on the
+  dequantized f32 weight (the same function), ``torch.matmul`` of the
+  bf16 x on the weight dequantized to bf16 (a speed reference for cuBLAS
+  at that shape, not the same function) and, for a bf16 x, the grouped
+  kernel's tensor-core instance called with one expert (E=1).
 
 Every kernel call is first held against its plain version.  One JSON line
 per checkout is printed; all of them go to
@@ -123,10 +131,58 @@ def _measure(root: Path) -> dict:
                 step[key] += t[key] * calls
             del ws
         steps[arch] = step
+
+    def graph(fn):
+        return {"graph_ms": cs.time_ms_graph(fn)}
+
+    prefill, forwards = [], {}
+    m = cs.DM_PREFILL_M
+    for arch, shapes in cs.DM_SHAPES.items():
+        fwd = {"kernel": 0.0, "matmul": 0.0, "matmul_bf16": 0.0}
+        for (k, n), calls, names in shapes:
+            if names == "head":
+                continue
+            copies = max(1, math.ceil(120e6 / (k * n)))
+            ws = [torch.randint(-127, 128, (k, n), generator=gen, device=dev,
+                                dtype=torch.int8) for _ in range(copies)]
+            sc = torch.rand(n, generator=gen, device=dev) * 0.01 + 1e-4
+            xdt = torch.float32 if names == "router" else torch.bfloat16
+            x = torch.randn((m, k), generator=gen, device=dev).to(xdt)
+            _, rel = cs.rel_err(dequant_matmul_cuda(x, ws[0], sc),
+                                dequant_matmul_ref(x, ws[0], sc))
+            cs.check(rel <= cs.TOL_F32, f"dm {arch} m={m} k={k} n={n}: "
+                     f"rel {rel}")
+            it = iter(range(1 << 30))
+            w_deq = ws[0].float() * sc
+            xf, xb, wb = x.float(), x.bfloat16(), w_deq.bfloat16()
+            row = {"arch": arch, "m": m, "k": k, "n": n, "x": str(xdt)[6:],
+                   "calls": calls, "rel_err": rel,
+                   "kernel": both(lambda: dequant_matmul_cuda(
+                       x, ws[next(it) % copies], sc)),
+                   "matmul": graph(lambda: torch.matmul(xf, w_deq)),
+                   "matmul_bf16": graph(lambda: torch.matmul(xb, wb)),
+                   "grouped_e1": None}
+            if xdt == torch.bfloat16:
+                x3, sc3 = x[None], sc
+                jt = iter(range(1 << 30))
+                _, rel3 = cs.rel_err(
+                    dequant_matmul_grouped_cuda(x3, ws[0][None], sc3)[0],
+                    dequant_matmul_ref(x, ws[0], sc))
+                cs.check(rel3 <= cs.TOL_F32, f"grouped E=1 k={k} n={n}")
+                row["grouped_e1"] = graph(lambda: dequant_matmul_grouped_cuda(
+                    x3, ws[next(jt) % copies][None], sc3))
+            prefill.append(row)
+            fwd["kernel"] += row["kernel"]["graph_ms"] * calls
+            fwd["matmul"] += row["matmul"]["graph_ms"] * calls
+            fwd["matmul_bf16"] += row["matmul_bf16"]["graph_ms"] * calls
+            del ws, w_deq, wb
+        forwards[arch] = fwd
     return {"root": str(root), "card": card, "device": name,
             "torch": torch.__version__, "flash_attention": flash,
             "dequant_matmul_grouped": grouped, "dequant_matmul": dm,
-            "dequant_matmul_decode_step": steps}
+            "dequant_matmul_decode_step": steps,
+            "dequant_matmul_prefill": prefill,
+            "dequant_matmul_prefill_forward": forwards}
 
 
 def main(argv: list[str]) -> int:

@@ -1,7 +1,8 @@
 // PTX wrappers shared by the tensor-core kernels (sm_90a): cp.async copies
-// into shared memory and the bf16 mma.sync with f32 accumulators.
-// Included by flash_attention.cu and dequant_matmul_grouped.cu; kernels/
-// _build.py hashes this file into every library's name.
+// into shared memory, the bf16 mma.sync with f32 accumulators, and a
+// thread-block cluster's barrier and distributed shared memory.  Included
+// by flash_attention.cu and the dequant_matmul sources; kernels/_build.py
+// hashes this file into every library's name.
 
 #pragma once
 
@@ -37,6 +38,40 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// every thread of every block of the cluster arrives and waits; shared
+// memory written before it is visible to the cluster's blocks after it
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n"
+      "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+// the address of shared-memory address `addr` in the cluster's block `rank`
+__device__ __forceinline__ uint32_t cluster_map(uint32_t addr,
+                                                uint32_t rank) {
+  uint32_t d;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(d) : "r"(addr), "r"(rank));
+  return d;
+}
+__device__ __forceinline__ float ld_cluster(uint32_t addr) {
+  float v;
+  asm volatile("ld.shared::cluster.f32 %0, [%1];\n" : "=f"(v) : "r"(addr)
+               : "memory");
+  return v;
+}
+__device__ __forceinline__ float4 ld_cluster4(uint32_t addr) {
+  float4 v;
+  asm volatile("ld.shared::cluster.v4.f32 {%0,%1,%2,%3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w) : "r"(addr)
+               : "memory");
+  return v;
 }
 
 }  // namespace ptx

@@ -48,11 +48,13 @@
 //   operands off a 16-byte boundary, take the element-wise loader of the
 //   same kernel (ALIGNED = false): synchronous loads into the same ring.
 //   Ragged M, N and K are masked in the kernel (zero-filled operands in the
-//   K tail); no host padding.
-// * f32 x: dm_tiled.cuh's 64x64 f32 FMA tile (shared with dequant_matmul.cu's
-//   prefill path), the expert on blockIdx.z, the scale applied to the weight
-//   tile before the products as in the reference.  A f32 x has 24
-//   significant bits, so the bf16 argument above does not hold for it.
+//   K tail); no host padding.  The fragment code, the swizzles and the
+//   stage loaders are dm_tc.cuh's, shared with dequant_matmul.cu's
+//   tensor-core instance.
+// * f32 x: dm_tiled.cuh's 64x64 f32 FMA tile, the expert on blockIdx.z, the
+//   scale applied to the weight tile before the products as in the
+//   reference.  A f32 x has 24 significant bits, so the bf16 argument above
+//   does not hold for it without a split (dequant_matmul.cu's bf16x3).
 //
 // The capacity buffer stays dense: empty experts and padding rows are
 // computed, as the reference computes them.
@@ -62,38 +64,25 @@
 #include <stdint.h>
 
 #include "../../common/ptx.cuh"
+#include "dm_tc.cuh"
 #include "dm_tiled.cuh"
 
 namespace {
 
 using namespace ptx;
+using dmtc::BK;
+using dmtc::BN;
 
-constexpr int TC_BN = 128;                  // output columns per block
-constexpr int TC_BK = 64;                   // K per ring stage
 constexpr int TC_STAGES = 4;
 constexpr int TC_THREADS = 128;             // 4 warps x 32 columns
 
 template <int MT>                           // MT m16 tiles: 16 * MT rows
 struct TcTile {
   static constexpr int BM = 16 * MT;
-  static constexpr int X_BYTES = BM * TC_BK * 2;   // bf16 x, 128 B per row
-  static constexpr int W_BYTES = TC_BK * TC_BN;    // int8 levels
-  static constexpr int STAGE = X_BYTES + W_BYTES;
+  static constexpr int X_BYTES = BM * BK * 2;      // bf16 x, 128 B per row
+  static constexpr int STAGE = X_BYTES + dmtc::W_BYTES;
   static constexpr int SMEM = TC_STAGES * STAGE;
 };
-
-// Byte offsets in a stage's tiles, XOR-swizzled by 16-byte chunk.  x: row m
-// (128 B = 64 bf16 of K), chunk ch ^ 2 (m & 3): a half-warp's 8-byte A loads
-// (rows gr, chunks 2 k16 + tg / 2) land in 8 distinct chunks.  w: row k
-// (128 B = the strip's columns), chunk ch ^ 2 ((k >> 2) & 3): a warp's word
-// loads (rows 4 tg + r, chunks 2 warp + gr / 4) land in 8 distinct chunks.
-__device__ __forceinline__ int x_off(int m, int byte) {
-  return m * 128 + ((((byte >> 4) ^ ((m & 3) << 1))) << 4) + (byte & 15);
-}
-__device__ __forceinline__ int w_off(int k, int byte) {
-  return k * 128 + ((((byte >> 4) ^ (((k >> 2) & 3) << 1))) << 4) +
-         (byte & 15);
-}
 
 // Stage one K step: x rows m0.. (BM of them, K columns k0..k0+63) and level
 // rows k0..k0+63 (columns n0..n0+127), zero outside M, K and N.
@@ -102,41 +91,9 @@ __device__ __forceinline__ void load_stage(
     unsigned char* xs, unsigned char* ws, const __nv_bfloat16* __restrict__ x,
     const int8_t* __restrict__ w, int M, int K, int N, int m0, int n0,
     int k0, int tid) {
-  constexpr int BM = TcTile<MT>::BM;
-  if (ALIGNED) {                 // K % 8 == 0, N % 16 == 0, aligned bases
-    for (int c = tid; c < BM * 8; c += TC_THREADS) {
-      const int r = c >> 3, kk = k0 + (c & 7) * 8, m = m0 + r;
-      const bool ok = m < M && kk < K;
-      cp_async16(smem_u32(xs + x_off(r, (c & 7) * 16)),
-                 x + (ok ? (long long)m * K + kk : 0), ok);
-    }
-    for (int c = tid; c < TC_BK * 8; c += TC_THREADS) {
-      const int r = c >> 3, n = n0 + (c & 7) * 16, kk = k0 + r;
-      const bool ok = kk < K && n < N;
-      cp_async16(smem_u32(ws + w_off(r, (c & 7) * 16)),
-                 w + (ok ? (long long)kk * N + n : 0), ok);
-    }
-  } else {
-    for (int e = tid; e < BM * TC_BK; e += TC_THREADS) {
-      const int r = e / TC_BK, kc = e % TC_BK, m = m0 + r, kk = k0 + kc;
-      const __nv_bfloat16 v = (m < M && kk < K) ? x[(long long)m * K + kk]
-                                                : __float2bfloat16(0.f);
-      *reinterpret_cast<__nv_bfloat16*>(xs + x_off(r, kc * 2)) = v;
-    }
-    for (int e = tid; e < TC_BK * TC_BN; e += TC_THREADS) {
-      const int r = e / TC_BN, nc = e % TC_BN, kk = k0 + r, n = n0 + nc;
-      ws[w_off(r, nc)] = (kk < K && n < N)
-                             ? static_cast<unsigned char>(
-                                   w[(long long)kk * N + n])
-                             : 0;
-    }
-  }
-}
-
-// byte i of u (an int8 level xor 0x80, i.e. level + 128) as an exact f32
-__device__ __forceinline__ uint32_t level_f32_bits(uint32_t u, int i) {
-  const float f = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7440 + i));
-  return __float_as_uint(f - 8388736.f);    // 2^23 + 128
+  dmtc::load_x_tile<__nv_bfloat16, TcTile<MT>::BM, TC_THREADS, ALIGNED>(
+      xs, x, M, K, K, m0, k0, tid);
+  dmtc::load_w_tile<TC_THREADS, ALIGNED>(ws, w, N, K, n0, k0, tid);
 }
 
 template <int MT, bool ALIGNED>
@@ -156,9 +113,9 @@ dm_grouped_tc(const __nv_bfloat16* __restrict__ x,
   }
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int gr = lane >> 2, tg = lane & 3;
-  const int n0 = blockIdx.x * TC_BN;
+  const int n0 = blockIdx.x * BN;
   const int m0 = blockIdx.y * Tile::BM;
-  const int KT = (K + TC_BK - 1) / TC_BK;
+  const int KT = (K + BK - 1) / BK;
 
   float acc[MT][4][4];
 #pragma unroll
@@ -173,7 +130,7 @@ dm_grouped_tc(const __nv_bfloat16* __restrict__ x,
     if (s < KT) {
       unsigned char* st = tc_smem + s * Tile::STAGE;
       load_stage<MT, ALIGNED>(st, st + Tile::X_BYTES, x, w, M, K, N, m0, n0,
-                              s * TC_BK, tid);
+                              s * BK, tid);
     }
     cp_async_commit();
   }
@@ -186,45 +143,20 @@ dm_grouped_tc(const __nv_bfloat16* __restrict__ x,
       if (nk < KT) {
         unsigned char* st = tc_smem + (nk % TC_STAGES) * Tile::STAGE;
         load_stage<MT, ALIGNED>(st, st + Tile::X_BYTES, x, w, M, K, N, m0,
-                                n0, nk * TC_BK, tid);
+                                n0, nk * BK, tid);
       }
       cp_async_commit();
     }
     const unsigned char* xs = tc_smem + (kt % TC_STAGES) * Tile::STAGE;
     const unsigned char* ws = xs + Tile::X_BYTES;
 #pragma unroll
-    for (int k16 = 0; k16 < TC_BK / 16; ++k16) {
-      // B fragments of this warp's 4 n8 blocks: rows 4tg..4tg+3, columns
-      // 4gr + j of the warp's 32
+    for (int k16 = 0; k16 < BK / 16; ++k16) {
       uint32_t b[4][2];
-      {
-        uint32_t f[4][4];
-#pragma unroll
-        for (int r = 0; r < 4; ++r) {
-          const uint32_t u =
-              *reinterpret_cast<const uint32_t*>(
-                  ws + w_off(16 * k16 + 4 * tg + r, 32 * warp + 4 * gr)) ^
-              0x80808080u;
-#pragma unroll
-          for (int j = 0; j < 4; ++j) f[r][j] = level_f32_bits(u, j);
-        }
-        // bf16 of a small integer is the top half of its f32
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          b[j][0] = __byte_perm(f[0][j], f[1][j], 0x7632);
-          b[j][1] = __byte_perm(f[2][j], f[3][j], 0x7632);
-        }
-      }
+      dmtc::load_b(ws, k16, warp, gr, tg, b);
 #pragma unroll
       for (int mt = 0; mt < MT; ++mt) {
         uint32_t a[4];
-#pragma unroll
-        for (int hh = 0; hh < 2; ++hh) {
-          const uint2 v = *reinterpret_cast<const uint2*>(
-              xs + x_off(16 * mt + gr + 8 * hh, 32 * k16 + 8 * tg));
-          a[hh] = v.x;                      // x columns 4tg, 4tg + 1
-          a[2 + hh] = v.y;                  // x columns 4tg + 2, 4tg + 3
-        }
+        dmtc::load_a(xs, 16 * mt + gr, k16, tg, a);
 #pragma unroll
         for (int j = 0; j < 4; ++j) mma_bf16(acc[mt][j], a, b[j][0], b[j][1]);
       }
@@ -288,7 +220,7 @@ int launch_tc(const void* x, const void* w, const void* scale,
                                  bytes)
           : cudaSuccess;
   if (attr != cudaSuccess) return (int)attr;
-  dim3 grid((N + TC_BN - 1) / TC_BN, (M + TcTile<MT>::BM - 1) /
+  dim3 grid((N + BN - 1) / BN, (M + TcTile<MT>::BM - 1) /
             TcTile<MT>::BM, E);
   dm_grouped_tc<MT, ALIGNED><<<grid, TC_THREADS, bytes, st>>>(
       static_cast<const __nv_bfloat16*>(x), static_cast<const int8_t*>(w),
@@ -331,8 +263,8 @@ extern "C" int dequant_matmul_grouped_launch(const void* x, int x_is_bf16,
   if (E <= 0 || E > 65535 || M <= 0 || N <= 0 || K < 0)
     return (int)cudaErrorInvalidValue;
   if (!x_is_bf16)
-    return dm::launch_tiled<float, true>(x, w, scale, out, M, K, N, E,
-                                         scale_stride, st);
+    return dm::launch_tiled(x, w, scale, out, M, K, N, E, scale_stride,
+                              st);
   if (K % 8 == 0 && N % 16 == 0 && scale_stride % 4 == 0 && aligned16(x) &&
       aligned16(w) && aligned16(scale) && aligned16(out))
     return launch_tc_rows<true>(x, w, scale, scale_stride, out, E, M, K, N,

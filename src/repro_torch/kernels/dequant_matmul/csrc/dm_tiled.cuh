@@ -1,42 +1,33 @@
-// The 64x64 f32 output-tile dequantize-matmul shared by dequant_matmul.cu
-// (prefill, one matrix) and dequant_matmul_grouped.cu (GROUPED: one matrix
-// per expert on blockIdx.z).  For the z-th matrix:
+// The 64x64 f32 output-tile dequantize-matmul of dequant_matmul_grouped.cu's
+// f32-x instance, one matrix per expert on blockIdx.z.  For the z-th
+// matrix:
 //     out[z] (M, N) f32 = x[z] (M, K) @ (w[z] (K, N) int8 * scale[z] (N,))
 // with x, w and out packed back to back ((z, M, K), (z, K, N), (z, M, N))
 // and scale advancing by scale_stride per matrix (0: one (N,) scale shared
-// by all of them).  The x tile (converted to f32) and the weight tile
+// by all of them).  The x tile and the weight tile
 // (dequantized, q * scale, in f32) are staged in shared memory, K in steps
 // of 16; each of 256 threads accumulates a 4x4 register tile with f32 FMAs.
-// Ragged M, N and K edges are masked here; offsets are 64-bit.  Only the
-// GROUPED kernel shifts its pointers to the z-th matrix: shifted pointers
-// live in registers, and in the single-matrix kernel they made it spill
-// and run slower than it does reading them from parameter space.  (Folding
-// z * M and z * K into the indices instead slowed the grouped kernel.)
+// Ragged M, N and K edges are masked here; offsets are 64-bit.  (Folding
+// z * M and z * K into the indices instead of shifting the pointers slowed
+// the kernel.)
 
 #pragma once
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace dm {
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-
 constexpr int TB_M = 64, TB_N = 64, TB_K = 16, TB_THREADS = 256;
 constexpr int TB_XPAD = 4;                  // keeps float4 rows, fewer conflicts
 
-template <typename XT, bool GROUPED>
 __global__ void __launch_bounds__(TB_THREADS)
-dm_tiled(const XT* __restrict__ x, const int8_t* __restrict__ w,
+dm_tiled(const float* __restrict__ x, const int8_t* __restrict__ w,
          const float* __restrict__ scale, float* __restrict__ out,
          int M, int K, int N, long long scale_stride) {
   __shared__ __align__(16) float xs[TB_K][TB_M + TB_XPAD];
   __shared__ __align__(16) float ws[TB_K][TB_N];
-  if (GROUPED) {
+  {
     const long long z = blockIdx.z;
     x += z * M * K;
     w += z * K * N;
@@ -63,7 +54,7 @@ dm_tiled(const XT* __restrict__ x, const int8_t* __restrict__ w,
       const int e = tid + TB_THREADS * i;
       const int row = e / TB_K, kk = e % TB_K;
       const long long m = m0 + row, k = k0 + kk;
-      xs[kk][row] = (m < M && k < K) ? to_f32(x[m * K + k]) : 0.f;
+      xs[kk][row] = (m < M && k < K) ? x[m * K + k] : 0.f;
     }
 #pragma unroll
     for (int i = 0; i < (TB_K * TB_N) / TB_THREADS; ++i) {
@@ -98,15 +89,13 @@ dm_tiled(const XT* __restrict__ x, const int8_t* __restrict__ w,
   }
 }
 
-// Launch `matrices` tiled products (grid z; GROUPED when more than one can
-// be asked for).  Returns cudaGetLastError().
-template <typename XT, bool GROUPED>
-int launch_tiled(const void* x, const void* w, const void* scale, void* out,
-                 int M, int K, int N, int matrices, long long scale_stride,
-                 cudaStream_t st) {
+// Launch `matrices` tiled products (grid z).  Returns cudaGetLastError().
+inline int launch_tiled(const void* x, const void* w, const void* scale,
+                        void* out, int M, int K, int N, int matrices,
+                        long long scale_stride, cudaStream_t st) {
   dim3 grid((N + TB_N - 1) / TB_N, (M + TB_M - 1) / TB_M, matrices);
-  dm_tiled<XT, GROUPED><<<grid, TB_THREADS, 0, st>>>(
-      static_cast<const XT*>(x), static_cast<const int8_t*>(w),
+  dm_tiled<<<grid, TB_THREADS, 0, st>>>(
+      static_cast<const float*>(x), static_cast<const int8_t*>(w),
       static_cast<const float*>(scale), static_cast<float*>(out), M, K, N,
       scale_stride);
   return (int)cudaGetLastError();

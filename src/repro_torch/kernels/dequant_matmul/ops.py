@@ -6,9 +6,12 @@ the way out.  ``dequant_matmul_grouped(x (E, M, K), w_q (E, K, N) int8,
 scale (E, N) | (N,) f32) -> (E, M, N) f32``: one product per expert.  A
 CPU tensor takes the plain version (``ref.py``); a CUDA tensor launches
 the hand-written kernel (``csrc/dequant_matmul.cu``,
-``csrc/dequant_matmul_grouped.cu``) or raises — there is no fallback.  The
-grouped kernel runs its tensor-core instance for a bf16 x and its f32 tile
-for a f32 x.
+``csrc/dequant_matmul_grouped.cu``) or raises — there is no fallback.
+``dequant_matmul`` runs its weight-streaming decode instance up to M = 8
+and its tensor-core instance above (or where a decode block's x would not
+fit), for either x type; :func:`schedule` picks the instance, the tile
+and how far K splits.  The grouped kernel runs its tensor-core instance
+for a bf16 x and its f32 tile for a f32 x.
 """
 
 from __future__ import annotations
@@ -24,12 +27,74 @@ from .ref import dequant_matmul_grouped_ref, dequant_matmul_ref
 
 _ARGTYPES = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
              ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-             ctypes.c_void_p]
+             ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
 _GROUPED_ARGTYPES = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
                      ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
                      ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                      ctypes.c_void_p]
 _FNS: dict = {}
+
+# dequant_matmul's grid (csrc/dequant_matmul.cu).  A block covers TILE
+# output columns.  The decode instance (M <= DECODE_MAX_M) runs K in rounds
+# of DECODE_ROWS rows, staging at most DECODE_X_BYTES of f32 x; the
+# tensor-core one in steps of TC_BK rows over TILE or SMALL_BM rows.  K
+# splits into at most MAX_SPLITS chunks (one thread-block cluster).
+DECODE_MAX_M = 8
+TILE = 128
+DECODE_ROWS = 32
+DECODE_MIN_STEPS = 4          # a decode block's load rounds, at least
+DECODE_X_BYTES = 64 * 1024
+TC_BK = 64
+TC_MAX_STEPS = 128            # K steps of a TILE-row block, at most
+SMALL_BM = 32
+SMALL_N = 64
+MAX_SPLITS = 8
+_SMS: dict = {}               # device index -> SM count
+
+
+def schedule(m: int, k: int, n: int, sms: int) -> tuple[int, int, int, int]:
+    """(kc, splits, tiles, bm): K rows per block, the number of K chunks,
+    of output tiles, and the instance of one ``dequant_matmul`` launch on a
+    card of ``sms`` SMs: bm = M for the decode instance, else the
+    tensor-core tile's rows.
+
+    Decode, at M <= DECODE_MAX_M where a block's share of x fits
+    DECODE_X_BYTES: K is split until the blocks fill one wave, as many as
+    SMs (a second, partial wave measured slower: it only adds its tail),
+    but a block keeps at least DECODE_MIN_STEPS load rounds.  Tensor cores:
+    the SMALL_BM-row tile for few rows, for N <= SMALL_N (the MoE router)
+    and where TILE-row tiles would fill less than a quarter of a wave; K
+    is split until the small tiles fill a wave, and in two for the large
+    ones (measured faster than one or four chunks at every main-path
+    shape), more where a block would run over TC_MAX_STEPS steps."""
+    rounds = -(-k // DECODE_ROWS)
+    if m <= DECODE_MAX_M and \
+            4 * m * -(-rounds // MAX_SPLITS) * DECODE_ROWS <= DECODE_X_BYTES:
+        tiles = -(-n // TILE)
+        s = max(1, min(-(-sms // tiles), -(-rounds // DECODE_MIN_STEPS),
+                       MAX_SPLITS))
+        per = min(-(-rounds // s), DECODE_X_BYTES // (4 * m) // DECODE_ROWS)
+        return per * DECODE_ROWS, -(-rounds // per), tiles, m
+    steps = -(-k // TC_BK)
+    big = -(-n // TILE) * -(-m // TILE)
+    small = m <= SMALL_BM or n <= SMALL_N or 4 * big <= sms
+    bm = SMALL_BM if small else TILE
+    tiles = -(-n // TILE) * -(-m // bm)
+    if bm == SMALL_BM:
+        s = -(-sms // tiles)
+    else:
+        s = max(2, -(-steps // TC_MAX_STEPS))
+    s = min(s, steps, MAX_SPLITS)
+    per = -(-steps // s)
+    return per * TC_BK, -(-steps // per), tiles, bm
+
+
+def _sms(device: torch.device) -> int:
+    idx = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    if idx not in _SMS:
+        _SMS[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+    return _SMS[idx]
 
 
 def _launcher(name: str = "dequant_matmul", argtypes=_ARGTYPES):
@@ -78,9 +143,10 @@ def dequant_matmul_cuda(x2: torch.Tensor, w_q: torch.Tensor,
     if k == 0:
         return out.zero_()
     stream = torch.cuda.current_stream(x2.device).cuda_stream
+    kc, _, _, bm = schedule(m, k, n, _sms(x2.device))
     err = _launcher()(x2.data_ptr(), int(x2.dtype == torch.bfloat16),
                       w_q.data_ptr(), scale.data_ptr(), out.data_ptr(),
-                      m, k, n, stream)
+                      m, k, n, kc, bm, stream)
     _build.check(err, "dequant_matmul")
     count_launch("dequant_matmul")
     return out

@@ -15,6 +15,37 @@ def dequant_matmul_ref(x: torch.Tensor, w_q: torch.Tensor,
     return x.to(torch.float32) @ w
 
 
+def bf16x3_split(x: torch.Tensor):
+    """(hi, mid, lo), three bf16 tensors with hi + mid + lo == x exactly for
+    a f32 x (|x| >= 2^-110, finite in bf16): hi = rn(x), mid = rn(x - hi),
+    lo = x - hi - mid, the split the kernel's tensor-core instance makes of
+    a f32 x.  Each piece has 8 significant bits, so its product with an
+    int8 level is exact in f32."""
+    x = x.to(torch.float32)
+    hi = x.to(torch.bfloat16)
+    r = x - hi.float()
+    mid = r.to(torch.bfloat16)
+    lo = (r - mid.float()).to(torch.bfloat16)
+    return hi, mid, lo
+
+
+def dequant_matmul_scale_after(x: torch.Tensor, w_q: torch.Tensor,
+                               scale: torch.Tensor) -> torch.Tensor:
+    """The product in the order of the kernel's tensor-core instance: f32
+    sums of exact products x * q, then the per-column scale, out =
+    s * (x @ q).  A bf16 x is used as it is; a f32 x as its three bf16
+    pieces (:func:`bf16x3_split`), s * (lo @ q + mid @ q + hi @ q).  For
+    tests and ``chip_smoke.py``; the op computes with
+    :func:`dequant_matmul_ref` on the CPU."""
+    q = w_q.to(torch.float32)
+    if x.dtype == torch.bfloat16:
+        acc = x.float() @ q
+    else:
+        hi, mid, lo = bf16x3_split(x)
+        acc = lo.float() @ q + mid.float() @ q + hi.float() @ q
+    return acc * scale[None, :].to(torch.float32)
+
+
 def dequant_matmul_grouped_ref(x: torch.Tensor, w_q: torch.Tensor,
                                scale: torch.Tensor) -> torch.Tensor:
     """One independent product per expert: x (E, M, K) float @

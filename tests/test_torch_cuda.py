@@ -29,7 +29,7 @@ from repro_torch.kernels.dequant_matmul import (dequant_matmul,  # noqa: E402
 from repro_torch.kernels.dequant_matmul import ops as dmops  # noqa: E402
 from repro_torch.kernels.dequant_matmul.ref import (  # noqa: E402
     dequant_matmul_grouped_ref, dequant_matmul_grouped_scale_after,
-    dequant_matmul_ref)
+    dequant_matmul_ref, dequant_matmul_scale_after)
 from repro_torch.kernels.flash_attention import ops as fops  # noqa: E402
 
 REPO = Path(__file__).resolve().parents[1]
@@ -70,6 +70,107 @@ def test_dequant_matmul_kernel_matches_plain(m, k, n):
         assert want.abs().max() > 0
         assert torch.isfinite(got).all()
         assert _rel(got, want) <= 1e-4
+
+
+def _dm_operands(m, k, n, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    wq = torch.randint(-127, 128, (k, n), generator=g, device="cuda",
+                       dtype=torch.int8)
+    sc = torch.rand(n, generator=g, device="cuda") * 0.01 + 1e-4
+    x = torch.randn((m, k), generator=g, device="cuda")
+    return x, wq, sc
+
+
+@pytest.mark.parametrize("k,n", [(512, 256), (1030, 257)])
+@pytest.mark.parametrize("m", [1, 2, 3, 4, 5, 6, 7, 8, 9, 16, 17, 31, 64,
+                               100, 512])
+def test_dequant_matmul_instances_match_plain(m, k, n):
+    """M <= 8: the decode instance; above: the tensor-core one; each with
+    K split over blocks (these shapes fill no wave unsplit), aligned
+    (512, 256: 16-byte copies) and ragged (1030, 257: element-wise)."""
+    _needs_card()
+    x, wq, sc = _dm_operands(m, k, n, m * 31 + k + n)
+    for xdt in (torch.float32, torch.bfloat16):
+        xt = x.to(xdt)
+        before = kernels.launch_counts()["dequant_matmul"]
+        got = dequant_matmul(xt, wq, sc)
+        torch.cuda.synchronize()
+        assert kernels.launch_counts()["dequant_matmul"] == before + 1
+        assert got.dtype == torch.float32 and got.shape == (m, n)
+        assert torch.isfinite(got).all()
+        assert _rel(got, dequant_matmul_ref(xt, wq, sc)) <= 1e-4
+        assert _rel(got, dequant_matmul_scale_after(xt, wq, sc)) <= 1e-4
+
+
+@pytest.mark.parametrize("m", [4, 64])
+@pytest.mark.parametrize("xdt", ["float32", "bfloat16"])
+def test_dequant_matmul_takes_x_off_a_16_byte_boundary(m, xdt):
+    """Aligned K and N, but x starts one element off a 16-byte boundary:
+    the tensor-core instance takes its element-wise loader."""
+    _needs_card()
+    dt = getattr(torch, xdt)
+    _, wq, sc = _dm_operands(m, 256, 256, 5)
+    buf = torch.randn(m * 256 + 1, device="cuda").to(dt)
+    x = buf[1:].view(m, 256)
+    assert x.data_ptr() % 16 != 0
+    got = dequant_matmul(x, wq, sc)
+    assert _rel(got, dequant_matmul_ref(x, wq, sc)) <= 1e-4
+
+
+@pytest.mark.parametrize("m,k,n,xdt", [
+    (4, 4096, 1024, "bfloat16"), (4, 4096, 1024, "float32"),
+    (4, 2048, 102400, "float32"), (512, 4096, 1024, "bfloat16"),
+    (512, 2048, 64, "float32"), (17, 1030, 257, "bfloat16"),
+    (8, 16416, 256, "float32")])
+def test_dequant_matmul_is_deterministic_and_graph_capturable(m, k, n, xdt):
+    """Two calls give identical bits (a cluster sums the split-K partials
+    in a fixed order), and a call captured in a CUDA graph and replayed
+    gives the eager call's bits.  The last case has too long a K for the
+    decode instance's x staging and takes the tensor cores at M = 8."""
+    _needs_card()
+    x, wq, sc = _dm_operands(m, k, n, m + k + n)
+    x = x.to(getattr(torch, xdt))
+    a = dequant_matmul(x, wq, sc)
+    b = dequant_matmul(x, wq, sc)
+    assert torch.equal(a, b)
+    assert _rel(a, dequant_matmul_ref(x, wq, sc)) <= 1e-4
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        dequant_matmul(x, wq, sc)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        c = dequant_matmul(x, wq, sc)
+    for _ in range(2):
+        c.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(c, a)
+
+
+def test_dequant_matmul_instances_raise_and_never_take_the_plain_version(
+        monkeypatch):
+    """Without its library the wrapper raises for both instances; it never
+    reaches the plain version, and counts no launch."""
+    _needs_card()
+    from repro_torch.kernels import _build
+
+    def plain(*args):
+        raise AssertionError("a CUDA tensor reached the plain version")
+
+    def missing(name):
+        raise RuntimeError(f"nvcc not found: {name} cannot be built")
+    monkeypatch.setattr(dmops, "dequant_matmul_ref", plain)
+    monkeypatch.setattr(dmops, "_FNS", {})
+    monkeypatch.setattr(_build, "load", missing)
+    before = kernels.launch_counts()["dequant_matmul"]
+    for m in (4, 64):
+        for xdt in (torch.float32, torch.bfloat16):
+            x, wq, sc = _dm_operands(m, 128, 128, m)
+            with pytest.raises(RuntimeError, match="nvcc"):
+                dmops.dequant_matmul(x.to(xdt), wq, sc)
+    assert kernels.launch_counts()["dequant_matmul"] == before
 
 
 def test_dequant_matmul_rejects_what_the_kernel_does_not_take():

@@ -1,16 +1,19 @@
-"""Why the bf16-x instance of the grouped kernel may use the tensor cores,
-and the bounds ``chip_smoke.py`` holds the kernels to.  CPU only.
+"""Why the port's dequantize-matmul kernels may use the tensor cores, and
+the bounds ``chip_smoke.py`` holds the kernels to.  CPU only.
 
-The reference computes out = x @ (q * s) with f32 sums.  The kernel's
-bf16-x instance computes out = s * (x @ q): bf16 x bf16 products summed in
-f32 on the tensor cores, the per-column scale once in the epilogue.  That
-is the same function when every product x * q is exact in f32, which holds
-for a bf16 x (8 significant bits) and an int8 level (at most 8): (b) checks
-it for all 256 levels.  (a) holds the kernel's order, as a plain PyTorch
-function, against the JAX package's grouped op at deepseek-moe-16b's
-per-expert widths to 1e-5 of max|ref| (f32 sums in another order).  (c)
-checks that the bounds count operations at the bf16 tensor-core rate for a
-bf16 x, so they are bytes, and at the f32 rate for a f32 x.
+The reference computes out = x @ (q * s) with f32 sums.  The kernels'
+tensor-core instances compute out = s * (x @ q): bf16 x bf16 products
+summed in f32 on the tensor cores, the per-column scale once in the
+epilogue.  That is the same function when every product x * q is exact in
+f32, which holds for a bf16 x (8 significant bits) and an int8 level (at
+most 8): (b) checks it for all 256 levels.  A f32 x is split exactly into
+three bf16 pieces first, hi + mid + lo == x (bf16x3; checked on 10^6
+values), so each piece times a level is exact too.  (a) holds the kernels'
+orders, as plain PyTorch functions, against the JAX package's ops at
+llama3-8b's and deepseek-moe-16b's widths to 1e-5 of max|ref| (f32 sums in
+another order).  (c) checks that the bounds count operations at the bf16
+tensor-core rate for a bf16 x and at a third of it for a f32 x (three
+MMAs per product), so most of them are bytes.
 
 Run as a script, it prints how far each order is from the exact f64 result
 (E=8, M=32, K=2048, N=1408), the measurement the kernel's source note cites.
@@ -29,15 +32,21 @@ import jax.numpy as jnp  # noqa: E402
 import ml_dtypes  # noqa: E402
 
 from repro.kernels.dequant_matmul.ops import \
+    dequant_matmul as jdm  # noqa: E402
+from repro.kernels.dequant_matmul.ops import \
     dequant_matmul_grouped as jdmg  # noqa: E402
 from repro_torch.convert import tensor_from_numpy  # noqa: E402
 from repro_torch.kernels.dequant_matmul.ref import (  # noqa: E402
-    dequant_matmul_grouped_ref, dequant_matmul_grouped_scale_after)
+    bf16x3_split, dequant_matmul_grouped_ref,
+    dequant_matmul_grouped_scale_after, dequant_matmul_ref,
+    dequant_matmul_scale_after)
 
 REPO = Path(__file__).resolve().parents[1]
 RTOL = 1e-5
 # deepseek-moe-16b's expert banks: w_gate / w_up and w_down
 EXPERT_KN = [(2048, 1408), (1408, 2048)]
+# llama3-8b's projections: wk / wv and wq / wo
+DENSE_KN = [(4096, 1024), (4096, 4096)]
 
 
 def _t(a):
@@ -70,6 +79,70 @@ def test_scale_after_order_matches_jax_at_expert_widths(k, n, m, scale_form):
         scale = float(np.max(np.abs(want)))
         assert scale > 0
         assert float(np.max(np.abs(got - want))) <= RTOL * scale, kw
+
+
+def test_bf16x3_split_is_exact_over_a_wide_exponent_range():
+    """hi + mid + lo == x for 10^6 f32 values with exponents -110..126 and
+    random signs and significands, and each piece is a bf16 whose
+    products with every level are exact."""
+    rng = np.random.default_rng(3)
+    n = 1_000_000
+    sig = rng.integers(0, 1 << 23, n, dtype=np.uint32)
+    exp = rng.integers(-110 + 127, 127 + 127, n, dtype=np.uint32)
+    sign = rng.integers(0, 2, n, dtype=np.uint32) << 31
+    x = (sign | (exp << 23) | sig).view(np.float32)
+    assert np.isfinite(x).all()
+    assert float(np.log2(np.abs(x)).min()) < -100
+    assert float(np.log2(np.abs(x)).max()) > 120
+    hi, mid, lo = bf16x3_split(_t(x))
+    assert hi.dtype == mid.dtype == lo.dtype == torch.bfloat16
+    back = (hi.double() + mid.double() + lo.double()).numpy()
+    np.testing.assert_array_equal(back, x.astype(np.float64))
+    # and in the kernel's f32 order, hi + mid + lo rounds to nothing
+    np.testing.assert_array_equal(
+        ((hi.float() + mid.float()) + lo.float()).numpy(), x)
+
+
+def _dense_inputs(m, k, n, xdt, seed):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((m, k)).astype(np.float32)
+    if xdt == "bfloat16":
+        x = x.astype(ml_dtypes.bfloat16)
+    wq = rng.integers(-127, 128, (k, n)).astype(np.int8)
+    sc = (rng.random(n) * 0.01 + 1e-4).astype(np.float32)
+    return x, wq, sc
+
+
+@pytest.mark.parametrize("xdt", ["bfloat16", "float32"])
+@pytest.mark.parametrize("k,n", DENSE_KN)
+def test_scale_after_orders_match_jax_at_llama3_widths(k, n, xdt):
+    """(a) M = 16 (a continuous batch past the decode instance): s * (x @ q)
+    for a bf16 x and s * (lo @ q + mid @ q + hi @ q) for a f32 x against
+    the JAX package's dequant_matmul (its plain reference), and the port's
+    plain version (the reference's order) against both."""
+    m = 16
+    x, wq, sc = _dense_inputs(m, k, n, xdt, k + n)
+    got = dequant_matmul_scale_after(_t(x), _t(wq), _t(sc)).numpy()
+    plain = dequant_matmul_ref(_t(x), _t(wq), _t(sc)).numpy()
+    assert got.dtype == np.float32 and got.shape == (m, n)
+    want = np.asarray(jdm(jnp.asarray(x), jnp.asarray(wq), jnp.asarray(sc),
+                          use_ref=True), np.float32)
+    scale = float(np.max(np.abs(want)))
+    assert scale > 0
+    assert float(np.max(np.abs(got - want))) <= RTOL * scale
+    assert float(np.max(np.abs(plain - want))) <= RTOL * scale
+
+
+def test_scale_after_order_matches_jax_pallas_interpret():
+    """(a) the same against the JAX package's Pallas kernel in interpret
+    mode, at a width it runs quickly on the CPU (both x types)."""
+    for xdt in ("bfloat16", "float32"):
+        x, wq, sc = _dense_inputs(16, 512, 256, xdt, 7)
+        got = dequant_matmul_scale_after(_t(x), _t(wq), _t(sc)).numpy()
+        want = np.asarray(jdm(jnp.asarray(x), jnp.asarray(wq),
+                              jnp.asarray(sc), interpret=True), np.float32)
+        scale = float(np.max(np.abs(want)))
+        assert float(np.max(np.abs(got - want))) <= RTOL * scale, xdt
 
 
 def _bf16_spread():
@@ -115,7 +188,10 @@ def _chip_smoke():
 
 
 def test_grouped_bound_is_bytes_for_bf16_x_and_operations_for_f32_x():
-    """(c) E=64, M=32, (K, N) = (2048, 1408), shared (N,) scale."""
+    """(c) E=64, (K, N) = (2048, 1408), shared (N,) scale.  A f32 x counts
+    at BF16_FLOPS / 3 (the bf16x3 split's three MMAs), which makes the
+    decode rows (M = 32) bytes as well; operations bound it from M = 128
+    rows per expert."""
     cs = _chip_smoke()
     e, m, k, n = 64, 32, 2048, 1408
     nbytes = e * m * k * 2 + e * k * n + 4 * n + 4 * e * m * n
@@ -124,9 +200,14 @@ def test_grouped_bound_is_bytes_for_bf16_x_and_operations_for_f32_x():
     assert ms == pytest.approx(nbytes / cs.HBM_BYTES_PER_S * 1e3)
     assert ms == pytest.approx(0.0610, abs=5e-5)
     ms, by = cs._grouped_bound(e, m, k, n, 4, n)
+    assert by == "bytes"
+    nbytes32 = e * m * k * 4 + e * k * n + 4 * n + 4 * e * m * n
+    assert ms == pytest.approx(nbytes32 / cs.HBM_BYTES_PER_S * 1e3)
+    assert ms == pytest.approx(0.0635, abs=5e-5)
+    ms, by = cs._grouped_bound(e, 128, k, n, 4, n)
     assert by == "operations"
-    assert ms == pytest.approx(2.0 * e * m * k * n / cs.F32_FLOPS * 1e3)
-    assert ms == pytest.approx(0.1763, abs=5e-5)
+    assert ms == pytest.approx(2.0 * e * 128 * k * n * 3 / cs.BF16_FLOPS
+                               * 1e3)
     # prefill rows (M = 64): still bytes for bf16 x
     assert cs._grouped_bound(e, 64, k, n, 2, n)[1] == "bytes"
 
@@ -138,9 +219,15 @@ def test_dm_bound_counts_bf16_x_at_the_tensor_core_rate():
     assert ms == pytest.approx(2.0 * 512 * 4096 * 4096 / cs.BF16_FLOPS
                                * 1e3)
     assert ms == pytest.approx(0.0174, abs=5e-5)
+    # f32 x: the bf16x3 split runs three MMAs per product, BF16_FLOPS / 3
+    # (it was the f32 rate, 0.2564 ms, when no kernel split a f32 x)
     ms, by = cs._dm_bound(512, 4096, 4096, 4)
     assert by == "operations"
-    assert ms == pytest.approx(0.2564, abs=5e-5)
+    assert ms == pytest.approx(3 * 2.0 * 512 * 4096 * 4096 / cs.BF16_FLOPS
+                               * 1e3)
+    assert ms == pytest.approx(0.0521, abs=5e-5)
+    # the router at prefill (f32 x, 2048 x 64)
+    assert cs._dm_bound(512, 2048, 64, 4)[1] == "bytes"
     # decode (M = 4): the weight bytes, whatever x's type
     assert cs._dm_bound(4, 4096, 14336, 2)[1] == "bytes"
     assert cs._dm_bound(4, 4096, 14336, 4)[1] == "bytes"
