@@ -28,6 +28,7 @@ Phases (each fails the run on its own; nothing is caught and ignored):
              tokens dropped past the experts' capacity, and once in bf16
              (the bf16 kernel instances the full-width models run: logits
              within TOL_MOE_BF16_LOGITS, no greedy token may differ);
+             the smoke models run the f32 kernel instances;
 5. deploy RD — eq. (11) level assignment of the whole full-width tree
              (11 leaves) through the kernel, 44 launches, device time
              against its bound and the rate model's bits per parameter;
@@ -49,7 +50,14 @@ Phases (each fails the run on its own; nothing is caught and ignored):
              product through dequant_matmul_grouped; then cut to 2 layers
              (the dense one and one MoE layer), a serve-q8 container served
              on the container backend with the in-memory q8 session's
-             tokens and launch counts.
+             tokens and launch counts;
+9. MoE serve, f32 — deepseek-moe-16b at its published widths in f32,
+             2 layers, on q8 (4 x 128 prompt tokens + 8 new, greedy): the
+             f32 kernel instances at full width; greedy tokens equal the
+             same session's on the CPU, prefill logits within
+             TOL_MOE_F32_LOGITS, launch counts of the path, an empty
+             dispatch report, and the device busy time per decode step
+             with the grouped kernel's share.
 
 The line before the last is the card's name and power limit; one line
 before it is the ``{"kernels": [...]}`` summary; the last line is
@@ -125,6 +133,14 @@ RD_OPS_CAND = 30             # per candidate, f32: add, 2 clips, step*k, w-,
 # a lower bound.
 ISSUE_OPS_PER_S = F32_FLOPS / 2
 DEPLOY_LAYERS = 2            # depth of the full-width container served
+# deepseek-moe-16b in f32 at full width, DEPLOY_LAYERS deep: new tokens per
+# request, the decode ticks traced (7 ticks in all: the first one holds
+# the prefill), and the card-vs-CPU limit on prefill logits relative to
+# max|logit| (f32 through every layer: the f32 kernel instances' sums in
+# another order)
+MOE_F32_NEW_TOKENS = 8
+MOE_F32_PROF_STEPS = (3, 7)
+TOL_MOE_F32_LOGITS = 1e-4
 
 
 def log(msg: str) -> None:
@@ -341,12 +357,19 @@ def phase_kernels_dequant(device):
     return rows
 
 
+def _flash_peak(elt):
+    """The rate attention's two products can reach: bf16 operands on the
+    bf16 tensor cores; f32 operands by the 3xTF32 split (three TF32
+    products per product, TF32 at half the bf16 rate): BF16_FLOPS / 6, the
+    rate the kernel's f32 instance computes at."""
+    return BF16_FLOPS if elt == 2 else BF16_FLOPS / 6
+
+
 def _flash_bound(b, sq, skv, h, g, d, elt):
     nbytes = (2 * b * sq * h * d + 2 * b * skv * g * d) * elt
     pairs = sum(min(skv, i + 1 + (skv - sq)) for i in range(sq))
     flops = 4.0 * d * b * h * pairs
-    peak = BF16_FLOPS if elt == 2 else F32_FLOPS
-    t_b, t_f = nbytes / HBM_BYTES_PER_S, flops / peak
+    t_b, t_f = nbytes / HBM_BYTES_PER_S, flops / _flash_peak(elt)
     return max(t_b, t_f) * 1e3, ("bytes" if t_b >= t_f else "operations")
 
 
@@ -404,7 +427,7 @@ def phase_kernels_flash(device):
             rows.append({"b": b, "s": s, "h": h, "g": g, "d": d,
                          "dtype": str(dt)[6:],
                          "instance": ("tc_bf16" if dt == torch.bfloat16
-                                      else "f32_simt"),
+                                      else "tc_f32"),
                          "max_abs_err": abs_e,
                          "max_rel_err": rel_e, "ms": ms, "eager_ms": eager,
                          "plain_ms": plain_ms, "library_ms": lib,
@@ -427,9 +450,10 @@ def _grouped_bound(e, m, k, n, x_bytes, scale_floats):
 
 def phase_kernels_grouped(device):
     """dequant_matmul_grouped vs its plain version at deepseek-moe-16b's
-    expert shapes: bf16 x (the main path, the tensor-core instance) in both
-    scale forms at decode and prefill rows, and f32 x (the f32 tile) at
-    decode rows with the shared scale."""
+    expert shapes, both x types (bf16: the bf16 models' path; f32: the f32
+    models', split into three bf16 pieces in the kernel: mma.sync at the
+    decode rows, wgmma at the prefill rows) in both scale forms at decode
+    and prefill rows (M = 32 and 64)."""
     import torch
     from repro_torch.kernels.dequant_matmul.ops import \
         dequant_matmul_grouped_cuda
@@ -448,13 +472,12 @@ def phase_kernels_grouped(device):
             sc = torch.rand(sshape, generator=gen, device=device) * 0.01 \
                 + 1e-4
             w_deq = wq.float() * (sc if sc.dim() == 1 else sc[:, None, :])
-            cases = [(m, torch.bfloat16) for m in GROUPED_ROWS]
-            if form == "shared":
-                cases.append((GROUPED_ROWS[0], torch.float32))
-            for m, xdt in cases:
+            for m, xdt in [(m, dt) for dt in (torch.bfloat16, torch.float32)
+                           for m in GROUPED_ROWS]:
                 x = torch.randn((e, m, k), generator=gen, device=device
                                 ).to(xdt)
-                inst = "tc_bf16" if xdt == torch.bfloat16 else "f32_tile"
+                inst = ("tc_bf16" if xdt == torch.bfloat16 else
+                        "tc_f32" if m <= 32 else "wgmma_f32")
                 got = dequant_matmul_grouped_cuda(x, wq, sc)
                 want = dequant_matmul_grouped_ref(x, wq, sc)
                 torch.cuda.synchronize()
@@ -992,8 +1015,12 @@ def phase_deploy_serve(device):
     return out
 
 
-def _serve_full(cfg, params, backend, device, prompts, new_tokens):
-    """Drive one full-width session; return timings and launch counts."""
+def _serve_full(cfg, params, backend, device, prompts, new_tokens,
+                prof_steps=PROF_STEPS):
+    """Drive one full-width session; return timings and launch counts, the
+    greedy tokens (``tokens``) and one prefill forward's logits
+    (``logits``, on the host), which the caller takes out.  Ticks
+    ``prof_steps[0]`` to ``prof_steps[1] - 1`` are traced."""
     import numpy as np
     import torch
     from repro_torch.kernels import registry
@@ -1015,7 +1042,7 @@ def _serve_full(cfg, params, backend, device, prompts, new_tokens):
     t_all = time.perf_counter()
     while sess.pending:
         i = len(step_s)
-        if i == PROF_STEPS[0]:
+        if i == prof_steps[0]:
             prof = profile(activities=[ProfilerActivity.CPU,
                                        ProfilerActivity.CUDA])
             prof.__enter__()
@@ -1023,7 +1050,7 @@ def _serve_full(cfg, params, backend, device, prompts, new_tokens):
         t0 = time.perf_counter()
         sess.step()                   # host copy of the logits syncs
         step_s.append(time.perf_counter() - t0)
-        if i == PROF_STEPS[1] - 1:
+        if i == prof_steps[1] - 1:
             torch.cuda.synchronize()
             prof_wall = time.perf_counter() - t_prof
             prof.__exit__(None, None, None)
@@ -1043,12 +1070,14 @@ def _serve_full(cfg, params, backend, device, prompts, new_tokens):
     torch.cuda.synchronize()
     prefill_fwd_ms = 1e3 * (time.perf_counter() - t0)
     finite = bool(torch.isfinite(logits).all().item())
+    check(prof is not None and prof_wall > 0, f"{cfg.name} {backend}: "
+          f"{len(step_s)} ticks, fewer than the traced ones {prof_steps}")
     plain_steps = [t for j, t in enumerate(step_s)
-                   if j > 0 and not PROF_STEPS[0] <= j < PROF_STEPS[1]]
+                   if j > 0 and not prof_steps[0] <= j < prof_steps[1]]
     decode = sorted(plain_steps)
     decode_ms = 1e3 * decode[len(decode) // 2]
     busy, top = _device_time(prof)
-    n_prof = PROF_STEPS[1] - PROF_STEPS[0]
+    n_prof = prof_steps[1] - prof_steps[0]
     res = {"backend": backend, "launches": launches,
            "dispatch_report": report, "decode_steps":
            sess.stats["decode_steps"], "first_step_ms": 1e3 * step_s[0],
@@ -1056,18 +1085,20 @@ def _serve_full(cfg, params, backend, device, prompts, new_tokens):
            "prefill_forward_ms": prefill_fwd_ms,
            "decode_ms_per_step_median": decode_ms,
            "decode_ms_per_step_mean": 1e3 * sum(decode) / len(decode),
-           "profiled_steps": list(PROF_STEPS),
+           "profiled_steps": list(prof_steps),
            "profiled_wall_ms_per_step": 1e3 * prof_wall / n_prof,
            "device_busy_ms_per_step": (None if busy is None
                                        else busy / n_prof),
            "device_idle_share": (None if busy is None
                                  else 1.0 - busy / (1e3 * prof_wall)),
            "top_device_ms_per_step": {k: v / n_prof for k, v in top},
+           "grouped_ms_per_step": _kernel_ms(prof, "dm_grouped_tc") / n_prof,
            "total_s_with_trace": total,
            "decode_tokens_per_s": b / (decode_ms / 1e3),
            "max_memory_allocated": peak, "logits_finite": finite,
            "logits_shape": list(logits.shape),
-           "first_row_tail": tokens[0, -8:].tolist()}
+           "first_row_tail": tokens[0, -8:].tolist(),
+           "tokens": tokens, "logits": logits.float().cpu().numpy()}
     del sess, logits
     return res
 
@@ -1085,6 +1116,13 @@ def _device_time(prof):
         return None, []
     rows.sort(key=lambda r: -r[1])
     return sum(t for _, t in rows), rows[:5]
+
+
+def _kernel_ms(prof, name) -> float:
+    """Device time (ms) of the kernels whose name holds ``name`` in a
+    profiler window."""
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if str(e.device_type).endswith("CUDA") and name in e.key) / 1e3
 
 
 def per_forward_launches(cfg) -> dict:
@@ -1145,6 +1183,7 @@ def phase_serve(cfg, params, device):
     out = {"q8_mismatch_card_vs_cpu": mism}
     for backend in ("q8", "bf16"):
         r = _serve_full(cfg, params, backend, device, prompts, new_tokens)
+        del r["tokens"], r["logits"]
         gc.collect()
         torch.cuda.empty_cache()
         fwd = 1 + r["decode_steps"]
@@ -1241,6 +1280,97 @@ def phase_container_moe(device):
     return res
 
 
+def phase_serve_moe_f32(device, cpu="cpu"):
+    """deepseek-moe-16b at its published widths in f32 (params and compute),
+    cut to DEPLOY_LAYERS layers (the dense one and one MoE layer), served
+    on q8: 4 requests of 128 prompt tokens and MOE_F32_NEW_TOKENS new ones,
+    greedy, through the f32 kernel instances (flash attention's 3xTF32 one
+    at prefill, the grouped matmul's bf16x3 one, dequant_matmul with a f32
+    x).  The same q8 tree served by the port on the CPU must give the same
+    greedy tokens and prefill logits within TOL_MOE_F32_LOGITS of
+    max|logit|; the launch counts must be the path's, the dispatch report
+    empty.  Device busy time per decode step and the grouped kernel's
+    share come from the profiler, as in phase_serve."""
+    import numpy as np
+    import torch
+    from repro_torch.compression import flatten_tree, quantize_tree_q8
+    from repro_torch.compression.tree import unflatten
+    from repro_torch.models.transformer import prefill
+    from repro_torch.serve.session import ServeConfig, ServeSession
+
+    cfg, params = init_full(device, "deepseek-moe-16b",
+                            num_layers=DEPLOY_LAYERS, param_dtype="float32",
+                            compute_dtype="float32")
+    tree = quantize_tree_q8(params)           # on the card; q8 passes it on
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    rng = np.random.default_rng(5)
+    prompts = rng.integers(0, cfg.vocab_size, (4, 128)).astype(np.int32)
+    new_tokens = MOE_F32_NEW_TOKENS
+    r = _serve_full(cfg, tree, "q8", device, prompts, new_tokens,
+                    prof_steps=MOE_F32_PROF_STEPS)
+    tok_d, lo_d = r.pop("tokens"), r.pop("logits")
+    fwd = 1 + r["decode_steps"]
+    what = "deepseek-moe-16b f32"
+    check(r["logits_finite"] and np.isfinite(lo_d).all(),
+          f"{what}: non-finite logits")
+    check(r["logits_shape"] == [4, cfg.vocab_size],
+          f"{what}: logits shape {r['logits_shape']}")
+    check(not r["dispatch_report"],
+          f"{what}: dispatch report not empty: {r['dispatch_report']}")
+    check(r["launches"]["flash_attention"] == cfg.num_layers,
+          f"{what}: {r['launches']['flash_attention']} flash launches, want "
+          f"{cfg.num_layers} (one prefill)")
+    for kern, n in per_forward_launches(cfg).items():
+        check(r["launches"][kern] == n * fwd, f"{what}: "
+              f"{r['launches'][kern]} {kern} launches, want {n} x {fwd} "
+              "passes")
+    check(r["device_busy_ms_per_step"] is not None and
+          r["grouped_ms_per_step"] > 0,
+          f"{what}: the profiler saw no grouped kernel time: "
+          f"{r['top_device_ms_per_step']}")
+    # the same session on the CPU, from the same q8 tree
+    tree_cpu = unflatten({k: v.cpu() for k, v in flatten_tree(tree).items()})
+    del tree
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    sess = ServeSession(cfg, tree_cpu, backend="q8", device=cpu,
+                        serve_cfg=ServeConfig(slots=4,
+                                              max_len=128 + new_tokens))
+    hs = [sess.submit(p, max_new_tokens=new_tokens) for p in prompts]
+    sess.run()
+    tok_c = np.stack([h.result() for h in hs])
+    lo_c, _ = prefill(sess.params, cfg, tokens=torch.from_numpy(prompts),
+                      max_len=128 + new_tokens)
+    lo_c = lo_c.float().numpy()
+    cpu_s = time.perf_counter() - t0
+    del sess, tree_cpu
+    gc.collect()
+    err = float(np.max(np.abs(lo_d - lo_c)) / np.max(np.abs(lo_c)))
+    differ = int((tok_d != tok_c).sum())
+    share = r["grouped_ms_per_step"] / r["device_busy_ms_per_step"]
+    log(f"[serve] {what}, {cfg.num_layers} layers on q8: prefill forward "
+        f"{r['prefill_forward_ms']:.1f} ms, decode "
+        f"{r['decode_ms_per_step_median']:.2f} ms/step median, device busy "
+        f"{r['device_busy_ms_per_step']:.3f} ms per decode step (idle "
+        f"{r['device_idle_share']:.3f}), of which the grouped kernel "
+        f"{r['grouped_ms_per_step']:.3f} ms ({share:.3f}); launches "
+        f"{r['launches']}; peak {r['max_memory_allocated'] / 2**30:.2f} "
+        f"GiB; against the CPU ({cpu_s:.1f} s): prefill logits rel diff "
+        f"{err:.2e} (tolerance {TOL_MOE_F32_LOGITS}), {differ} of "
+        f"{tok_d.size} greedy tokens differ")
+    check(err <= TOL_MOE_F32_LOGITS,
+          f"{what}: prefill logits differ from the CPU's: rel {err:.3g}")
+    check(differ == 0, f"{what}: {differ} greedy tokens differ between "
+          f"{device} and cpu:\n{tok_d}\n{tok_c}")
+    r.update({"layers": cfg.num_layers, "logits_rel_diff_vs_cpu": err,
+              "tokens_differ_vs_cpu": differ, "cpu_session_s": cpu_s,
+              "grouped_share_of_busy": share})
+    return r
+
+
 def _leaves(tree):
     for v in tree.values():
         if isinstance(v, dict):
@@ -1250,19 +1380,26 @@ def _leaves(tree):
 
 
 def summarize(dm_rows, fa_rows, grouped_rows, serve, serve_moe, rd_rows,
-              deploy):
-    """One entry per kernel.  dequant_matmul: one full-width llama3-8b
-    decode step's 225 calls at 4 slots (bf16 x for projections, f32 x for
-    the head), and its prefill forward (``prefill_*``: 224 calls at M=512
-    and the head at M=4); flash_attention: one full-width llama3-8b prefill call (B=4,
-    S=128, bf16); dequant_matmul_grouped: one full-width deepseek-moe-16b
-    decode step's 81 calls (M=32 rows per expert, bf16 x, the shared (N,)
-    scale); rd_quant: one 2-pass assignment of each of the 11 full-width
-    shapes (layer 0 of each stacked leaf, embed, head; bf16), launches from
-    the deploy encode.  Launches of the serving kernels come from each
+              deploy, serve_moe_f32):
+    """One entry per kernel and, for flash_attention and
+    dequant_matmul_grouped, one per instance (``instance``).
+    dequant_matmul: one full-width llama3-8b decode step's 225 calls at 4
+    slots (bf16 x for projections, f32 x for the head), and its prefill
+    forward (``prefill_*``: 224 calls at M=512 and the head at M=4);
+    flash_attention: one full-width llama3-8b prefill call (B=4, S=128,
+    bf16); dequant_matmul_grouped: one full-width deepseek-moe-16b decode
+    step's 81 calls (M=32 rows per expert, bf16 x, the shared (N,) scale);
+    their f32 instances: one deepseek-moe-16b f32 prefill call (B=4,
+    S=128, H=G=16) and one grouped call at M=32, (K, N) = (2048, 1408),
+    shared scale (``prefill_*``: at M=64), with launches from the f32 serve
+    (serve_moe_f32);
+    rd_quant: one 2-pass assignment of each of the 11 full-width shapes
+    (layer 0 of each stacked leaf, embed, head; bf16), launches from the
+    deploy encode.  Launches of the other serving entries come from each
     model's q8 serve.  The serving kernels' ``ms`` and ``library_ms`` are
     CUDA-graph replays (``timing``), their eager loops' ``eager_ms``
-    beside them; rd_quant's calls take milliseconds and are timed eagerly."""
+    beside them; rd_quant's calls take milliseconds and are timed
+    eagerly."""
     def row(m, k, n, x):
         return next(r for r in dm_rows if (r["arch"], r["m"], r["k"], r["n"],
                                            r["x"]) ==
@@ -1289,19 +1426,27 @@ def summarize(dm_rows, fa_rows, grouped_rows, serve, serve_moe, rd_rows,
                           "M=512 (bf16 x) and the head at M=4 (f32 x)",
           **{f"prefill_{key}": sum(r[key] * c for r, c in prefill)
              for key in ("ms", "bound_ms", "library_ms")}}
-    fa0 = next(r for r in fa_rows if (r["s"], r["h"], r["dtype"]) ==
-               (128, 32, "bfloat16"))
-    fa = {"name": "flash_attention", "route": "cuda",
-          "source": "src/repro_torch/kernels/flash_attention/csrc/"
-                    "flash_attention.cu",
-          "replaces": "src/repro/kernels/flash_attention/kernel.py:72",
-          "launches": serve["q8"]["launches"]["flash_attention"],
-          "max_abs_err": max(r["max_abs_err"] for r in fa_rows),
-          "work": "one llama3-8b prefill call: B=4 S=128 H=32 G=8 D=128 bf16",
-          "instance": fa0["instance"], "timing": "cuda_graph",
-          **{key: fa0[key] for key in ("ms", "eager_ms", "plain_ms",
-                                       "bound_ms", "library_ms",
-                                       "bound_by")}}
+    def fa_entry(h, dtype, launches, work):
+        r0 = next(r for r in fa_rows if (r["s"], r["h"], r["dtype"]) ==
+                  (128, h, dtype))
+        return {"name": "flash_attention", "route": "cuda",
+                "source": "src/repro_torch/kernels/flash_attention/csrc/"
+                          "flash_attention.cu",
+                "replaces": "src/repro/kernels/flash_attention/kernel.py:72",
+                "launches": launches,
+                "max_abs_err": max(r["max_abs_err"] for r in fa_rows
+                                   if r["dtype"] == dtype),
+                "work": work, "instance": r0["instance"],
+                "timing": "cuda_graph",
+                **{key: r0[key] for key in ("ms", "eager_ms", "plain_ms",
+                                            "bound_ms", "library_ms",
+                                            "bound_by")}}
+    fa = fa_entry(32, "bfloat16", serve["q8"]["launches"]["flash_attention"],
+                  "one llama3-8b prefill call: B=4 S=128 H=32 G=8 D=128 bf16")
+    fa32 = fa_entry(16, "float32",
+                    serve_moe_f32["launches"]["flash_attention"],
+                    "one deepseek-moe-16b f32 prefill call: B=4 S=128 H=16 "
+                    "G=16 D=128 f32")
     gstep = [(next(r for r in grouped_rows if (r["m"], r["k"], r["n"],
                                                r["scale"], r["x"]) ==
                    (GROUPED_ROWS[0], k, n, "shared", "bfloat16")), calls)
@@ -1311,7 +1456,8 @@ def summarize(dm_rows, fa_rows, grouped_rows, serve, serve_moe, rd_rows,
                     "dequant_matmul_grouped.cu",
           "replaces": "src/repro/kernels/dequant_matmul/kernel.py:70",
           "launches": serve_moe["q8"]["launches"]["dequant_matmul_grouped"],
-          "max_abs_err": max(r["max_abs_err"] for r in grouped_rows),
+          "max_abs_err": max(r["max_abs_err"] for r in grouped_rows
+                             if r["x"] == "bfloat16"),
           "work": "one deepseek-moe-16b decode step: 81 calls, E=64, M=32 "
                   "per expert, bf16 x, shared (N,) scale",
           "instance": gstep[0][0]["instance"],
@@ -1319,6 +1465,30 @@ def summarize(dm_rows, fa_rows, grouped_rows, serve, serve_moe, rd_rows,
              for key in ("ms", "eager_ms", "plain_ms", "bound_ms",
                          "library_ms")},
           "bound_by": gstep[0][0]["bound_by"], "timing": "cuda_graph"}
+    (k0, n0), _, _ = GROUPED_SHAPES[0]
+
+    def g_row(m):
+        return next(r for r in grouped_rows if (r["m"], r["k"], r["n"],
+                                                r["scale"], r["x"]) ==
+                    (m, k0, n0, "shared", "float32"))
+    g32, g64 = g_row(GROUPED_ROWS[0]), g_row(GROUPED_ROWS[1])
+    gm32 = {**{key: gm[key] for key in ("name", "route", "source",
+                                        "replaces")},
+            "launches": serve_moe_f32["launches"]["dequant_matmul_grouped"],
+            "max_abs_err": max(r["max_abs_err"] for r in grouped_rows
+                               if r["x"] == "float32"),
+            "work": f"one call: E={GROUPED_E}, M={GROUPED_ROWS[0]} per "
+                    f"expert, (K, N) = ({k0}, {n0}), f32 x, shared (N,) "
+                    "scale",
+            "instance": g32["instance"], "timing": "cuda_graph",
+            **{key: g32[key] for key in ("ms", "eager_ms", "plain_ms",
+                                         "bound_ms", "library_ms",
+                                         "bound_by")},
+            "prefill_work": f"the same at M={GROUPED_ROWS[1]} (a prefill's "
+                            "capacity buffer)",
+            **{f"prefill_{key}": g64[key] for key in ("instance", "ms",
+                                                      "bound_ms",
+                                                      "library_ms")}}
     t_b = sum(r["bytes_ms"] for r in rd_rows)
     t_f = sum(r["ops_ms"] for r in rd_rows)
     rd = {"name": "rd_quant", "route": "cuda",
@@ -1332,7 +1502,7 @@ def summarize(dm_rows, fa_rows, grouped_rows, serve, serve_moe, rd_rows,
              for key in ("ms", "plain_ms", "bound_ms")},
           "bound_by": "bytes" if t_b >= t_f else "operations",
           "library_ms": None, "timing": "eager"}
-    return [dm, fa, gm, rd]
+    return [dm, fa, fa32, gm, gm32, rd]
 
 
 def main() -> int:
@@ -1371,11 +1541,14 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     results["container_moe"] = phase_container_moe(device)
+    gc.collect()
+    torch.cuda.empty_cache()
+    results["serve_moe_f32"] = phase_serve_moe_f32(device)
     kernels = summarize(results["dequant_matmul"],
                         results["flash_attention"],
                         results["dequant_matmul_grouped"], results["serve"],
                         results["serve_moe"], results["rd_quant"],
-                        results["deploy"])
+                        results["deploy"], results["serve_moe_f32"])
     results["kernels"] = kernels
     results["seconds"] = time.perf_counter() - t0
     out_dir = ROOT / "chiprun_out"

@@ -12,9 +12,12 @@ script, so the commits differ only in their kernels.  Rows, bf16 unless
 named:
 
 - flash_attention at the full-width prefill shapes (B=4, D=128, S 128 and
-  100, (H, G) (32, 8) and (16, 16)), with ``scaled_dot_product_attention``;
+  100, (H, G) (32, 8) and (16, 16)), bf16 and f32, with
+  ``scaled_dot_product_attention`` on the same operands (f32 with TF32
+  off, as ``chip_smoke.phase_device`` sets it);
 - dequant_matmul_grouped at deepseek-moe-16b's expert banks (E=64, M 32
-  and 64, the shared (N,) scale), with ``torch.bmm`` on the dequantized
+  and 64): a bf16 x with the shared (N,) scale, a f32 x with the shared
+  and the per-expert (E, N) scale, with ``torch.bmm`` on the dequantized
   f32 bank;
 - dequant_matmul at one decode step (M=4) of each model, the head with a
   f32 x, summed over the step's calls;
@@ -71,9 +74,11 @@ def _measure(root: Path) -> dict:
 
     flash = []
     b, d = 4, 128
-    for (h, g), s in [(hg, s) for hg in cs.FLASH_HEADS for s in (128, 100)]:
+    for (h, g), s, dt in [(hg, s, dt) for hg in cs.FLASH_HEADS
+                          for s in (128, 100)
+                          for dt in (torch.bfloat16, torch.float32)]:
         q, k, v = (torch.randn((b, s, n, d), generator=gen, device=dev
-                               ).to(torch.bfloat16) for n in (h, g, g))
+                               ).to(dt) for n in (h, g, g))
         rep = h // g
         want = flash_attention_ref(
             q.permute(0, 2, 1, 3).reshape(b * h, s, d),
@@ -81,9 +86,11 @@ def _measure(root: Path) -> dict:
                 b * h, s, d) for t in (k, v))).reshape(
             b, h, s, d).permute(0, 2, 1, 3)
         _, rel = cs.rel_err(_flash_cuda(q, k, v), want)
-        cs.check(rel <= cs.TOL_FLASH_BF16, f"flash S={s} H={h}: rel {rel}")
+        tol = cs.TOL_FLASH_BF16 if dt == torch.bfloat16 else cs.TOL_F32
+        cs.check(rel <= tol, f"flash S={s} H={h} {dt}: rel {rel}")
         qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-        flash.append({"s": s, "h": h, "g": g, "rel_err": rel,
+        flash.append({"s": s, "h": h, "g": g, "dtype": str(dt)[6:],
+                      "rel_err": rel,
                       "kernel": both(lambda: _flash_cuda(q, k, v)),
                       "sdpa": both(lambda: F.scaled_dot_product_attention(
                           qt, kt, vt, is_causal=True, enable_gqa=True))})
@@ -93,20 +100,27 @@ def _measure(root: Path) -> dict:
     for (k, n), _, _ in cs.GROUPED_SHAPES:
         wq = torch.randint(-127, 128, (e, k, n), generator=gen, device=dev,
                            dtype=torch.int8)
-        sc = torch.rand((n,), generator=gen, device=dev) * 0.01 + 1e-4
-        w_deq = wq.float() * sc
-        for m in cs.GROUPED_ROWS:
-            x = torch.randn((e, m, k), generator=gen, device=dev
-                            ).to(torch.bfloat16)
-            _, rel = cs.rel_err(dequant_matmul_grouped_cuda(x, wq, sc),
-                                dequant_matmul_grouped_ref(x, wq, sc))
-            cs.check(rel <= cs.TOL_F32, f"grouped m={m} k={k}: rel {rel}")
-            xf = x.float()
-            grouped.append({"m": m, "k": k, "n": n, "rel_err": rel,
-                            "kernel": both(lambda: dequant_matmul_grouped_cuda(
-                                x, wq, sc)),
-                            "bmm": both(lambda: torch.bmm(xf, w_deq))})
-        del wq, w_deq
+        for form, sshape in (("shared", (n,)), ("per_expert", (e, n))):
+            sc = torch.rand(sshape, generator=gen, device=dev) * 0.01 + 1e-4
+            w_deq = wq.float() * (sc if sc.dim() == 1 else sc[:, None, :])
+            cases = [(m, torch.float32) for m in cs.GROUPED_ROWS]
+            if form == "shared":
+                cases = [(m, torch.bfloat16) for m in cs.GROUPED_ROWS] + cases
+            for m, xdt in cases:
+                x = torch.randn((e, m, k), generator=gen, device=dev).to(xdt)
+                _, rel = cs.rel_err(dequant_matmul_grouped_cuda(x, wq, sc),
+                                    dequant_matmul_grouped_ref(x, wq, sc))
+                cs.check(rel <= cs.TOL_F32,
+                         f"grouped m={m} k={k} {form} {xdt}: rel {rel}")
+                xf = x.float()
+                grouped.append({"m": m, "k": k, "n": n, "x": str(xdt)[6:],
+                                "scale": form, "rel_err": rel,
+                                "kernel": both(
+                                    lambda: dequant_matmul_grouped_cuda(
+                                        x, wq, sc)),
+                                "bmm": both(lambda: torch.bmm(xf, w_deq))})
+            del w_deq
+        del wq
 
     dm, steps = [], {}
     for arch, shapes in cs.DM_SHAPES.items():

@@ -1,5 +1,5 @@
 // PTX wrappers shared by the tensor-core kernels (sm_90a): cp.async copies
-// into shared memory, the bf16 mma.sync with f32 accumulators, and a
+// into shared memory, the bf16 and tf32 mma.sync with f32 accumulators, and a
 // thread-block cluster's barrier and distributed shared memory.  Included
 // by flash_attention.cu and the dequant_matmul sources; kernels/_build.py
 // hashes this file into every library's name.
@@ -35,6 +35,17 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
                                          uint32_t b0, uint32_t b1) {
   asm volatile(
       "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c (16x8 f32) += a (16x8 tf32, row) * b (8x8 tf32, col); the operands are
+// f32 bit patterns whose low 13 significand bits are zero
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));

@@ -1,6 +1,6 @@
 // Tensor-core fragment code of the int8-dequantize matmuls (sm_90a), shared
 // by dequant_matmul.cu (its tensor-core instance, M > 8) and
-// dequant_matmul_grouped.cu (its bf16-x instance).  Both compute
+// dequant_matmul_grouped.cu (both x types).  Both compute
 //     out = s[n] * sum_k x[m, k] * q[k, n]
 // with mma.sync.m16n8k16 (bf16 in, f32 accumulate) over a ring of stages in
 // shared memory, each stage BK = 64 rows of K: an x tile (rows of the

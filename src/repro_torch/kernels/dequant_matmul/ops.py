@@ -10,8 +10,8 @@ the hand-written kernel (``csrc/dequant_matmul.cu``,
 ``dequant_matmul`` runs its weight-streaming decode instance up to M = 8
 and its tensor-core instance above (or where a decode block's x would not
 fit), for either x type; :func:`schedule` picks the instance, the tile
-and how far K splits.  The grouped kernel runs its tensor-core instance
-for a bf16 x and its f32 tile for a f32 x.
+and how far K splits.  The grouped kernel runs on the tensor cores for
+either x type (a f32 x split into three bf16 pieces in the kernel).
 """
 
 from __future__ import annotations

@@ -60,13 +60,19 @@ def dequant_matmul_grouped_ref(x: torch.Tensor, w_q: torch.Tensor,
 
 def dequant_matmul_grouped_scale_after(x: torch.Tensor, w_q: torch.Tensor,
                                        scale: torch.Tensor) -> torch.Tensor:
-    """The grouped product in the order of the kernel's bf16-x instance:
-    f32 sums of x * q, then the per-column scale, out = s * (x @ q).  For a
-    bf16 x every product x * q is exact in f32, so this is the reference's
-    function with the scale factored out of the sum over K.  For tests and
-    ``chip_smoke.py``; the op computes with :func:`dequant_matmul_grouped_ref`
-    on the CPU."""
+    """The grouped product in the order of the kernel: f32 sums of exact
+    products x * q, then the per-column scale, out = s * (x @ q).  A bf16 x
+    is used as it is (every product x * q is exact in f32, so this is the
+    reference's function with the scale factored out of the sum over K); a
+    f32 x as its three bf16 pieces (:func:`bf16x3_split`), s * (lo @ q +
+    mid @ q + hi @ q).  For tests and ``chip_smoke.py``; the op computes
+    with :func:`dequant_matmul_grouped_ref` on the CPU."""
     if scale.dim() == 1:
         scale = scale[None, :]
-    acc = x.to(torch.float32) @ w_q.to(torch.float32)
+    q = w_q.to(torch.float32)
+    if x.dtype == torch.bfloat16:
+        acc = x.float() @ q
+    else:
+        hi, mid, lo = bf16x3_split(x)
+        acc = lo.float() @ q + mid.float() @ q + hi.float() @ q
     return acc * scale[:, None, :].to(torch.float32)

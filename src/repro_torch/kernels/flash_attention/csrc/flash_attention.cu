@@ -12,7 +12,8 @@
 // What bounds it: bytes.  At the full-width prefill (B=4, S=128, H=32, G=8,
 // D=128, bf16) it reads q, k, v and writes the output once, 10.5 MB, a
 // 3.1 us bound at 3.35 TB/s, against 0.54 GFLOP of work (0.5 us on the bf16
-// tensor cores).
+// tensor cores).  In f32 at deepseek-moe-16b's (H, G) = (16, 16): 16.8 MB,
+// 5.0 us, against 0.27 GFLOP (1.6 us at the 3xTF32 rate below).
 //
 // Two instances:
 //
@@ -40,11 +41,49 @@
 //   score 0).  The output goes through the warp's own Q rows in shared
 //   memory so that every lane stores whole 16-byte chunks.  Shared memory
 //   is 85 KB at D = 128, set once with cudaFuncSetAttribute.
-// * f32 (flash_fwd): not on a main path.  One block of 4 warps per (b*h,
-//   16-row query tile); 32-key tiles of K and V in shared memory as f32 (K
-//   rows padded by one word); lane j scores key j of the tile, the warp
-//   reduces max and sum by shuffles, and each lane keeps D/32 columns of the
-//   accumulator.  f32 FMAs outside the tensor cores.
+// * f32 (flash_fwd_f32, the f32 models' path): tensor cores by the 3xTF32
+//   split.  The reference takes q.k^T and p @ v from f32 operands into f32
+//   (p stays f32: astype(v.dtype) is the identity), and one TF32 or bf16
+//   MMA would drop bits of both operands.  So each operand is split in
+//   registers, a = big + small: big is a rounded to TF32 (10 explicit
+//   significand bits), a - big is exact, and small is a - big rounded to
+//   TF32; mma.sync.m16n8k8.tf32 sums small * big + big * small + big * big
+//   in f32.  What is left out (small * small and the rounding of small) is
+//   about 2^-22 of each product, under the f32 rounding of the sums.  Three
+//   TF32 products per product run at a third of the TF32 rate, BF16_FLOPS
+//   / 6 (165 TFLOP/s).  The design follows the bf16 instance's: the same
+//   units (a block serves one KV head), the online softmax on the
+//   accumulator fragments, no mask work on whole tiles, output stores
+//   through the unit's Q rows.  What differs, and why:
+//   - The split triples the MMAs and f32 tiles take twice the shared
+//     memory, and at deepseek-moe-16b's (16, 16) a (batch row, head) has
+//     only 8 units of 16 rows, so with one warp per unit an SM would hold
+//     4 warps, each on a chain of up to 128 keys.  So each unit has two
+//     warps (halves) that take alternate 32-key tiles of its keys and at
+//     the end add their running maxima, sums and accumulators through
+//     shared memory as the online softmax adds tiles, each half for half
+//     of the output columns: blocks of 8 warps and 4 units.  Each half
+//     runs its own pipeline: its K and V tiles of each 64-key stage by
+//     cp.async, double-buffered, K and V in separate commit groups, and a
+//     barrier of its 4 warps after each lands (168 KB of shared memory at
+//     D = 128: one block per SM).  A warp skips the products of a tile
+//     whose every key is past its rows' limit.
+//   - A unit's work grows with its position, so a block takes two units
+//     from the front of the (position, head) order and two from the back,
+//     and the two halves of a unit sit on two of the SM's four
+//     sub-partitions, beside a unit from the other end, so that the
+//     tensor cores of all four share the block's work.
+//   - Q stays in shared memory and is split again for each tile (split Q
+//     fragments would take 128 registers at D = 128); exp is expf; the
+//     three MMAs of a product go to 4 different accumulators in turn, so
+//     none waits on the one before.
+//   - The k index of both products is permuted so that no operand needs a
+//     shuffle: A's k columns tg and tg + 4 are the pair 2tg, 2tg + 1 of d
+//     (Q K^T: one 8-byte load each from a Q row and a K row) or of keys
+//     (P V: the pair each row of an S accumulator fragment holds).  Q and
+//     K rows are padded by 8 words, so a half-warp's 8-byte loads from 4
+//     rows hit 32 banks; V rows by 4, so a warp's loads of rows 2tg,
+//     column gr hit 32 banks.
 //
 // Both mask ragged query and key edges in the kernel, so no power-of-two
 // tile has to divide S.
@@ -60,106 +99,7 @@ namespace {
 
 using namespace ptx;
 
-constexpr int FA_BQ = 16;                   // query rows per block
-constexpr int FA_BKV = 32;                  // keys per tile (one per lane)
-constexpr int FA_WARPS = 4;
-constexpr int FA_THREADS = FA_WARPS * 32;
-constexpr int FA_ROWS = FA_BQ / FA_WARPS;   // query rows per warp
 constexpr float NEG_INF = -1e30f;
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-template <int D>
-__global__ void __launch_bounds__(FA_THREADS)
-flash_fwd(const float* __restrict__ q, const float* __restrict__ k,
-          const float* __restrict__ v, float* __restrict__ out, int Sq,
-          int Skv, int H, int G, float scale) {
-  constexpr int DL = D / 32;                // accumulator columns per lane
-  __shared__ float ks[FA_BKV][D + 1];
-  __shared__ float vs[FA_BKV][D];
-  __shared__ float qs[FA_BQ][D];
-
-  const int bh = blockIdx.y;
-  const int b = bh / H, h = bh % H;
-  const int g = h / (H / G);
-  const int q0 = blockIdx.x * FA_BQ;
-  const int offs = Skv - Sq;                // causal alignment (q at the end)
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-
-  for (int e = tid; e < FA_BQ * D; e += FA_THREADS) {
-    const int r = e / D, d = e % D, s = q0 + r;
-    qs[r][d] = s < Sq ? q[(((long long)b * Sq + s) * H + h) * D + d] : 0.f;
-  }
-
-  float m_i[FA_ROWS], l_i[FA_ROWS], acc[FA_ROWS][DL];
-#pragma unroll
-  for (int r = 0; r < FA_ROWS; ++r) {
-    m_i[r] = NEG_INF;
-    l_i[r] = 0.f;
-#pragma unroll
-    for (int i = 0; i < DL; ++i) acc[r][i] = 0.f;
-  }
-
-  // the tile's last query row reaches key q_last + offs: later tiles are dead
-  const int q_last = min(q0 + FA_BQ, Sq) - 1;
-  const int kv_end = min(Skv, q_last + offs + 1);
-  for (int t0 = 0; t0 < kv_end; t0 += FA_BKV) {
-    __syncthreads();                        // q staged / last tile consumed
-    for (int e = tid; e < FA_BKV * D; e += FA_THREADS) {
-      const int j = e / D, d = e % D, t = t0 + j;
-      const long long off = (((long long)b * Skv + t) * G + g) * D + d;
-      ks[j][d] = t < Skv ? k[off] : 0.f;
-      vs[j][d] = t < Skv ? v[off] : 0.f;
-    }
-    __syncthreads();
-    const int col = t0 + lane;
-    const bool in_range = col < Skv;
-#pragma unroll
-    for (int r = 0; r < FA_ROWS; ++r) {
-      const int row = warp * FA_ROWS + r;
-      const int qi = q0 + row;
-      float s = 0.f;
-#pragma unroll 16
-      for (int d = 0; d < D; ++d) s = fmaf(qs[row][d], ks[lane][d], s);
-      s *= scale;
-      if (col > qi + offs) s = NEG_INF;
-      const float m_new = fmaxf(m_i[r], warp_max(in_range ? s : -INFINITY));
-      const float p = in_range ? expf(s - m_new) : 0.f;
-      const float corr = expf(m_i[r] - m_new);
-      l_i[r] = l_i[r] * corr + warp_sum(p);
-#pragma unroll
-      for (int i = 0; i < DL; ++i) acc[r][i] *= corr;
-#pragma unroll 8
-      for (int j = 0; j < FA_BKV; ++j) {
-        const float pj = __shfl_sync(0xffffffffu, p, j);
-#pragma unroll
-        for (int i = 0; i < DL; ++i)
-          acc[r][i] = fmaf(pj, vs[j][lane + 32 * i], acc[r][i]);
-      }
-      m_i[r] = m_new;
-    }
-  }
-
-#pragma unroll
-  for (int r = 0; r < FA_ROWS; ++r) {
-    const int qi = q0 + warp * FA_ROWS + r;
-    if (qi >= Sq) continue;
-    const float inv_l = 1.f / fmaxf(l_i[r], 1e-30f);
-    float* orow = out + (((long long)b * Sq + qi) * H + h) * D;
-#pragma unroll
-    for (int i = 0; i < DL; ++i) orow[lane + 32 * i] = acc[r][i] * inv_l;
-  }
-}
 
 // ---- bf16 on the tensor cores --------------------------------------------
 
@@ -443,26 +383,360 @@ int launch_tc(const void* q, const void* k, const void* v, void* out, int B,
   return (int)cudaGetLastError();
 }
 
-int launch_f32(const void* q, const void* k, const void* v, void* out,
-               int B, int Sq, int Skv, int H, int G, int D, float scale,
-               cudaStream_t st) {
-  dim3 grid((Sq + FA_BQ - 1) / FA_BQ, B * H);
-  const float* qp = static_cast<const float*>(q);
-  const float* kp = static_cast<const float*>(k);
-  const float* vp = static_cast<const float*>(v);
-  float* op = static_cast<float*>(out);
-  switch (D) {
-    case 32:
-      flash_fwd<32><<<grid, FA_THREADS, 0, st>>>(qp, kp, vp, op, Sq, Skv, H,
-                                                 G, scale);
-      break;
-    case 128:
-      flash_fwd<128><<<grid, FA_THREADS, 0, st>>>(qp, kp, vp, op, Sq, Skv,
-                                                  H, G, scale);
-      break;
-    default:
-      return (int)cudaErrorInvalidValue;
+// ---- f32 on the tensor cores: 3xTF32 ------------------------------------
+
+constexpr int F_BKV = 32;                   // keys per warp and step
+constexpr int F_PAD = 8;                    // f32 padding of Q and K rows
+constexpr int F_VPAD = 4;                   // f32 padding of V rows
+constexpr int F_WARPS = 2 * TC_WARPS;       // two halves of the key range
+constexpr int F_THREADS = 32 * F_WARPS;
+
+template <int D>
+constexpr int f32_smem_bytes() {  // Q + 2 stages of 2 tiles of K and V
+  return (16 * TC_WARPS * (D + F_PAD) + 4 * F_BKV * (D + F_PAD) +
+          4 * F_BKV * (D + F_VPAD)) * 4;
+}
+
+// x = big + small: big is x rounded to TF32 (10 explicit significand bits,
+// ties away from zero), so x - big is exact; small is x - big rounded to
+// TF32 as well, which leaves about 2^-22 |x| out
+__device__ __forceinline__ void split_tf32(float x, uint32_t& big,
+                                           uint32_t& small) {
+  big = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  small = (__float_as_uint(x - __uint_as_float(big)) + 0x1000u) &
+          0xffffe000u;
+}
+
+// c[i] += a * b[i] for NB column blocks from split operands: small a *
+// big b, big a * small b, then big a * big b, each product in f32 on the
+// tensor cores; the blocks' MMAs take turns, so none waits on the one
+// before on its accumulator
+template <int NB>
+__device__ __forceinline__ void mma_3xtf32(float (*c)[4],
+                                           const uint32_t (&ab)[4],
+                                           const uint32_t (&as)[4],
+                                           const uint32_t (&bb)[NB][2],
+                                           const uint32_t (&bs)[NB][2]) {
+#pragma unroll
+  for (int i = 0; i < NB; ++i) mma_tf32(c[i], as, bb[i][0], bb[i][1]);
+#pragma unroll
+  for (int i = 0; i < NB; ++i) mma_tf32(c[i], ab, bs[i][0], bs[i][1]);
+#pragma unroll
+  for (int i = 0; i < NB; ++i) mma_tf32(c[i], ab, bb[i][0], bb[i][1]);
+}
+
+// Fragment layouts of mma.m16n8k8 tf32 (lane = 4 * gr + tg):
+//   A: a0 (row gr, k tg), a1 (row gr+8, k tg), a2 (row gr, k tg+4),
+//      a3 (row gr+8, k tg+4)
+//   B: b0 (k tg, col gr), b1 (k tg+4, col gr)
+//   C: as for m16n8k16
+// k tg and tg + 4 of an 8-wide step are taken to be the pair 2tg, 2tg + 1
+// of it (d for Q K^T, keys for P V), the same order in A and B.  The units
+// are flash_fwd_tc's, 4 to a block (unit_of), two warps to a unit: in step
+// i, warp w (half w % 2 of slot w / 2, on sub-partition w % 4) takes keys
+// 64 i + 32 (w % 2) .. + 31, and at the end the two halves of a unit add
+// their running maxima, sums and accumulators through shared memory.
+
+// The unit of slot s (0..3) of block x of nblk, or -1 for none: slots 0
+// and 1 take units 2x and 2x + 1, slots 2 and 3 count down from the last
+// unit, so that the units 0..units-1 are each taken once.
+__device__ __forceinline__ int unit_of(int x, int s, int units, int nblk) {
+  const int i = 2 * x + (s & 1);
+  if (s < 2) return i < units ? i : -1;
+  const int u = units - 1 - i;
+  return u >= 2 * nblk ? u : -1;
+}
+
+template <int D>
+__global__ void __launch_bounds__(F_THREADS)
+flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
+              const float* __restrict__ v, float* __restrict__ out, int Sq,
+              int Skv, int H, int G, float scale) {
+  constexpr int LQ = D + F_PAD;             // Q and K row stride (f32)
+  constexpr int LV = D + F_VPAD;            // V row stride
+  constexpr int KD = D / 8;                 // k8 steps of Q K^T
+  constexpr int NS = F_BKV / 8;             // n8 blocks of S, k8 steps of P V
+  constexpr int NO = D / 8;                 // n8 blocks of O
+  constexpr int CPR = D / 4;                // 16-byte chunks per row
+  constexpr int SK = 2 * F_BKV;             // keys per stage
+  extern __shared__ __align__(16) unsigned char f32_smem[];
+  float* sq = reinterpret_cast<float*>(f32_smem);
+  float* sk = sq + 16 * TC_WARPS * LQ;      // [2][SK][LQ]
+  float* sv = sk + 2 * SK * LQ;             // [2][SK][LV]
+
+  const int rep = H / G;
+  const int units = rep * ((Sq + 15) / 16);
+  const int bg = blockIdx.y;
+  const int b = bg / G, g = bg % G;
+  const int x = blockIdx.x, nblk = gridDim.x;
+  const int offs = Skv - Sq;                // causal alignment (q at the end)
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int slot = warp >> 1, half = warp & 1;
+  const int gr = lane >> 2, tg = lane & 3;
+  const long long q_row = (long long)H * D, kv_row = (long long)G * D;
+  const float* kb = k + ((long long)b * Skv * G + g) * D;
+  const float* vb = v + ((long long)b * Skv * G + g) * D;
+
+  for (int c = tid; c < 16 * TC_WARPS * CPR; c += F_THREADS) {
+    const int r = c / CPR, cc = c % CPR;
+    const int u = max(unit_of(x, r / 16, units, nblk), 0);
+    const int s = (u / rep) * 16 + r % 16, h = g * rep + u % rep;
+    const bool ok = unit_of(x, r / 16, units, nblk) >= 0 && s < Sq;
+    const float* src =
+        q + ((long long)b * Sq + (ok ? s : 0)) * q_row + (long long)h * D;
+    cp_async16(smem_u32(sq + r * LQ + cc * 4), src + cc * 4, ok);
   }
+  cp_async_commit();
+  // The two halves run their own pipelines: half h loads and reads only
+  // its tiles (keys 64 i + 32 h .. + 31 of step i, rows 32 h .. of a
+  // stage), with commit groups K then V per step and a barrier of its 4
+  // warps (ids 1 and 2; 0 is __syncthreads)
+  const int th = (warp >> 1) * 32 + lane;   // thread of the half, 0..127
+  auto load_tile = [&](const float* base, float* dst, int ld, int i) {
+    for (int c = th; c < F_BKV * CPR; c += F_THREADS / 2) {
+      const int r = half * F_BKV + c / CPR, cc = c % CPR, t = i * SK + r;
+      cp_async16(smem_u32(dst + ((i & 1) * SK + r) * ld + cc * 4),
+                 base + min(t, Skv - 1) * kv_row + cc * 4, t < Skv);
+    }
+  };
+  auto half_sync = [&]() {
+    asm volatile("bar.sync %0, %1;\n" ::"r"(1 + half), "r"(F_THREADS / 2)
+                 : "memory");
+  };
+
+  // the block's last query position reaches key q_last + offs, a warp's
+  // last one key pos0 + 15 + offs: later keys are dead
+  int q_last = -1;
+#pragma unroll
+  for (int sl = 0; sl < TC_WARPS; ++sl) {
+    const int us = unit_of(x, sl, units, nblk);
+    if (us >= 0) q_last = max(q_last, min((us / rep) * 16 + 15, Sq - 1));
+  }
+  const int kv_end = min(Skv, q_last + offs + 1);
+  const int n_steps = kv_end > 0 ? (kv_end + SK - 1) / SK : 0;
+  if (n_steps > 0) load_tile(kb, sk, LQ, 0);
+  cp_async_commit();
+  if (n_steps > 0) load_tile(vb, sv, LV, 0);
+  cp_async_commit();
+  cp_async_wait<2>();                       // Q has landed
+  __syncthreads();
+
+  const int u_ = unit_of(x, slot, units, nblk);
+  const bool valid = u_ >= 0;
+  const int u = max(u_, 0);
+  const int pos0 = (u / rep) * 16;
+  const int h = g * rep + u % rep;
+  const int row0 = pos0 + gr;
+  const int w_end = valid ? min(Skv, pos0 + 15 + offs + 1) : 0;
+  const float* qw = sq + slot * 16 * LQ;    // this unit's Q rows
+  float o[NO][4];
+#pragma unroll
+  for (int i = 0; i < NO; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) o[i][j] = 0.f;
+  float m_r[2] = {NEG_INF, NEG_INF};
+  float l_r[2] = {0.f, 0.f};
+
+  // per step: after the first half barrier the half's K tile is visible and
+  // its warps are done with step i - 1, whose buffers take step i + 1;
+  // after the second its V tile is
+  for (int i = 0; i < n_steps; ++i) {
+    cp_async_wait<1>();                     // K_i has landed
+    half_sync();
+    if (i + 1 < n_steps) load_tile(kb, sk, LQ, i + 1);
+    cp_async_commit();
+    if (i + 1 < n_steps) load_tile(vb, sv, LV, i + 1);
+    cp_async_commit();
+    const int t0 = i * SK + half * F_BKV;   // this warp's first key
+    const bool live = t0 < w_end;           // not every key is past it
+    const float* ks = sk + ((i & 1) * SK + half * F_BKV) * LQ;
+    const float* vs = sv + ((i & 1) * SK + half * F_BKV) * LV;
+
+    // S = Q K^T (16 rows x 32 keys), k step kd: d = 8 kd + 2 tg (k tg) and
+    // 8 kd + 2 tg + 1 (k tg + 4)
+    float s[NS][4];
+#pragma unroll
+    for (int nb = 0; nb < NS; ++nb)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[nb][j] = 0.f;
+    if (live) {
+#pragma unroll
+      for (int kd = 0; kd < KD; ++kd) {
+        const float2 q0 =
+            *reinterpret_cast<const float2*>(qw + gr * LQ + kd * 8 + 2 * tg);
+        const float2 q1 = *reinterpret_cast<const float2*>(
+            qw + (gr + 8) * LQ + kd * 8 + 2 * tg);
+        uint32_t ab[4], as[4];
+        split_tf32(q0.x, ab[0], as[0]);
+        split_tf32(q1.x, ab[1], as[1]);
+        split_tf32(q0.y, ab[2], as[2]);
+        split_tf32(q1.y, ab[3], as[3]);
+        uint32_t bb[NS][2], bs[NS][2];
+#pragma unroll
+        for (int nb = 0; nb < NS; ++nb) {
+          const float2 kk = *reinterpret_cast<const float2*>(
+              ks + (nb * 8 + gr) * LQ + kd * 8 + 2 * tg);
+          split_tf32(kk.x, bb[nb][0], bs[nb][0]);
+          split_tf32(kk.y, bb[nb][1], bs[nb][1]);
+        }
+        mma_3xtf32<NS>(s, ab, as, bb, bs);
+      }
+
+      // online softmax on the fragments, as flash_fwd_tc's, with expf
+      const bool whole = t0 + F_BKV <= Skv && t0 + F_BKV - 1 <= pos0 + offs;
+      float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+      for (int nb = 0; nb < NS; ++nb)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          float sc = s[nb][j] * scale;
+          if (!whole) {
+            const int key = t0 + nb * 8 + 2 * tg + (j & 1);
+            if (key > row0 + 8 * (j >> 1) + offs) sc = NEG_INF;
+            if (key >= Skv) sc = -INFINITY;   // not a key: p = 0 exactly
+          }
+          s[nb][j] = sc;
+          mx[j >> 1] = fmaxf(mx[j >> 1], sc);
+        }
+      float m_new[2], corr[2], ls[2] = {0.f, 0.f};
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        m_new[r] = fmaxf(m_r[r], mx[r]);
+        corr[r] = expf(m_r[r] - m_new[r]);
+        m_r[r] = m_new[r];
+      }
+#pragma unroll
+      for (int nb = 0; nb < NS; ++nb)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          s[nb][j] = expf(s[nb][j] - m_new[j >> 1]);
+          ls[j >> 1] += s[nb][j];
+        }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) l_r[r] = l_r[r] * corr[r] + ls[r];
+#pragma unroll
+      for (int nd = 0; nd < NO; ++nd)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) o[nd][j] *= corr[j >> 1];
+    }
+    cp_async_wait<2>();                     // V_i has landed
+    half_sync();
+    if (live) {
+      // O += P V, k step kk: keys 8 kk + 2 tg (k tg) and + 1 (k tg + 4),
+      // the pair S block kk holds in elements 0, 1 (row gr) and 2, 3
+      // (row gr + 8)
+#pragma unroll
+      for (int kk = 0; kk < NS; ++kk) {
+        uint32_t ab[4], as[4];
+        split_tf32(s[kk][0], ab[0], as[0]);
+        split_tf32(s[kk][2], ab[1], as[1]);
+        split_tf32(s[kk][1], ab[2], as[2]);
+        split_tf32(s[kk][3], ab[3], as[3]);
+        const float* v0 = vs + (kk * 8 + 2 * tg) * LV + gr;
+#pragma unroll
+        for (int n4 = 0; n4 < NO; n4 += 4) {  // 4 n8 blocks of O at a time
+          uint32_t bb[4][2], bs[4][2];
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            split_tf32(v0[(n4 + j) * 8], bb[j][0], bs[j][0]);
+            split_tf32(v0[LV + (n4 + j) * 8], bb[j][1], bs[j][1]);
+          }
+          mma_3xtf32<4>(o + n4, ab, as, bb, bs);
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();                          // the K stages are free
+
+  // The halves add their (m, l, o) through the K stages (free after the
+  // last barrier), each for half the output columns: half h finishes
+  // columns h D / 2 .. and hands the other half of its o to its partner.
+  // Per unit: 2 x 16 x D / 2 accumulators, then each half's 16 maxima and
+  // 16 sums.
+  constexpr int DH = D / 2;
+  float* xb = sk + slot * (16 * D + 64);
+  float* ml = xb + 16 * D;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l_r[r] += __shfl_xor_sync(0xffffffffu, l_r[r], 1);
+    l_r[r] += __shfl_xor_sync(0xffffffffu, l_r[r], 2);
+    if (tg == 0) {
+      ml[32 * half + gr + 8 * r] = m_r[r];
+      ml[32 * half + 16 + gr + 8 * r] = l_r[r];
+    }
+  }
+#pragma unroll
+  for (int nd = 0; nd < NO; ++nd) {
+    if (nd / (NO / 2) == half) continue;    // the partner's columns
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      *reinterpret_cast<float2*>(xb + half * 16 * DH + (gr + 8 * r) * DH +
+                                 (nd % (NO / 2)) * 8 + 2 * tg) =
+          make_float2(o[nd][2 * r], o[nd][2 * r + 1]);
+  }
+  __syncthreads();
+  if (!valid) return;
+  const int ph = half ^ 1;
+  float inv_l[2], c0[2], c1[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float m1 = ml[32 * ph + gr + 8 * r];
+    const float l1 = ml[32 * ph + 16 + gr + 8 * r];
+    const float mm = fmaxf(m_r[r], m1);
+    c0[r] = expf(m_r[r] - mm);
+    c1[r] = expf(m1 - mm);
+    inv_l[r] = 1.f / fmaxf(l_r[r] * c0[r] + l1 * c1[r], 1e-30f);
+  }
+  // the output goes through this unit's own Q rows (read by no warp since
+  // the last step), each half its columns, so each lane stores whole
+  // 16-byte chunks
+  float* so = sq + slot * 16 * LQ;
+#pragma unroll
+  for (int nd = 0; nd < NO; ++nd) {
+    if (nd / (NO / 2) != half) continue;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float2 o1 = *reinterpret_cast<const float2*>(
+          xb + ph * 16 * DH + (gr + 8 * r) * DH + (nd % (NO / 2)) * 8 +
+          2 * tg);
+      *reinterpret_cast<float2*>(so + (gr + 8 * r) * LQ + nd * 8 + 2 * tg) =
+          make_float2(
+              (o[nd][2 * r] * c0[r] + o1.x * c1[r]) * inv_l[r],
+              (o[nd][2 * r + 1] * c0[r] + o1.y * c1[r]) * inv_l[r]);
+    }
+  }
+  __syncwarp();
+#pragma unroll
+  for (int c = lane; c < 16 * CPR / 2; c += 32) {
+    const int r = c / (CPR / 2), cc = half * (CPR / 2) + c % (CPR / 2);
+    const int qi = pos0 + r;
+    if (qi < Sq)
+      *reinterpret_cast<float4*>(out + (((long long)b * Sq + qi) * H + h) * D +
+                                 cc * 4) =
+          *reinterpret_cast<const float4*>(so + r * LQ + cc * 4);
+  }
+}
+
+template <int D>
+int launch_f32(const void* q, const void* k, const void* v, void* out, int B,
+               int Sq, int Skv, int H, int G, float scale, cudaStream_t st) {
+  constexpr int bytes = f32_smem_bytes<D>();
+  static const cudaError_t attr =
+      bytes > 48 * 1024
+          ? cudaFuncSetAttribute(flash_fwd_f32<D>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 bytes)
+          : cudaSuccess;
+  if (attr != cudaSuccess) return (int)attr;
+  const int units = (H / G) * ((Sq + 15) / 16);
+  dim3 grid((units + TC_WARPS - 1) / TC_WARPS, B * G);
+  flash_fwd_f32<D><<<grid, F_THREADS, bytes, st>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(out), Sq, Skv, H, G,
+      scale);
   return (int)cudaGetLastError();
 }
 
@@ -470,8 +744,8 @@ int launch_f32(const void* q, const void* k, const void* v, void* out,
 
 // Plain C entry point (loaded with ctypes).  All tensors contiguous in the
 // (B, S, heads, D) layout, on the current device; is_bf16 selects the type
-// (bf16 rows must start 16-byte aligned: the wrapper copies a tensor that
-// does not).
+// (rows must start 16-byte aligned: the wrapper copies a tensor that does
+// not).
 // Launches on `stream` without synchronising; returns cudaGetLastError().
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* out, int is_bf16,
@@ -480,13 +754,15 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (B <= 0 || Sq <= 0 || G <= 0 || H % G != 0)
     return (int)cudaErrorInvalidValue;
-  if (!is_bf16)
-    return launch_f32(q, k, v, out, B, Sq, Skv, H, G, D, scale, st);
   switch (D) {
     case 32:
-      return launch_tc<32>(q, k, v, out, B, Sq, Skv, H, G, scale, st);
+      return is_bf16 ? launch_tc<32>(q, k, v, out, B, Sq, Skv, H, G, scale, st)
+                     : launch_f32<32>(q, k, v, out, B, Sq, Skv, H, G, scale,
+                                      st);
     case 128:
-      return launch_tc<128>(q, k, v, out, B, Sq, Skv, H, G, scale, st);
+      return is_bf16
+                 ? launch_tc<128>(q, k, v, out, B, Sq, Skv, H, G, scale, st)
+                 : launch_f32<128>(q, k, v, out, B, Sq, Skv, H, G, scale, st);
     default:
       return (int)cudaErrorInvalidValue;
   }

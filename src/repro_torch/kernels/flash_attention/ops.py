@@ -17,8 +17,8 @@ tile divides S" constraints are gone; the function computed is unchanged.
 
 :func:`flash_attention` is the kernel's wrapper: a CUDA tensor launches
 ``csrc/flash_attention.cu`` (or raises), a CPU tensor takes the plain
-version in ``ref.py``.  bf16 runs the kernel's tensor-core instance, f32
-its f32 instance.
+version in ``ref.py``.  Both types run on the tensor cores: bf16 as it
+is, f32 by the 3xTF32 split.
 """
 
 from __future__ import annotations
@@ -52,8 +52,8 @@ def _launcher():
 
 
 def _aligned(t):
-    """The bf16 instance copies 16-byte rows with cp.async: a view that
-    starts off a 16-byte boundary is copied to a fresh allocation."""
+    """Both instances copy 16-byte rows with cp.async: a view that starts
+    off a 16-byte boundary is copied to a fresh allocation."""
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 

@@ -190,12 +190,15 @@ def test_dequant_matmul_rejects_what_the_kernel_does_not_take():
 @pytest.mark.parametrize("e,m,k,n", [(4, 8, 160, 96), (3, 5, 70, 33),
                                      (2, 130, 300, 257), (4, 17, 256, 160),
                                      (64, 32, 2048, 1408),
-                                     (64, 64, 1408, 2048)])
+                                     (64, 64, 1408, 2048), (2, 33, 132, 48),
+                                     (3, 64, 1030, 130)])
 def test_dequant_matmul_grouped_kernel_matches_plain(e, m, k, n, scale_form):
-    """f32 x: the f32 tile; bf16 x: the tensor-core instance (16-byte
-    copies at aligned shapes, element-wise loads at (3, 5, 70, 33) and
-    (2, 130, 300, 257); the 32-row M tile, which also takes M <= 16,
-    and the 64-row one)."""
+    """Both x types on the tensor cores (a f32 x by the bf16x3 split, on
+    mma.sync up to 32 rows and on wgmma above): 16-byte copies at aligned
+    shapes (K a multiple of 8 for a bf16 x, of 4 for a f32 x: (2, 33, 132,
+    48) takes them for f32 only), element-wise loads at (3, 5, 70, 33),
+    (2, 130, 300, 257) and (3, 64, 1030, 130); the 32-row M tile, which
+    also takes M <= 16, the 64-row one, and several M tiles (M = 130)."""
     _needs_card()
     g = torch.Generator(device="cuda").manual_seed(e + m + k + n)
     wq = torch.randint(-127, 128, (e, k, n), generator=g, device="cuda",
@@ -214,9 +217,9 @@ def test_dequant_matmul_grouped_kernel_matches_plain(e, m, k, n, scale_form):
         assert want.abs().max() > 0
         assert torch.isfinite(got).all()
         assert _rel(got, want) <= 1e-4
-        if xdt == torch.bfloat16:           # and the kernel's own order
-            assert _rel(got, dequant_matmul_grouped_scale_after(
-                x, wq, sc)) <= 1e-4
+        # and the kernel's own order
+        assert _rel(got, dequant_matmul_grouped_scale_after(x, wq, sc)) \
+            <= 1e-4
         # the plain version on the CPU agrees as well
         assert _rel(got, dequant_matmul_grouped_ref(x.cpu(), wq.cpu(),
                                                     sc.cpu())) <= 1e-4
@@ -271,6 +274,28 @@ def test_grouped_tc_instance_takes_operands_off_a_16_byte_boundary():
     assert _rel(got, dequant_matmul_grouped_ref(x, wq, sc)) <= 1e-4
 
 
+@pytest.mark.parametrize("scale_form", ["shared", "per_expert"])
+def test_grouped_f32_instance_takes_operands_off_a_16_byte_boundary(
+        scale_form):
+    """Aligned shapes, but a f32 x starts 4 bytes off a 16-byte boundary:
+    the f32 instance (wgmma at M = 40) takes its element-wise loader."""
+    _needs_card()
+    g = torch.Generator(device="cuda").manual_seed(12)
+    e, m, k, n = 3, 40, 256, 144
+    wq = torch.randint(-127, 128, (e, k, n), generator=g, device="cuda",
+                       dtype=torch.int8)
+    sc = torch.rand((n,) if scale_form == "shared" else (e, n), generator=g,
+                    device="cuda") * 0.01 + 1e-4
+    buf = torch.randn(e * m * k + 1, generator=g, device="cuda")
+    x = buf[1:].view(e, m, k)
+    assert x.data_ptr() % 16 != 0
+    before = kernels.launch_counts()["dequant_matmul_grouped"]
+    got = dequant_matmul_grouped(x, wq, sc)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["dequant_matmul_grouped"] == before + 1
+    assert _rel(got, dequant_matmul_grouped_ref(x, wq, sc)) <= 1e-4
+
+
 @pytest.mark.parametrize("h,g", [(32, 8), (16, 16), (4, 1)])
 @pytest.mark.parametrize("s", [1, 100, 128, 257])
 @pytest.mark.parametrize("d", [32, 128])
@@ -290,6 +315,118 @@ def test_flash_tc_instance_matches_plain(d, s, h, g):
     assert torch.isfinite(got.float()).all()
     want = fops.flash_attention(q.cpu(), k.cpu(), v.cpu())
     assert _rel(got, want) <= TOL_FLASH_BF16
+
+
+@pytest.mark.parametrize("h,g", [(32, 8), (16, 16), (4, 1)])
+@pytest.mark.parametrize("s", [1, 100, 128, 257])
+@pytest.mark.parametrize("d", [32, 128])
+def test_flash_f32_instance_matches_plain(d, s, h, g):
+    """The f32 (3xTF32 tensor-core) instance at both head dims, ragged S
+    and every main-path group size, to 1e-4 of max|plain|."""
+    _needs_card()
+    gen = torch.Generator(device="cuda").manual_seed(s * 5 + d + h + g)
+    q, k, v = (torch.randn(shape, generator=gen, device="cuda")
+               for shape in ((2, s, h, d), (2, s, g, d), (2, s, g, d)))
+    before = kernels.launch_counts()["flash_attention"]
+    got = fops.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["flash_attention"] == before + 1
+    assert got.dtype == torch.float32 and got.shape == q.shape
+    assert torch.isfinite(got).all()
+    want = fops.flash_attention(q.cpu(), k.cpu(), v.cpu())
+    assert _rel(got, want) <= 1e-4
+
+
+def test_flash_f32_instance_takes_a_view_off_a_16_byte_boundary():
+    _needs_card()
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    n = 2 * 37 * 8 * 128
+    buf = torch.randn(3 * n + 1, generator=gen, device="cuda")
+    q, k, v = (buf[1 + i * n:1 + (i + 1) * n].view(2, 37, 8, 128)
+               for i in range(3))
+    assert q.data_ptr() % 16 != 0
+    got = fops.flash_attention(q, k, v)
+    want = fops.flash_attention(q.cpu(), k.cpu(), v.cpu())
+    assert _rel(got, want) <= 1e-4
+
+
+def _graph_bits(fn):
+    """fn()'s result from a CUDA-graph replay (after a warm-up on a side
+    stream, as capture needs)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        c = fn()
+    c.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    return c.clone()
+
+
+@pytest.mark.parametrize("case", ["flash-16-16", "flash-32-8", "flash-d32",
+                                  "grouped-m32", "grouped-m64",
+                                  "grouped-ragged"])
+def test_f32_instances_are_deterministic_and_graph_capturable(case):
+    """The f32 instances of flash_attention and dequant_matmul_grouped: two
+    calls give identical bits, and a graph replay gives the eager call's."""
+    _needs_card()
+    g = torch.Generator(device="cuda").manual_seed(len(case))
+    if case.startswith("flash"):
+        b, s, h, gg, d = {"flash-16-16": (4, 128, 16, 16, 128),
+                          "flash-32-8": (4, 100, 32, 8, 128),
+                          "flash-d32": (2, 45, 4, 2, 32)}[case]
+        q, k, v = (torch.randn(shape, generator=g, device="cuda")
+                   for shape in ((b, s, h, d), (b, s, gg, d), (b, s, gg, d)))
+
+        def fn():
+            return fops.flash_attention(q, k, v)
+    else:
+        e, m, k_, n = {"grouped-m32": (64, 32, 2048, 1408),
+                       "grouped-m64": (64, 64, 1408, 2048),
+                       "grouped-ragged": (3, 37, 1030, 130)}[case]
+        wq = torch.randint(-127, 128, (e, k_, n), generator=g,
+                           device="cuda", dtype=torch.int8)
+        sc = torch.rand((e, n), generator=g, device="cuda") * 0.01 + 1e-4
+        x = torch.randn((e, m, k_), generator=g, device="cuda")
+
+        def fn():
+            return dequant_matmul_grouped(x, wq, sc)
+    a, b_ = fn(), fn()
+    assert a.dtype == torch.float32
+    assert torch.equal(a, b_)
+    assert torch.equal(_graph_bits(fn), a)
+
+
+def test_f32_instances_raise_and_never_take_the_plain_version(monkeypatch):
+    """Without their libraries the f32 instances raise: a CUDA tensor never
+    reaches the plain version, and no launch is counted."""
+    _needs_card()
+    from repro_torch.kernels import _build
+
+    def plain(*args, **kwargs):
+        raise AssertionError("a CUDA tensor reached the plain version")
+
+    def missing(name):
+        raise RuntimeError(f"nvcc not found: {name} cannot be built")
+    monkeypatch.setattr(dmops, "dequant_matmul_grouped_ref", plain)
+    monkeypatch.setattr(fops, "flash_attention_ref", plain)
+    monkeypatch.setattr(dmops, "_FNS", {})
+    monkeypatch.setattr(fops, "_FN", None)
+    monkeypatch.setattr(_build, "load", missing)
+    before = kernels.launch_counts()
+    x = torch.randn(2, 32, 256, device="cuda")
+    wq = torch.zeros(2, 256, 128, dtype=torch.int8, device="cuda")
+    with pytest.raises(RuntimeError, match="nvcc"):
+        dmops.dequant_matmul_grouped(x, wq, torch.ones(128, device="cuda"))
+    q = torch.randn((1, 16, 4, 128), device="cuda")
+    kv = torch.randn((1, 16, 2, 128), device="cuda")
+    with pytest.raises(RuntimeError, match="nvcc"):
+        fops.flash_attention(q, kv, kv)
+    assert kernels.launch_counts() == before
 
 
 def test_tc_instances_raise_and_never_take_the_plain_version(monkeypatch):
@@ -424,7 +561,8 @@ def test_kv_cache_quantization_on_card_equals_cpu():
 @pytest.mark.parametrize("dtype,sq,skv,d", [
     ("float32", 20, 45, 32), ("bfloat16", 20, 45, 32),
     ("bfloat16", 1, 9, 128), ("bfloat16", 64, 200, 128),
-    ("bfloat16", 100, 257, 32)])
+    ("bfloat16", 100, 257, 32), ("float32", 1, 9, 128),
+    ("float32", 64, 200, 128), ("float32", 100, 257, 32)])
 def test_flash_kernel_skv_longer_than_sq(dtype, sq, skv, d):
     _needs_card()
     dt = getattr(torch, dtype)

@@ -1,5 +1,6 @@
-"""Why the port's dequantize-matmul kernels may use the tensor cores, and
-the bounds ``chip_smoke.py`` holds the kernels to.  CPU only.
+"""Why the port's dequantize-matmul and attention kernels may use the
+tensor cores, and the bounds ``chip_smoke.py`` holds the kernels to.  CPU
+only.
 
 The reference computes out = x @ (q * s) with f32 sums.  The kernels'
 tensor-core instances compute out = s * (x @ q): bf16 x bf16 products
@@ -13,7 +14,12 @@ orders, as plain PyTorch functions, against the JAX package's ops at
 llama3-8b's and deepseek-moe-16b's widths to 1e-5 of max|ref| (f32 sums in
 another order).  (c) checks that the bounds count operations at the bf16
 tensor-core rate for a bf16 x and at a third of it for a f32 x (three
-MMAs per product), so most of them are bytes.
+MMAs per product), so most of them are bytes.  (d) f32 attention: the
+kernel's f32 instance splits every operand of both products into two
+TF32 values (3xTF32); its emulation in PyTorch holds against the JAX
+package's flash_attention (naive reference and Pallas interpret) at
+llama3-8b's and deepseek-moe-16b's head shapes to 1e-5, and the bound
+counts f32 attention at that split's rate, BF16_FLOPS / 6.
 
 Run as a script, it prints how far each order is from the exact f64 result
 (E=8, M=32, K=2048, N=1408), the measurement the kernel's source note cites.
@@ -35,11 +41,17 @@ from repro.kernels.dequant_matmul.ops import \
     dequant_matmul as jdm  # noqa: E402
 from repro.kernels.dequant_matmul.ops import \
     dequant_matmul_grouped as jdmg  # noqa: E402
+from repro.kernels.flash_attention.ops import \
+    _run_ref as jflash_ref  # noqa: E402
+from repro.kernels.flash_attention.ops import \
+    flash_attention as jflash  # noqa: E402
 from repro_torch.convert import tensor_from_numpy  # noqa: E402
 from repro_torch.kernels.dequant_matmul.ref import (  # noqa: E402
     bf16x3_split, dequant_matmul_grouped_ref,
     dequant_matmul_grouped_scale_after, dequant_matmul_ref,
     dequant_matmul_scale_after)
+from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
+    flash_attention_3xtf32, tf32_split)
 
 REPO = Path(__file__).resolve().parents[1]
 RTOL = 1e-5
@@ -53,10 +65,11 @@ def _t(a):
     return tensor_from_numpy(np.asarray(a), "cpu")
 
 
-def _inputs(e, m, k, n, scale_form, seed):
+def _inputs(e, m, k, n, scale_form, seed, xdt="bfloat16"):
     rng = np.random.default_rng(seed)
-    x = rng.standard_normal((e, m, k)).astype(np.float32).astype(
-        ml_dtypes.bfloat16)
+    x = rng.standard_normal((e, m, k)).astype(np.float32)
+    if xdt == "bfloat16":
+        x = x.astype(ml_dtypes.bfloat16)
     wq = rng.integers(-127, 128, (e, k, n)).astype(np.int8)
     sc = (rng.random((e, n) if scale_form == "per_expert" else (n,))
           * 0.01 + 1e-4).astype(np.float32)
@@ -68,17 +81,21 @@ def _inputs(e, m, k, n, scale_form, seed):
 @pytest.mark.parametrize("k,n", EXPERT_KN)
 def test_scale_after_order_matches_jax_at_expert_widths(k, n, m, scale_form):
     """(a) E cut to 4 for time; M = 32 (a 4-slot decode step's capacity
-    buffer) and 64 (a 4 x 128-token prefill's)."""
+    buffer) and 64 (a 4 x 128-token prefill's); a bf16 x as it is and a
+    f32 x as its three bf16 pieces (the kernel's two instances)."""
     e = 4
-    x, wq, sc = _inputs(e, m, k, n, scale_form, k + n + m)
-    got = dequant_matmul_grouped_scale_after(_t(x), _t(wq), _t(sc)).numpy()
-    assert got.dtype == np.float32 and got.shape == (e, m, n)
-    for kw in ({"use_ref": True}, {"interpret": True}):
-        want = np.asarray(jdmg(jnp.asarray(x), jnp.asarray(wq),
-                               jnp.asarray(sc), **kw), np.float32)
-        scale = float(np.max(np.abs(want)))
-        assert scale > 0
-        assert float(np.max(np.abs(got - want))) <= RTOL * scale, kw
+    for xdt in ("bfloat16", "float32"):
+        x, wq, sc = _inputs(e, m, k, n, scale_form, k + n + m, xdt)
+        got = dequant_matmul_grouped_scale_after(_t(x), _t(wq),
+                                                 _t(sc)).numpy()
+        assert got.dtype == np.float32 and got.shape == (e, m, n)
+        for kw in ({"use_ref": True}, {"interpret": True}):
+            want = np.asarray(jdmg(jnp.asarray(x), jnp.asarray(wq),
+                                   jnp.asarray(sc), **kw), np.float32)
+            scale = float(np.max(np.abs(want)))
+            assert scale > 0
+            assert float(np.max(np.abs(got - want))) <= RTOL * scale, \
+                (xdt, kw)
 
 
 def test_bf16x3_split_is_exact_over_a_wide_exponent_range():
@@ -231,6 +248,79 @@ def test_dm_bound_counts_bf16_x_at_the_tensor_core_rate():
     # decode (M = 4): the weight bytes, whatever x's type
     assert cs._dm_bound(4, 4096, 14336, 2)[1] == "bytes"
     assert cs._dm_bound(4, 4096, 14336, 4)[1] == "bytes"
+
+
+def test_flash_bound_counts_f32_at_the_split_rate():
+    """(d) f32 attention at 3xTF32's BF16_FLOPS / 6: bytes bound both
+    full-width prefill shapes (it was the f32 rate, 0.00808 ms of
+    operations at (32, 8), when no kernel put f32 on the tensor cores)."""
+    cs = _chip_smoke()
+    b, s, d = 4, 128, 128
+    for (h, g), want_ms in (((32, 8), 0.00626), ((16, 16), 0.00501)):
+        ms, by = cs._flash_bound(b, s, s, h, g, d, 4)
+        nbytes = (2 * b * s * h * d + 2 * b * s * g * d) * 4
+        assert by == "bytes"
+        assert ms == pytest.approx(nbytes / cs.HBM_BYTES_PER_S * 1e3)
+        assert ms == pytest.approx(want_ms, abs=1e-5)
+    assert cs._flash_peak(4) == pytest.approx(cs.BF16_FLOPS / 6)
+    assert cs._flash_peak(2) == cs.BF16_FLOPS
+    # operations bind f32 attention once a row sees enough keys: S = 4096
+    ms, by = cs._flash_bound(1, 4096, 4096, 32, 8, d, 4)
+    assert by == "operations"
+    flops = 4.0 * d * 32 * 4096 * 4097 // 2
+    assert ms == pytest.approx(flops / (cs.BF16_FLOPS / 6) * 1e3)
+
+
+def test_tf32_split_is_within_2_to_the_minus_22():
+    """(d) big and small are TF32 values (low 13 significand bits zero),
+    x - big is exact, and big + small is within 2^-22 |x| of x, for 10^6
+    f32 values over a wide exponent range."""
+    rng = np.random.default_rng(4)
+    n = 1_000_000
+    sig = rng.integers(0, 1 << 23, n, dtype=np.uint32)
+    exp = rng.integers(-100 + 127, 100 + 127, n, dtype=np.uint32)
+    sign = rng.integers(0, 2, n, dtype=np.uint32) << 31
+    x = (sign | (exp << 23) | sig).view(np.float32)
+    big, small = tf32_split(_t(x))
+    for part in (big, small):
+        assert int((part.view(torch.int32) & 0x1FFF).abs().sum()) == 0
+    x64 = x.astype(np.float64)
+    np.testing.assert_array_equal(
+        (_t(x) - big).double().numpy(), x64 - big.double().numpy())
+    err = np.abs(big.double().numpy() + small.double().numpy() - x64)
+    assert float(np.max(err / np.abs(x64))) <= 2.0 ** -22
+
+
+@pytest.mark.parametrize("s", [100, 128])
+@pytest.mark.parametrize("h,g", [(16, 16), (32, 8)])
+def test_3xtf32_attention_matches_jax_at_full_width_heads(h, g, s):
+    """(d) D = 128, B = 1: the 3xTF32 emulation against the JAX package's
+    naive reference (``_run_ref``, what its tests run on the CPU) and, at
+    S = 128 (a power-of-two tile divides it), its Pallas kernel in
+    interpret mode, to 1e-5 of max|ref|."""
+    b, d = 1, 128
+    rng = np.random.default_rng(h * 1000 + g * 10 + s)
+    q = rng.standard_normal((b, s, h, d)).astype(np.float32)
+    k = rng.standard_normal((b, s, g, d)).astype(np.float32)
+    v = rng.standard_normal((b, s, g, d)).astype(np.float32)
+    rep = h // g
+    qt = _t(q).permute(0, 2, 1, 3).reshape(b * h, s, d)
+    kt, vt = (_t(a).permute(0, 2, 1, 3).repeat_interleave(rep, dim=1)
+              .reshape(b * h, s, d) for a in (k, v))
+    got = flash_attention_3xtf32(qt, kt, vt).reshape(b, h, s, d).permute(
+        0, 2, 1, 3).numpy()
+    qpos = jnp.broadcast_to(jnp.arange(s)[None], (b, s))
+    wants = {"ref": jflash_ref(jnp.asarray(q), jnp.asarray(k),
+                               jnp.asarray(v), qpos)}
+    if s == 128:
+        wants["interpret"] = jflash(jnp.asarray(q), jnp.asarray(k),
+                                    jnp.asarray(v), interpret=True, bq=64,
+                                    bk=64)
+    for name, want in wants.items():
+        want = np.asarray(want, np.float32)
+        scale = float(np.max(np.abs(want)))
+        assert scale > 0
+        assert float(np.max(np.abs(got - want))) <= RTOL * scale, name
 
 
 def test_chip_smoke_imports_without_a_card():
