@@ -37,7 +37,14 @@ Phases (each fails the run on its own; nothing is caught and ignored):
              tokens and 32 new tokens, greedy; launch counters and the
              dispatch report prove the path ran through the kernels, and
              the card's q8 quantization of layer 0, the embedding and the
-             head equals the CPU's bit for bit;
+             head equals the CPU's bit for bit.  Each backend is served
+             twice in one process, under ``eager_steps()`` and from CUDA
+             graphs (the session's default): greedy tokens and launch
+             counts must be equal, and each run reports decode ms/step,
+             device busy ms/step and the idle share of the traced ticks
+             (from graphs also the replay's time by CUDA events and the
+             idle share of an untraced tick), one prefill forward's ms
+             and peak memory (graph pools included);
 7. deploy serve — full width cut to 2 layers: a deepcabac-rd container
              (every float leaf of rank >= 2, embed and head included)
              encoded from the card, served through
@@ -52,12 +59,13 @@ Phases (each fails the run on its own; nothing is caught and ignored):
              on the container backend with the in-memory q8 session's
              tokens and launch counts;
 9. MoE serve, f32 — deepseek-moe-16b at its published widths in f32,
-             2 layers, on q8 (4 x 128 prompt tokens + 8 new, greedy): the
+             2 layers, on q8 (4 x 128 prompt tokens + 12 new, greedy): the
              f32 kernel instances at full width; greedy tokens equal the
              same session's on the CPU, prefill logits within
              TOL_MOE_F32_LOGITS, launch counts of the path, an empty
              dispatch report, and the device busy time per decode step
-             with the grouped kernel's share.
+             with the grouped kernel's share; eager and from graphs, as
+             in 6.
 
 The line before the last is the card's name and power limit; one line
 before it is the ``{"kernels": [...]}`` summary; the last line is
@@ -116,6 +124,7 @@ TOL_FLASH_BF16 = 2e-2        # bf16 output and p rounded to bf16 before PV
 # that moves the logits by 1e-4 or more fails
 TOL_MOE_BF16_LOGITS = 1e-4
 PROF_STEPS = (4, 8)          # decode ticks traced by torch.profiler
+#                              (tick 3 warms the tracer up)
 # rd_quant: the llama3-8b winner of the committed RD sweep (BENCH_rd.json)
 RD_DELTA_REL, RD_LAM, RD_WINDOW, RD_PASSES = 0.006, 1e-5, 4, 2
 # rd_quant's operations per element and pass, as the source states them
@@ -134,12 +143,12 @@ RD_OPS_CAND = 30             # per candidate, f32: add, 2 clips, step*k, w-,
 ISSUE_OPS_PER_S = F32_FLOPS / 2
 DEPLOY_LAYERS = 2            # depth of the full-width container served
 # deepseek-moe-16b in f32 at full width, DEPLOY_LAYERS deep: new tokens per
-# request, the decode ticks traced (7 ticks in all: the first one holds
-# the prefill), and the card-vs-CPU limit on prefill logits relative to
-# max|logit| (f32 through every layer: the f32 kernel instances' sums in
-# another order)
-MOE_F32_NEW_TOKENS = 8
-MOE_F32_PROF_STEPS = (3, 7)
+# request (11 ticks in all: the first holds the prefill, the second
+# captures the decode graph, ticks 4-7 are traced as in the other serves,
+# ticks 2 and 8-10 timed), and the card-vs-CPU limit on prefill logits
+# relative to max|logit| (f32 through every layer: the f32 kernel
+# instances' sums in another order)
+MOE_F32_NEW_TOKENS = 12
 TOL_MOE_F32_LOGITS = 1e-4
 
 
@@ -1016,19 +1025,45 @@ def phase_deploy_serve(device):
 
 
 def _serve_full(cfg, params, backend, device, prompts, new_tokens,
-                prof_steps=PROF_STEPS):
-    """Drive one full-width session; return timings and launch counts, the
-    greedy tokens (``tokens``) and one prefill forward's logits
-    (``logits``, on the host), which the caller takes out.  Ticks
-    ``prof_steps[0]`` to ``prof_steps[1] - 1`` are traced."""
+                mode="graph"):
+    """Drive one full-width session, its steps replayed from CUDA graphs
+    (``mode="graph"``, the session's default on the card) or run eagerly
+    under ``eager_steps()`` (``"eager"``); return timings and launch
+    counts, the greedy tokens (``tokens``) and one prefill forward's
+    logits (``logits``, on the host), which the caller takes out.  Ticks
+    ``PROF_STEPS[0]`` to ``PROF_STEPS[1] - 1`` are traced, after one tick
+    that warms the tracer up; their own idle share is the headline
+    (``device_idle_share``).  In graph mode the decode graph's replays are
+    also timed by CUDA events (``decode_replay_ms``), which with the
+    untraced ticks gives a share that no tracer touches
+    (``untraced_idle_share``).  After the run the prompts come once more
+    as one admission that ends at its first token, so the session runs
+    one more prefill alone: in graph mode the shape's second use, which
+    captures its graph, and the forward is timed as replays of the
+    session's own graph; eagerly, as the model's prefill."""
+    import contextlib
+
     import numpy as np
     import torch
     from repro_torch.kernels import registry
     from repro_torch.models.transformer import prefill
-    from repro_torch.serve.session import ServeConfig, ServeSession
-    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.serve.session import (ServeConfig, ServeSession,
+                                           eager_steps)
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     b, s = prompts.shape
+    prof_steps = PROF_STEPS
+    n_prof = prof_steps[1] - prof_steps[0]
+    trace = {}
+
+    def read_trace(p):
+        trace["busy"], trace["top"] = _device_time(p)
+        trace["split"] = {name: _kernel_ms(p, key) / n_prof
+                          for name, key in (
+                              ("dequant_matmul_grouped", "dm_grouped"),
+                              ("dequant_matmul", ("dm_decode", "dm_tc")),
+                              ("flash_attention", "flash_fwd"))}
+
     sess = ServeSession(cfg, params, backend=backend, device=device,
                         serve_cfg=ServeConfig(slots=b,
                                               max_len=s + new_tokens))
@@ -1037,62 +1072,101 @@ def _serve_full(cfg, params, backend, device, prompts, new_tokens,
     torch.cuda.reset_peak_memory_stats()
     registry.clear_dispatch_report()
     registry.reset_launch_counts()
-    step_s = []
+    step_s, captured = [], []
     prof, prof_wall = None, 0.0
     t_all = time.perf_counter()
-    while sess.pending:
-        i = len(step_s)
-        if i == prof_steps[0]:
-            prof = profile(activities=[ProfilerActivity.CPU,
-                                       ProfilerActivity.CUDA])
-            prof.__enter__()
-            t_prof = time.perf_counter()
-        t0 = time.perf_counter()
-        sess.step()                   # host copy of the logits syncs
-        step_s.append(time.perf_counter() - t0)
-        if i == prof_steps[1] - 1:
-            torch.cuda.synchronize()
-            prof_wall = time.perf_counter() - t_prof
-            prof.__exit__(None, None, None)
+    def steps_mode():
+        return eager_steps() if mode == "eager" else contextlib.nullcontext()
+
+    with steps_mode():
+        while sess.pending:
+            i = len(step_s)
+            if i == prof_steps[0] - 1:
+                # one warm-up tick: the tracer misses device work launched
+                # just after it starts (a whole 1 ms graph replay)
+                prof = profile(activities=[ProfilerActivity.CPU,
+                                           ProfilerActivity.CUDA],
+                               schedule=schedule(wait=0, warmup=1,
+                                                 active=n_prof, repeat=1),
+                               on_trace_ready=read_trace)
+                prof.__enter__()
+            if i == prof_steps[0]:
+                t_prof = time.perf_counter()
+            n_cap = sess.graphs.stats["captures"]
+            t0 = time.perf_counter()
+            sess.step()                   # host copy of the logits syncs
+            step_s.append(time.perf_counter() - t0)
+            captured.append(sess.graphs.stats["captures"] > n_cap)
+            if prof_steps[0] - 1 <= i < prof_steps[1]:
+                if i == prof_steps[1] - 1:
+                    torch.cuda.synchronize()
+                    prof_wall = time.perf_counter() - t_prof
+                prof.step()
+                if i == prof_steps[1] - 1:
+                    prof.__exit__(None, None, None)
     total = time.perf_counter() - t_all
     launches = registry.launch_counts()
     report = registry.dispatch_report()
-    peak = torch.cuda.max_memory_allocated()
     tokens = np.stack([h.result() for h in hs])
+    graph_stats = dict(sess.graphs.stats)
+    decode_steps = sess.stats["decode_steps"]
+    replay_ms = (time_ms(lambda: sess.graphs.replay_only(("decode",)))
+                 if mode == "graph" else None)
     # one prefill forward on its own, without the scheduler around it: the
     # first tick also holds a decode step, and the host's share of a tick
     # moves by more than a prefill's device time
-    prompt_t = torch.from_numpy(prompts).to(device)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    logits, _ = prefill(sess.params, cfg, tokens=prompt_t,
-                        max_len=s + new_tokens)
-    torch.cuda.synchronize()
-    prefill_fwd_ms = 1e3 * (time.perf_counter() - t0)
+    for p in prompts:
+        sess.submit(p, max_new_tokens=1)
+    with steps_mode():
+        sess.step()
+    logits = sess.logits[:b].clone()
+    if mode == "graph":
+        key = ("prefill", b, s, False)
+        check(key in sess.graphs._graphs, f"{cfg.name} {backend}: the "
+              f"prefill was not captured: {sess.graphs.stats}")
+        prefill_fwd_ms = time_ms(lambda: sess.graphs.replay_only(key))
+    else:
+        prompt_t = torch.from_numpy(prompts).to(device)
+        prefill_fwd_ms = time_ms(lambda: prefill(
+            sess.params, cfg, tokens=prompt_t, max_len=s + new_tokens))
+    peak = torch.cuda.max_memory_allocated()
     finite = bool(torch.isfinite(logits).all().item())
-    check(prof is not None and prof_wall > 0, f"{cfg.name} {backend}: "
+    check(prof_wall > 0 and "busy" in trace, f"{cfg.name} {backend}: "
           f"{len(step_s)} ticks, fewer than the traced ones {prof_steps}")
+    # decode ticks: not the first (it holds the prefills), none that
+    # captured a graph, none traced or warming the tracer up
     plain_steps = [t for j, t in enumerate(step_s)
-                   if j > 0 and not prof_steps[0] <= j < prof_steps[1]]
+                   if j > 0 and not captured[j] and
+                   not prof_steps[0] - 1 <= j < prof_steps[1]]
     decode = sorted(plain_steps)
     decode_ms = 1e3 * decode[len(decode) // 2]
-    busy, top = _device_time(prof)
-    n_prof = prof_steps[1] - prof_steps[0]
-    res = {"backend": backend, "launches": launches,
-           "dispatch_report": report, "decode_steps":
-           sess.stats["decode_steps"], "first_step_ms": 1e3 * step_s[0],
+    busy, top, split = trace["busy"], trace["top"], trace["split"]
+    wall_ms = 1e3 * prof_wall / n_prof
+    if busy is not None:
+        split["other"] = busy / n_prof - sum(split.values())
+    res = {"backend": backend, "mode": mode, "launches": launches,
+           "dispatch_report": report, "graph_stats": graph_stats,
+           "decode_steps": decode_steps,
+           "first_step_ms": 1e3 * step_s[0],
            "prefill_ms": 1e3 * step_s[0] - decode_ms,
            "prefill_forward_ms": prefill_fwd_ms,
            "decode_ms_per_step_median": decode_ms,
            "decode_ms_per_step_mean": 1e3 * sum(decode) / len(decode),
+           "decode_ticks_timed": len(decode),
            "profiled_steps": list(prof_steps),
-           "profiled_wall_ms_per_step": 1e3 * prof_wall / n_prof,
+           "profiled_wall_ms_per_step": wall_ms,
            "device_busy_ms_per_step": (None if busy is None
                                        else busy / n_prof),
            "device_idle_share": (None if busy is None
                                  else 1.0 - busy / (1e3 * prof_wall)),
+           "untraced_idle_share": (None if replay_ms is None
+                                   else 1.0 - replay_ms / decode_ms),
+           "tick_ms": [1e3 * t for t in step_s],
+           "capture_ticks": [j for j, c in enumerate(captured) if c],
+           "decode_replay_ms": replay_ms,
            "top_device_ms_per_step": {k: v / n_prof for k, v in top},
-           "grouped_ms_per_step": _kernel_ms(prof, "dm_grouped_tc") / n_prof,
+           "device_split_ms_per_step": split,
+           "grouped_ms_per_step": split["dequant_matmul_grouped"],
            "total_s_with_trace": total,
            "decode_tokens_per_s": b / (decode_ms / 1e3),
            "max_memory_allocated": peak, "logits_finite": finite,
@@ -1103,26 +1177,88 @@ def _serve_full(cfg, params, backend, device, prompts, new_tokens,
     return res
 
 
+def _serve_modes(cfg, params, backend, device, prompts, new_tokens):
+    """``_serve_full`` eagerly, then with graphs, in one process: greedy
+    tokens and launch counts must be equal in both modes and the dispatch
+    report empty in each.  Returns the graph run with the eager run's
+    numbers under ``"eager"`` (tokens and logits of the graph run).  Its
+    ``launches`` are the eager run's, which the wrappers counted where
+    they launched; a replay credits its capture's counts instead
+    (``launches_graph``, checked equal)."""
+    import numpy as np
+    import torch
+    runs = {}
+    for mode in ("eager", "graph"):
+        runs[mode] = _serve_full(cfg, params, backend, device, prompts,
+                                 new_tokens, mode=mode)
+        gc.collect()
+        torch.cuda.empty_cache()
+        r = runs[mode]
+        split = r["device_split_ms_per_step"]
+        log(f"[serve] {cfg.name} {backend} {mode}: decode "
+            f"{r['decode_ms_per_step_median']:.2f} ms/step median, device "
+            f"busy {_fmt(r['device_busy_ms_per_step'])} ms/step (traced), "
+            f"idle {_fmt(r['device_idle_share'])} of a traced tick, decode "
+            f"graph replay {_fmt(r['decode_replay_ms'])} ms by CUDA events "
+            f"(idle {_fmt(r['untraced_idle_share'])} of an untraced tick), "
+            f"prefill forward {r['prefill_forward_ms']:.2f} ms, "
+            f"peak {r['max_memory_allocated'] / 2**30:.2f} GiB, split "
+            f"{ {k: round(v, 3) for k, v in split.items()} }, "
+            f"graphs {r['graph_stats']}")
+        check(not r["dispatch_report"], f"{cfg.name} {backend} {mode}: "
+              f"dispatch report not empty: {r['dispatch_report']}")
+    eager, graph = runs["eager"], runs["graph"]
+    differ = int((eager["tokens"] != graph["tokens"]).sum())
+    check(differ == 0, f"{cfg.name} {backend}: {differ} greedy tokens "
+          f"differ between the graph and the eager session")
+    check(eager["launches"] == graph["launches"],
+          f"{cfg.name} {backend}: launches differ between the modes: eager "
+          f"{eager['launches']}, graph {graph['launches']}")
+    check(graph["graph_stats"]["replays"] >= graph["decode_steps"] - 1,
+          f"{cfg.name} {backend}: {graph['graph_stats']} for "
+          f"{graph['decode_steps']} decode steps")
+    check(np.isfinite(eager["logits"]).all(), f"{cfg.name} {backend}: "
+          "non-finite eager logits")
+    log(f"[serve] {cfg.name} {backend}: prefill logits from the graph "
+        f"against the eager step: max abs diff "
+        f"{float(np.max(np.abs(eager['logits'] - graph['logits']))):.3g}")
+    graph["launches_graph"] = graph["launches"]
+    graph["launches"] = eager["launches"]
+    graph["eager"] = {k: v for k, v in eager.items()
+                      if k not in ("tokens", "logits")}
+    return graph
+
+
+def _fmt(v):
+    return "None" if v is None else f"{v:.3f}"
+
+
 def _device_time(prof):
-    """Total device time (ms) in a profiler window and the five largest
+    """Total device time (ms) in a profiler window and the eight largest
     kernels; (None, []) if the profiler saw no device time.  Only device
-    events are summed: a CPU op's self device time repeats its kernels'."""
+    events are summed: a CPU op's self device time repeats its kernels',
+    and a user annotation (the schedule's ``ProfilerStep#n``) is drawn on
+    the device's timeline over the kernels it spans."""
     rows = []
     for evt in prof.key_averages():
         if str(evt.device_type).endswith("CUDA") and \
-                evt.self_device_time_total > 0:
+                evt.self_device_time_total > 0 and \
+                not getattr(evt, "is_user_annotation", False) and \
+                not evt.key.startswith("ProfilerStep"):
             rows.append((evt.key, evt.self_device_time_total / 1e3))
     if not rows:
         return None, []
     rows.sort(key=lambda r: -r[1])
-    return sum(t for _, t in rows), rows[:5]
+    return sum(t for _, t in rows), rows[:8]
 
 
-def _kernel_ms(prof, name) -> float:
-    """Device time (ms) of the kernels whose name holds ``name`` in a
-    profiler window."""
+def _kernel_ms(prof, names) -> float:
+    """Device time (ms) of the kernels whose name holds ``names`` (a
+    string or a tuple of them) in a profiler window."""
+    names = (names,) if isinstance(names, str) else names
     return sum(e.self_device_time_total for e in prof.key_averages()
-               if str(e.device_type).endswith("CUDA") and name in e.key) / 1e3
+               if str(e.device_type).endswith("CUDA") and
+               any(n in e.key for n in names)) / 1e3
 
 
 def per_forward_launches(cfg) -> dict:
@@ -1182,20 +1318,27 @@ def phase_serve(cfg, params, device):
     per_fwd = per_forward_launches(cfg)
     out = {"q8_mismatch_card_vs_cpu": mism}
     for backend in ("q8", "bf16"):
-        r = _serve_full(cfg, params, backend, device, prompts, new_tokens)
+        r = _serve_modes(cfg, params, backend, device, prompts, new_tokens)
         del r["tokens"], r["logits"]
-        gc.collect()
-        torch.cuda.empty_cache()
         fwd = 1 + r["decode_steps"]
-        log(f"[serve] {cfg.name} {backend}: prefill {r['prefill_ms']:.1f} ms "
-            f"(first tick {r['first_step_ms']:.1f} ms; one forward alone "
-            f"{r['prefill_forward_ms']:.1f} ms), decode "
-            f"{r['decode_ms_per_step_median']:.2f} ms/step median "
-            f"({r['decode_tokens_per_s']:.1f} tok/s at 4 slots), peak "
-            f"{r['max_memory_allocated'] / 2**30:.2f} GiB, device busy "
-            f"{r['device_busy_ms_per_step']} ms and idle "
-            f"{r['device_idle_share']} of the traced ticks, launches "
-            f"{r['launches']}, report {len(r['dispatch_report'])} records")
+        e = r["eager"]
+        log(f"[serve] {cfg.name} {backend}: graphs: prefill "
+            f"{r['prefill_ms']:.1f} ms (first tick {r['first_step_ms']:.1f} "
+            f"ms, eager by design; one forward alone "
+            f"{r['prefill_forward_ms']:.1f} ms, eager "
+            f"{e['prefill_forward_ms']:.1f}), decode "
+            f"{r['decode_ms_per_step_median']:.2f} ms/step median (eager "
+            f"{e['decode_ms_per_step_median']:.2f}; "
+            f"{r['decode_tokens_per_s']:.1f} tok/s at 4 slots), peak "
+            f"{r['max_memory_allocated'] / 2**30:.2f} GiB (eager "
+            f"{e['max_memory_allocated'] / 2**30:.2f}), device busy "
+            f"{_fmt(r['device_busy_ms_per_step'])} ms and idle "
+            f"{_fmt(r['device_idle_share'])} of a traced tick (eager "
+            f"{_fmt(e['device_busy_ms_per_step'])} and "
+            f"{_fmt(e['device_idle_share'])}), idle "
+            f"{_fmt(r['untraced_idle_share'])} of an untraced tick by the "
+            f"replay's CUDA events, launches {r['launches']} in "
+            f"both modes, report {len(r['dispatch_report'])} records")
         what = f"{cfg.name} {backend}"
         check(r["logits_finite"], f"{what}: non-finite logits")
         check(r["logits_shape"] == [4, cfg.vocab_size],
@@ -1308,8 +1451,7 @@ def phase_serve_moe_f32(device, cpu="cpu"):
     rng = np.random.default_rng(5)
     prompts = rng.integers(0, cfg.vocab_size, (4, 128)).astype(np.int32)
     new_tokens = MOE_F32_NEW_TOKENS
-    r = _serve_full(cfg, tree, "q8", device, prompts, new_tokens,
-                    prof_steps=MOE_F32_PROF_STEPS)
+    r = _serve_modes(cfg, tree, "q8", device, prompts, new_tokens)
     tok_d, lo_d = r.pop("tokens"), r.pop("logits")
     fwd = 1 + r["decode_steps"]
     what = "deepseek-moe-16b f32"
@@ -1326,10 +1468,11 @@ def phase_serve_moe_f32(device, cpu="cpu"):
         check(r["launches"][kern] == n * fwd, f"{what}: "
               f"{r['launches'][kern]} {kern} launches, want {n} x {fwd} "
               "passes")
-    check(r["device_busy_ms_per_step"] is not None and
-          r["grouped_ms_per_step"] > 0,
+    e = r["eager"]
+    check(e["device_busy_ms_per_step"] is not None and
+          e["grouped_ms_per_step"] > 0,
           f"{what}: the profiler saw no grouped kernel time: "
-          f"{r['top_device_ms_per_step']}")
+          f"{e['top_device_ms_per_step']}")
     # the same session on the CPU, from the same q8 tree
     tree_cpu = unflatten({k: v.cpu() for k, v in flatten_tree(tree).items()})
     del tree
@@ -1350,17 +1493,25 @@ def phase_serve_moe_f32(device, cpu="cpu"):
     gc.collect()
     err = float(np.max(np.abs(lo_d - lo_c)) / np.max(np.abs(lo_c)))
     differ = int((tok_d != tok_c).sum())
-    share = r["grouped_ms_per_step"] / r["device_busy_ms_per_step"]
-    log(f"[serve] {what}, {cfg.num_layers} layers on q8: prefill forward "
-        f"{r['prefill_forward_ms']:.1f} ms, decode "
-        f"{r['decode_ms_per_step_median']:.2f} ms/step median, device busy "
-        f"{r['device_busy_ms_per_step']:.3f} ms per decode step (idle "
-        f"{r['device_idle_share']:.3f}), of which the grouped kernel "
-        f"{r['grouped_ms_per_step']:.3f} ms ({share:.3f}); launches "
-        f"{r['launches']}; peak {r['max_memory_allocated'] / 2**30:.2f} "
-        f"GiB; against the CPU ({cpu_s:.1f} s): prefill logits rel diff "
-        f"{err:.2e} (tolerance {TOL_MOE_F32_LOGITS}), {differ} of "
-        f"{tok_d.size} greedy tokens differ")
+    busy = r["device_busy_ms_per_step"] or e["device_busy_ms_per_step"]
+    share = r["grouped_ms_per_step"] / busy
+    log(f"[serve] {what}, {cfg.num_layers} layers on q8, graphs (eager in "
+        f"brackets): prefill forward {r['prefill_forward_ms']:.2f} ms "
+        f"({e['prefill_forward_ms']:.2f}), decode "
+        f"{r['decode_ms_per_step_median']:.2f} ms/step median "
+        f"({e['decode_ms_per_step_median']:.2f}), device busy "
+        f"{_fmt(r['device_busy_ms_per_step'])} ms per decode step "
+        f"({_fmt(e['device_busy_ms_per_step'])}), idle "
+        f"{_fmt(r['device_idle_share'])} ({_fmt(e['device_idle_share'])}) "
+        f"of a traced tick, {_fmt(r['untraced_idle_share'])} of an "
+        f"untraced one by the replay's CUDA events, "
+        f"of which the grouped kernel {r['grouped_ms_per_step']:.3f} ms "
+        f"({share:.3f}); launches {r['launches']} in both modes; peak "
+        f"{r['max_memory_allocated'] / 2**30:.2f} GiB "
+        f"({e['max_memory_allocated'] / 2**30:.2f}); against the CPU "
+        f"({cpu_s:.1f} s): prefill logits rel diff {err:.2e} (tolerance "
+        f"{TOL_MOE_F32_LOGITS}), {differ} of {tok_d.size} greedy tokens "
+        f"differ")
     check(err <= TOL_MOE_F32_LOGITS,
           f"{what}: prefill logits differ from the CPU's: rel {err:.3g}")
     check(differ == 0, f"{what}: {differ} greedy tokens differ between "
@@ -1396,7 +1547,7 @@ def summarize(dm_rows, fa_rows, grouped_rows, serve, serve_moe, rd_rows,
     rd_quant: one 2-pass assignment of each of the 11 full-width shapes
     (layer 0 of each stacked leaf, embed, head; bf16), launches from the
     deploy encode.  Launches of the other serving entries come from each
-    model's q8 serve.  The serving kernels' ``ms`` and ``library_ms`` are
+    model's q8 serve, its eager run (the graph run's are equal).  The serving kernels' ``ms`` and ``library_ms`` are
     CUDA-graph replays (``timing``), their eager loops' ``eager_ms``
     beside them; rd_quant's calls take milliseconds and are timed
     eagerly."""

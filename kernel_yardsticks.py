@@ -28,7 +28,13 @@ named:
   dequantized f32 weight (the same function), ``torch.matmul`` of the
   bf16 x on the weight dequantized to bf16 (a speed reference for cuBLAS
   at that shape, not the same function) and, for a bf16 x, the grouped
-  kernel's tensor-core instance called with one expert (E=1).
+  kernel's tensor-core instance called with one expert (E=1);
+- deepseek-moe-16b's MoE block (``models.moe.moe_block``: router,
+  routing, the grouped expert products, shared experts) at full width,
+  one layer of q8 banks, a bf16 x of a decode step's rows (G=4, S=1) and
+  a prefill's (G=4, S=128), called as the serving step calls it (without
+  the aux loss where the block can skip it): device time and device
+  kernels per call, from the profiler over MOE_CALLS calls.
 
 Every kernel call is first held against its plain version.  One JSON line
 per checkout is printed; all of them go to
@@ -44,6 +50,7 @@ import sys
 from pathlib import Path
 
 HERE = Path(__file__).resolve().parent
+MOE_CALLS = 20
 
 
 def _measure(root: Path) -> dict:
@@ -191,12 +198,60 @@ def _measure(root: Path) -> dict:
             fwd["matmul_bf16"] += row["matmul_bf16"]["graph_ms"] * calls
             del ws, w_deq, wb
         forwards[arch] = fwd
+    moe = _moe_block_rows(cs, torch, dev, gen)
     return {"root": str(root), "card": card, "device": name,
-            "torch": torch.__version__, "flash_attention": flash,
+            "torch": torch.__version__, "moe_block": moe,
+            "flash_attention": flash,
             "dequant_matmul_grouped": grouped, "dequant_matmul": dm,
             "dequant_matmul_decode_step": steps,
             "dequant_matmul_prefill": prefill,
             "dequant_matmul_prefill_forward": forwards}
+
+
+def _moe_block_rows(cs, torch, dev, gen) -> list:
+    import inspect
+
+    from repro_torch import configs
+    from repro_torch.models import moe
+    from torch.profiler import ProfilerActivity, profile
+
+    cfg = configs.get("deepseek-moe-16b")
+    d, e, f = cfg.d_model, cfg.num_experts, cfg.moe_d_ff
+    fs = cfg.num_shared_experts * f
+
+    def q8(*shape):
+        return {"q8": torch.randint(-127, 128, shape, generator=gen,
+                                    device=dev, dtype=torch.int8),
+                "q8s": torch.rand(shape[-1], generator=gen, device=dev)
+                * 0.01 + 1e-4}
+    p = {"router": q8(d, e), "w_gate": q8(e, d, f), "w_up": q8(e, d, f),
+         "w_down": q8(e, f, d), "sh_gate": q8(d, fs), "sh_up": q8(d, fs),
+         "sh_down": q8(fs, d)}
+    kw = ({"with_aux": False} if "with_aux" in
+          inspect.signature(moe.moe_block).parameters else {})
+    rows = []
+    for s in (1, 128):
+        x = torch.randn((4, s, d), generator=gen, device=dev).to(
+            torch.bfloat16)
+        for _ in range(3):
+            moe.moe_block(x, p, cfg, **kw)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(MOE_CALLS):
+                moe.moe_block(x, p, cfg, **kw)
+            torch.cuda.synchronize()
+        busy, top = cs._device_time(prof)
+        kernels = sum(evt.count for evt in prof.key_averages()
+                      if str(evt.device_type).endswith("CUDA") and
+                      evt.self_device_time_total > 0)
+        rows.append({"g": 4, "s": s, "x": "bfloat16", "aux": not kw,
+                     "device_ms_per_call": busy / MOE_CALLS,
+                     "device_ops_per_call": kernels / MOE_CALLS,
+                     "grouped_ms_per_call": cs._kernel_ms(
+                         prof, "dm_grouped") / MOE_CALLS,
+                     "top_ms_per_call": {k: v / MOE_CALLS for k, v in top}})
+    del p
+    return rows
 
 
 def main(argv: list[str]) -> int:

@@ -114,9 +114,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 def _qpos_canonical(qpos, sq: int, skv: int) -> bool:
-    """The kernel hard-codes qpos == arange(sq) + (skv - sq)."""
+    """The kernel hard-codes qpos == arange(sq) + (skv - sq).  Comparing
+    on the host syncs with the card, so a step under CUDA-graph capture
+    must say what its qpos is (``qpos_canonical``): it raises here."""
     if qpos is None:
         return True
+    if torch.cuda.is_available() and torch.cuda.is_current_stream_capturing():
+        raise RuntimeError(
+            "flash_attention: qpos must be checked on the host, which a "
+            "CUDA-graph capture cannot do; pass qpos_canonical")
     want = torch.arange(sq, device=qpos.device) + (skv - sq)
     return bool(torch.equal(qpos, want[None, :].expand_as(qpos)))
 

@@ -10,14 +10,18 @@ never repeated in memory.  Scores and sums are f32, as the reference's
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 NEG_INF = -1e30
 
 
-def _scale(d: int, device) -> torch.Tensor:
-    return (1.0 / torch.sqrt(torch.tensor(float(d)))).to(device)
+def _scale(d: int) -> float:
+    """1/sqrt(d) as the reference rounds it in f32, held as a Python
+    number: a tensor made on the host would be a copy to the card in every
+    step, which a CUDA graph cannot capture."""
+    return float(np.float32(1.0) / np.sqrt(np.float32(d)))
 
 
 def online_softmax_scan(q5, k, v, qpos, kv_block: int, kv_len=None):
@@ -31,7 +35,7 @@ def online_softmax_scan(q5, k, v, qpos, kv_block: int, kv_len=None):
     if pad:
         k = F.pad(k, (0, 0, 0, 0, 0, pad))
         v = F.pad(v, (0, 0, 0, 0, 0, pad))
-    scale = _scale(d, q5.device)
+    scale = _scale(d)
     qf = q5.float()
     m = torch.full((b, g, r, sq), NEG_INF, device=q5.device)
     l = torch.zeros((b, g, r, sq), device=q5.device)
@@ -63,7 +67,7 @@ def naive_attend(q5, k, v, qpos, kv_len=None):
     """Full score matrix; the decode path (Sq == 1)."""
     b, sq, g, r, d = q5.shape
     skv = k.shape[1]
-    scale = _scale(d, q5.device)
+    scale = _scale(d)
     s = torch.einsum("bsgrd,btgd->bgrst", q5.float(), k.float()) * scale
     kpos = torch.arange(skv, device=q5.device)
     mask = kpos[None, None, None, None, :] <= qpos[:, None, None, :, None]

@@ -8,12 +8,16 @@ Two records make a run's path visible:
   ({op, platform, requested, impl, reason, kind});
 * one plain-integer launch counter per hand-written kernel, bumped by the
   kernel's wrapper at the point where it launches the CUDA kernel and
-  nowhere else.
+  nowhere else.  A CUDA-graph capture launches nothing, so the launches
+  its wrappers count are taken back (:func:`captured_launches`), and
+  every replay of the graph credits them (:func:`credit_launches`): a
+  replay runs no Python.
 
 Tuning and per-op impl pins are not ported yet."""
 
 from __future__ import annotations
 
+import contextlib
 from collections import deque
 
 import torch
@@ -54,6 +58,29 @@ def launch_counts() -> dict[str, int]:
 def reset_launch_counts() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+@contextlib.contextmanager
+def captured_launches():
+    """Take the launches counted inside the block back out of the counts
+    and hand them to the caller in the dict this yields ({kernel: n}, the
+    kernels launched only): the block is a CUDA-graph capture, which runs
+    no kernel."""
+    before = dict(LAUNCHES)
+    taken: dict[str, int] = {}
+    try:
+        yield taken
+    finally:
+        for name, n in before.items():
+            if LAUNCHES[name] != n:
+                taken[name] = LAUNCHES[name] - n
+            LAUNCHES[name] = n
+
+
+def credit_launches(counts: dict[str, int]) -> None:
+    """Count the launches of one replay of a captured graph."""
+    for name, n in counts.items():
+        LAUNCHES[name] += n
 
 
 def platform_of(t: torch.Tensor) -> str:

@@ -12,7 +12,11 @@ weights), ``container`` (stream the DCBC blob; serve-q8 records stay
 int8).  Without ``--ckpt`` the bf16/q8 backends take seeded random init,
 and the container backend packs a serve-q8 container in process first,
 so the streaming load still runs.  Runs on the card unless
-``--device cpu``.  Prints the generated tokens, the launch count of every
+``--device cpu``; on the card the session replays CUDA graphs of its
+steps.
+Prints the generated tokens, the decode ms/step (host clock per tick
+after the first two, which hold the prefills and the decode graph's
+capture), the launch count of every
 kernel (``dequant_matmul_grouped`` included: a MoE model's expert banks
 on q8) and every ``dispatch_report()`` record (a fallback or loop
 dequant)."""
@@ -20,6 +24,7 @@ dequant)."""
 from __future__ import annotations
 
 import argparse
+import time
 
 import numpy as np
 
@@ -70,11 +75,18 @@ def main(argv=None):
     handles = [session.submit(p, max_new_tokens=args.steps,
                               temperature=args.temperature)
                for p in prompts]
-    session.run()
+    session.step()                  # admits (prefills) and decodes once
+    session.step()                  # on the card: captures the decode graph
+    t0, n0 = time.perf_counter(), session.stats["decode_steps"]
+    session.run()                   # each tick copies its logits: synced
+    ticks = session.stats["decode_steps"] - n0
+    decode_ms = 1e3 * (time.perf_counter() - t0) / max(ticks, 1)
     out = np.stack([h.result() for h in handles])
     print(f"backend={args.backend} device={args.device} slots={scfg.slots}: "
           f"generated {out.shape} tokens; first row tail: "
           f"{out[0, -min(16, out.shape[1]):].tolist()}")
+    print(f"decode {decode_ms:.2f} ms/step over {ticks} steps "
+          f"({'graphs' if session.graphs.stats['replays'] else 'eager'})")
     print(f"kernel launches: {kernels.launch_counts()}")
     for rec in kernels.dispatch_report():
         print(f"kernel {rec['kind']}: {rec['op']}: "

@@ -29,23 +29,39 @@ def _cache_load(arr, dtype, delta):
     return arr
 
 
+def host_offset(cache_pos) -> int | None:
+    """The offset every row writes at, as a host int (``cache_pos`` an int
+    or a 0-d tensor on the CPU), or None for a (B,) tensor of per-row
+    offsets, which the step reads on the device.  A 0-d tensor on the card
+    is refused: reading it would sync the host with the card, which a CUDA
+    graph cannot capture."""
+    if not isinstance(cache_pos, torch.Tensor):
+        return int(cache_pos)
+    if cache_pos.dim() == 1:
+        return None
+    if cache_pos.dim() == 0 and not cache_pos.is_cuda:
+        return int(cache_pos)
+    raise ValueError(
+        f"cache_pos must be an int, a 0-d CPU tensor or a (B,) tensor; got "
+        f"shape {tuple(cache_pos.shape)} on {cache_pos.device}")
+
+
 def _cache_update(cache_arr, new_vals, cache_pos, delta):
     """Write this step's K/V into ``cache_arr`` (B, Smax, ...) in place.
 
-    cache_pos int / 0-d tensor: all rows write at the same offset.
+    cache_pos int / 0-d CPU tensor: all rows write at the same offset.
     cache_pos (B,) int tensor: per-slot ragged positions (continuous
     batching) — each row writes its single new entry at its own offset."""
     vals = _cache_store(new_vals, cache_arr, delta)
-    cp = torch.as_tensor(cache_pos)
-    if cp.dim() == 0:
-        start = int(cp)
+    start = host_offset(cache_pos)
+    if start is not None:
         cache_arr[:, start:start + vals.shape[1]] = vals
         return cache_arr
     if new_vals.shape[1] != 1:
         raise ValueError("ragged cache update is decode-only (S=1)")
     b = cache_arr.shape[0]
     rows = torch.arange(b, device=cache_arr.device)
-    cache_arr[rows, cp.to(cache_arr.device)] = vals[:, 0]
+    cache_arr[rows, cache_pos.to(cache_arr.device)] = vals[:, 0]
     return cache_arr
 
 
@@ -86,8 +102,10 @@ def gqa_attention(x, p, cfg, positions, *, cache=None, cache_pos=None,
         new_cache = {"k": ck, "v": cv}
         k = _cache_load(ck, q.dtype, delta)
         v = _cache_load(cv, q.dtype, delta)
-        kv_len = (torch.as_tensor(cache_pos, device=x.device) + s
-                  ).to(torch.int32).expand(b)
+        off = host_offset(cache_pos)
+        kv_len = (torch.full((b,), off + s, dtype=torch.int32,
+                             device=x.device) if off is not None else
+                  (cache_pos.to(x.device) + s).to(torch.int32))
     elif cache is not None:                                 # prefill: fill
         cache["k"][:, :s] = _cache_store(k, cache["k"], delta)
         cache["v"][:, :s] = _cache_store(v, cache["v"], delta)

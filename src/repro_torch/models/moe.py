@@ -5,16 +5,16 @@ Groups are batch rows: each row scatters its tokens into its own
 (E, C, d) slice of the capacity buffer (G, E, C, d), so a row's routing
 never depends on another's (a free serving slot disturbs nobody).  Tokens
 past an expert's per-row capacity are dropped: their contribution is
-zeroed, and they still add that zero at position C - 1, as the reference's
-``.at[].add`` does.  The buffer stays dense (empty experts and padding rows
-are computed), and the routed experts' products go through the
+zeroed.  The routing takes a few whole-tensor ops and no host sync (no
+one-hot, no accumulating scatter, nothing sized on the host), so a CUDA
+graph can capture it.  The buffer stays dense (empty experts and padding
+rows are computed), and the routed experts' products go through the
 ``dequant_matmul_grouped`` kernel when the expert bank is q8.
 """
 
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 
 from ..kernels.dequant_matmul import dequant_matmul_grouped
 from ..kernels.embed_lookup import is_q8_leaf
@@ -26,9 +26,10 @@ def _expert_einsum(buf: torch.Tensor, w) -> torch.Tensor:
 
     ``w`` is the dense expert bank (a plain einsum) or a q8 leaf
     {"q8": (E, K, N) int8, "q8s": (E, N) | (N,) f32}: the group and
-    capacity dims flatten to the grouped kernel's per-expert M (a
-    contiguous (E, G*C, K) copy), and its f32 result is cast back to the
-    buffer's dtype."""
+    capacity dims flatten to the grouped kernel's per-expert M, (E, G*C,
+    K), a view of a buffer stored expert-major (as :func:`dispatch` stores
+    it, and as the result comes back), and its f32 result is cast back to
+    the buffer's dtype."""
     if is_q8_leaf(w):
         g, e, c, k = buf.shape
         xg = buf.transpose(0, 1).reshape(e, g * c, k)
@@ -51,11 +52,49 @@ def top_k(probs: torch.Tensor, k: int):
     return vals[..., :k], idx[..., :k]
 
 
-def moe_block(x: torch.Tensor, p: dict, cfg):
-    """x (G, S, d) -> (out (G, S, d), aux load-balance loss, 0-d f32)."""
+def route(topi: torch.Tensor, num_experts: int, cap: int):
+    """Capacity positions of the choices ``topi`` (G, S, k), as the
+    reference's loop over j assigns them: choice j of every token comes
+    after every choice < j of its row, tokens in order within a choice.
+
+    One cumulative count over that j-major (k*S) order of
+    ``topi == arange(E)`` gives every position at once (along the last
+    dim, the scan a GPU runs fastest).  Returns (hit (G, E, k*S) bool, the
+    compare; pos (G, S, k), clipped to cap - 1 as the reference gathers
+    it; keep (G, S, k), pos < cap)."""
+    g, s, k = topi.shape
+    ej = topi.transpose(1, 2).reshape(g, 1, k * s)
+    hit = ej == torch.arange(num_experts, device=topi.device)[:, None]
+    pos = torch.gather(torch.cumsum(hit, dim=2, dtype=torch.int32), 1,
+                       ej)[:, 0] - 1
+    pos = pos.view(g, k, s).transpose(1, 2)
+    return hit, pos.clamp_max(cap - 1), pos < cap
+
+
+def dispatch(x: torch.Tensor, topi, pos, keep, num_experts: int,
+             cap: int) -> torch.Tensor:
+    """The capacity buffer (G, E, C, d): row ``pos`` of expert ``topi``
+    holds token x of each kept choice, the rest is zero.  It is stored
+    expert-major, (E, G, C, d), the grouped kernel's operand layout, with
+    one spare row after it where every dropped choice lands, so one
+    scatter without accumulation fills it (kept positions are unique).
+    The reference adds a dropped token's zero at C - 1, which changes no
+    value."""
+    g, s, d = x.shape
+    k = topi.shape[-1]
+    rows = torch.arange(g, device=x.device)[:, None, None]
+    spare = num_experts * g * cap
+    slot = torch.where(keep, (topi * g + rows) * cap + pos, spare)
+    store = torch.zeros((spare + 1, d), dtype=x.dtype, device=x.device)
+    store[slot] = x[:, :, None, :].expand(g, s, k, d)
+    return store[:spare].view(num_experts, g, cap, d).transpose(0, 1)
+
+
+def moe_block(x: torch.Tensor, p: dict, cfg, *, with_aux: bool = True):
+    """x (G, S, d) -> (out (G, S, d), aux load-balance loss, 0-d f32; None
+    unless ``with_aux``: the serving steps never use it)."""
     g, s, d = x.shape
     e, k = cfg.num_experts, cfg.top_k
-    dev = x.device
 
     if is_q8_leaf(p["router"]):
         logits = q8_einsum(x.to(torch.float32), p["router"])
@@ -67,35 +106,21 @@ def moe_block(x: torch.Tensor, p: dict, cfg):
     topw = topw / torch.sum(topw, dim=-1, keepdim=True)
 
     cap = moe_capacity(s, cfg)
-    buf = torch.zeros((g, e, cap, d), dtype=x.dtype, device=dev)
-    base = torch.zeros((g, e), dtype=torch.int64, device=dev)
-    rows = torch.arange(g, device=dev)[:, None].expand(g, s)
-    slot_pos, slot_keep = [], []
-    for j in range(k):
-        ej = topi[..., j]                                # (g, s)
-        oh = F.one_hot(ej, e)                            # (g, s, e)
-        pos = torch.gather(torch.cumsum(oh, dim=1), 2,
-                           ej[..., None])[..., 0] - 1
-        pos = pos + torch.gather(base, 1, ej)
-        base = base + oh.sum(dim=1)
-        keep = pos < cap
-        cpos = pos.clamp(0, cap - 1)
-        contrib = torch.where(keep, 1.0, 0.0).to(x.dtype)[..., None] * x
-        # kept positions are unique; dropped tokens add zeros at cap - 1
-        buf.index_put_((rows, ej, cpos), contrib, accumulate=True)
-        slot_pos.append(cpos)
-        slot_keep.append(keep)
+    hit, pos, keep = route(topi, e, cap)
+    buf = dispatch(x, topi, pos, keep, e, cap)
 
     # routed experts: stacked SwiGLU on the capacity buffer
     gate = activation(_expert_einsum(buf, p["w_gate"]), cfg.act)
     up = _expert_einsum(buf, p["w_up"])
     hbuf = _expert_einsum(gate * up, p["w_down"])
 
-    out = torch.zeros((g, s, d), dtype=x.dtype, device=dev)
-    for j in range(k):
-        vals = hbuf[rows, topi[..., j], slot_pos[j]]     # (g, s, d)
-        w = (topw[..., j] * slot_keep[j]).to(x.dtype)
-        out = out + w[..., None] * vals
+    # combine in the reference's order: out = 0 + w_0 v_0 + w_1 v_1 + ...
+    rows = torch.arange(g, device=x.device)[:, None, None]
+    w = (topw * keep).to(x.dtype)
+    terms = w[..., None] * hbuf[rows, topi, pos]         # (g, s, k, d)
+    out = terms[:, :, 0]
+    for j in range(1, k):
+        out = out + terms[:, :, j]
 
     # shared experts: one dense SwiGLU of width num_shared * moe_d_ff
     if cfg.num_shared_experts:
@@ -103,12 +128,10 @@ def moe_block(x: torch.Tensor, p: dict, cfg):
         su = q8_einsum(x, p["sh_up"])
         out = out + q8_einsum(sg * su, p["sh_down"])
 
+    if not with_aux:
+        return out, None
     # Switch-style load-balance aux loss: E * sum_e f_e * P_e
     me = torch.mean(probs, dim=(0, 1))                   # (e,)
-    assigned = torch.zeros((e,), dtype=torch.float32, device=dev)
-    for j in range(k):
-        assigned = assigned + F.one_hot(topi[..., j], e).to(
-            torch.float32).sum(dim=(0, 1))
-    fe = assigned / (g * s * k)
+    fe = hit.sum(dim=(0, 2)).to(torch.float32) / (g * s * k)
     aux = e * torch.sum(fe * me)
     return out, aux

@@ -20,7 +20,7 @@ from ..kernels.dequant_matmul import dequant_matmul
 from ..kernels.embed_lookup import embed_lookup_q8
 from ..kernels.registry import platform_of, record_event, resolve_device
 from ..serve.quantized import dequant_leaf, is_q8
-from .attention import gqa_attention
+from .attention import gqa_attention, host_offset
 from .config import ModelConfig
 from .layers import rms_norm, swiglu_mlp
 from .moe import moe_block
@@ -208,17 +208,17 @@ def _attn_block(x, lp, cfg, positions, cache, cache_pos, qpos_canonical):
     return x + a
 
 
-def _dense_block(x, lp, cfg, *attn_args):
+def _dense_block(x, lp, cfg, *attn_args, with_aux=True):
     x = _attn_block(x, lp, cfg, *attn_args)
     x = x + swiglu_mlp(rms_norm(x, lp["mlp_norm"], cfg.norm_eps), lp["mlp"],
                        cfg.act)
     return x, None
 
 
-def _moe_layer_block(x, lp, cfg, *attn_args):
+def _moe_layer_block(x, lp, cfg, *attn_args, with_aux=True):
     x = _attn_block(x, lp, cfg, *attn_args)
     m, aux = moe_block(rms_norm(x, lp["mlp_norm"], cfg.norm_eps), lp["moe"],
-                       cfg)
+                       cfg, with_aux=with_aux)
     return x + m, aux
 
 
@@ -240,14 +240,20 @@ def _stacks(params, cfg: ModelConfig, caches):
 
 def forward(params, cfg: ModelConfig, *, tokens, positions=None,
             caches=None, cache_pos=None, last_only: bool = False,
-            last_index=None):
+            last_index=None, with_aux: bool = True):
     """Returns (logits, caches, aux).
 
     tokens (B, S) int.  ``last_only`` projects position -1 only;
     ``last_index`` (B,) gathers one position per row (padded-bucket
     prefill).  ``caches`` (``init_cache``'s tree of (L, B, Smax, G, D)
     tensors) is written in place and returned.  ``aux`` is the MoE
-    load-balance loss summed over layers (0 for a dense model)."""
+    load-balance loss summed over layers (0 for a dense model), or None
+    unless ``with_aux``: :func:`prefill` and :func:`decode_step` skip it,
+    as the reference's compiled serving steps drop it.
+
+    Nothing here reads a device value on the host, so a CUDA graph can
+    capture a step: offsets are Python ints or device tensors (see
+    ``models.attention.host_offset``)."""
     _require_ported(cfg)
     dt = _dtype(cfg.compute_dtype)
     x = embed_lookup_q8(params["embed"], tokens, dt)
@@ -257,21 +263,25 @@ def forward(params, cfg: ModelConfig, *, tokens, positions=None,
     qpos_canonical = None
     if positions is None:
         ar = torch.arange(s, device=dev).expand(b, s)
+        off = None if cache_pos is None else host_offset(cache_pos)
         if cache_pos is None:
             positions = ar
             qpos_canonical = True      # arange from 0 over this prompt
+        elif off is not None:
+            positions = ar + off
+            qpos_canonical = off == 0
         else:
-            cp = torch.as_tensor(cache_pos, device=dev)
-            positions = (cp[:, None] if cp.dim() == 1 else cp) + ar
+            positions = cache_pos.to(dev)[:, None] + ar
 
-    aux = torch.zeros((), dtype=torch.float32, device=dev)
+    aux = (torch.zeros((), dtype=torch.float32, device=dev) if with_aux
+           else None)
     for stacked, n, block, stack_caches in _stacks(params, cfg, caches):
         for i in range(n):
             lp = _fused_layer_params(_layer_slice(stacked, i), dt, platform)
             cache_l = None if stack_caches is None else {
                 k: c[i] for k, c in stack_caches.items()}
             x, a = block(x, lp, cfg, positions, cache_l, cache_pos,
-                         qpos_canonical)
+                         qpos_canonical, with_aux=with_aux)
             if a is not None:
                 aux = aux + a
 
@@ -335,7 +345,8 @@ def prefill(params, cfg: ModelConfig, *, tokens, max_len: int | None = None,
     b, s = tokens.shape
     caches = init_cache(cfg, b, max_len or s, device=tokens.device)
     logits, caches, _ = forward(params, cfg, tokens=tokens, caches=caches,
-                                last_only=True, last_index=last_index)
+                                last_only=True, last_index=last_index,
+                                with_aux=False)
     return logits[:, 0, :], caches
 
 
@@ -344,5 +355,6 @@ def decode_step(params, cfg: ModelConfig, caches, pos, *, tokens):
     or a (B,) tensor of per-row offsets (ragged continuous batching).
     Returns (logits (B, V), caches) with ``caches`` updated in place."""
     logits, caches, _ = forward(params, cfg, tokens=tokens[:, None],
-                                caches=caches, cache_pos=pos, last_only=True)
+                                caches=caches, cache_pos=pos, last_only=True,
+                                with_aux=False)
     return logits[:, 0, :], caches

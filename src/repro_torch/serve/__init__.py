@@ -6,6 +6,8 @@ _LAZY = {
     "ServeSession": "session",
     "ServeConfig": "session",
     "RequestHandle": "session",
+    "eager_steps": "graphs",
+    "StepGraphs": "graphs",
     "WeightBackend": "backends",
     "get_backend": "backends",
     "available_backends": "backends",

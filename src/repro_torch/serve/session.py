@@ -10,6 +10,17 @@ real position — then runs one decode step over every slot with per-slot
 ragged positions, then evicts requests that hit EOS or their length.
 Sampling is the reference's host numpy code, so greedy and temperature
 tokens match it.  The paged KV cache (``kv_page_size``) is not ported.
+
+On the card, prefill and decode replay CUDA graphs (``serve.graphs``), as
+the reference runs them through ``jax.jit``: one decode graph (decode
+always runs over every slot) and one prefill graph per (rows, bucket
+length, padded) shape, each captured on the shape's second use.  A step
+writes into the session's own tensors: the slot caches (a prefill places
+its rows through a slot-index input) and one logits buffer.  These and
+the parameters are written in place, never reallocated, since the graphs
+hold their addresses; a graph keeps no output of its own, so more prompt
+lengths mean more graphs but no more device memory than the largest
+step's temporaries.  ``eager_steps()`` runs the steps eagerly.
 """
 
 from __future__ import annotations
@@ -26,6 +37,7 @@ from ..kernels.registry import resolve_device
 from ..models.config import ModelConfig
 from ..models.transformer import decode_step, init_cache, prefill
 from .backends import resolve_backend
+from .graphs import StepGraphs, eager_steps  # noqa: F401
 
 
 @dataclass(frozen=True)
@@ -116,6 +128,10 @@ class ServeSession:
                       "prefill_tokens": 0}
         self._caches = init_cache(cfg, serve_cfg.slots, serve_cfg.max_len,
                                   device=self.device)
+        # the last step's logits, rows [:k] after a k-row prefill
+        self.logits = torch.empty((serve_cfg.slots, cfg.vocab_size),
+                                  dtype=torch.float32, device=self.device)
+        self.graphs = StepGraphs(self.device)
 
     # -- client API ----------------------------------------------------------
 
@@ -197,10 +213,8 @@ class ServeSession:
         self.stats["decode_steps"] += 1
         self.stats["decode_rows"] += len(self._slots)
         self.stats["free_slot_rows"] += len(self._slots) - self.num_active
-        logits, self._caches = decode_step(
-            self.params, self.cfg, self._caches, self._dev(pos),
-            tokens=self._dev(tok))
-        logits = self._host(logits)
+        self.graphs.run(("decode",), self._decode, (tok, pos))
+        logits = self._host(len(self._slots))
         for i, slot in enumerate(self._slots):
             if slot.req is None:
                 continue
@@ -230,15 +244,13 @@ class ServeSession:
             toks = np.zeros((len(group), length), np.int32)
             for j, req in enumerate(group):
                 toks[j, :req.prompt.size] = req.prompt
-            last_index = None
+            inputs = (np.asarray(slots_idx, np.int64), toks)
             if any(req.prompt.size < length for req in group):
-                last_index = self._dev(np.asarray(
-                    [r.prompt.size - 1 for r in group], np.int32))
-            logits, caches_g = prefill(
-                self.params, self.cfg, tokens=self._dev(toks),
-                max_len=self.serve_cfg.max_len, last_index=last_index)
-            self._place(caches_g, slots_idx)
-            logits = self._host(logits)
+                inputs += (np.asarray([r.prompt.size - 1 for r in group],
+                                      np.int32),)
+            self.graphs.run(("prefill", len(group), length, len(inputs) == 3),
+                            self._prefill, inputs)
+            logits = self._host(len(group))
             for j, req in enumerate(group):
                 slot = self._slots[slots_idx[j]]
                 first = self._sample(logits[j], req)
@@ -249,14 +261,14 @@ class ServeSession:
                 self.stats["prefill_tokens"] += length
                 self._maybe_evict(slot)
 
-    def _place(self, caches_g: dict, slots_idx: list) -> None:
-        """Copy a batch-k prefill's caches into slots ``slots_idx``: axis 1
-        of every cache leaf is the slot axis, in a flat {"k", "v"} tree or a
-        MoE model's nested {"dense": ..., "main": ...} one."""
-        idx = torch.as_tensor(slots_idx, device=self.device)
+    def _place(self, caches_g: dict, slots_idx: torch.Tensor) -> None:
+        """Copy a batch-k prefill's caches into slots ``slots_idx`` ((k,)
+        int64 on the device): axis 1 of every cache leaf is the slot axis,
+        in a flat {"k", "v"} tree or a MoE model's nested
+        {"dense": ..., "main": ...} one."""
         part = flatten_tree(caches_g)
         for name, full in flatten_tree(self._caches).items():
-            full[:, idx] = part[name].to(full.dtype)
+            full.index_copy_(1, slots_idx, part[name].to(full.dtype))
 
     def _maybe_evict(self, slot: _Slot) -> None:
         req = slot.req
@@ -273,14 +285,26 @@ class ServeSession:
         self._rngs.pop(req.id, None)
         slot.clear()
 
+    # -- steps (what the graphs capture) ------------------------------------
+
+    def _decode(self, tok, pos):
+        logits, _ = decode_step(self.params, self.cfg, self._caches, pos,
+                                tokens=tok)
+        self.logits.copy_(logits)
+
+    def _prefill(self, slots_idx, toks, last_index=None):
+        logits, caches_g = prefill(self.params, self.cfg, tokens=toks,
+                                   max_len=self.serve_cfg.max_len,
+                                   last_index=last_index)
+        self._place(caches_g, slots_idx)
+        self.logits[:toks.shape[0]].copy_(logits)
+
     # -- helpers -------------------------------------------------------------
 
-    def _dev(self, arr: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(arr).to(self.device)
-
-    @staticmethod
-    def _host(logits: torch.Tensor) -> np.ndarray:
-        return logits.to(torch.float32).cpu().numpy()
+    def _host(self, rows: int) -> np.ndarray:
+        """The last step's logits of ``rows`` rows on the host (on the CPU
+        a view of the buffer: read it before the next step)."""
+        return self.logits[:rows].cpu().numpy()
 
     def _bucket_len(self, n: int) -> int:
         """Smallest configured prefill bucket >= n (n itself if none)."""

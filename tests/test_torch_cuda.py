@@ -710,3 +710,138 @@ def test_container_round_trip_on_card():
     want = ServeEngine.from_compressed(cfg, blob, max_len=16,
                                        device="cpu").generate(prompts, 5)
     np.testing.assert_array_equal(got, want)
+
+
+# ---------------------------------------------------------------------------
+# the compiled serving step: CUDA graphs of prefill and decode
+# ---------------------------------------------------------------------------
+
+def _serve_modes(arch, dtype, requests=7):
+    """The smoke model on q8 served twice on the card, under
+    ``eager_steps()`` and with graphs: 7 requests over 3 slots, greedy and
+    sampled, of lengths that admit 3, 2 and 1 rows, padded (dense, bucket
+    8) and plain, evicted at different lengths so slots refill.  Returns
+    {mode: (tokens, launch counts, dispatch report, graph stats)}."""
+    from repro_torch import configs
+    from repro_torch.models.transformer import init_params
+    from repro_torch.serve.quantized import quantize_tree_q8
+    from repro_torch.serve.session import (ServeConfig, ServeSession,
+                                           eager_steps)
+    cfg = configs.get(arch, smoke=True).replace(param_dtype=dtype,
+                                                compute_dtype=dtype)
+    params = quantize_tree_q8(init_params(cfg, 0, device="cuda"))
+    dense = cfg.family == "dense"
+    scfg = ServeConfig(slots=3, max_len=24,
+                       prefill_buckets=(8,) if dense else ())
+    rng = np.random.default_rng(4)
+    lens = (5, 5, 8, 5, 8, 5, 5) if dense else (5,) * 7
+    prompts = [rng.integers(0, cfg.vocab_size, (n,)).astype(np.int32)
+               for n in lens[:requests]]
+    new = (3, 6, 4, 5, 2, 6, 4)
+    temps = (0.0, 0.8, 0.0, 0.0, 0.8, 0.0, 0.0)
+    out = {}
+    for mode in ("eager", "graph"):
+        sess = ServeSession(cfg, params, backend="q8", device="cuda",
+                            serve_cfg=scfg)
+        kernels.reset_launch_counts()
+        kernels.clear_dispatch_report()
+        hs = [sess.submit(p, max_new_tokens=n, temperature=t, seed=i)
+              for i, (p, n, t) in enumerate(zip(prompts, new, temps))]
+        if mode == "eager":
+            with eager_steps():
+                sess.run()
+        else:
+            sess.run()
+        out[mode] = ([h.tokens for h in hs], kernels.launch_counts(),
+                     kernels.dispatch_report(), dict(sess.graphs.stats))
+    return out
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch", ["llama3-8b", "deepseek-moe-16b"])
+def test_graph_session_equals_the_eager_session(arch, dtype):
+    """Bit for bit: a replay runs the eager step's kernels on the same
+    inputs, so every logit and every token is the same; launch counts too
+    (each replay credits its capture's), and the report stays empty."""
+    _needs_card()
+    out = _serve_modes(arch, dtype)
+    eager, graph = out["eager"], out["graph"]
+    assert graph[0] == eager[0]
+    assert graph[1] == eager[1]
+    assert graph[1]["dequant_matmul"] > 0
+    assert graph[1]["flash_attention"] > 0
+    if arch == "deepseek-moe-16b":
+        assert graph[1]["dequant_matmul_grouped"] > 0
+    assert eager[2] == graph[2] == []
+    assert eager[3] == {"eager": 0, "captures": 0, "replays": 0}
+    assert graph[3]["captures"] >= 2 and graph[3]["replays"] >= 10
+
+
+def test_a_failed_capture_raises_and_never_runs_eagerly(monkeypatch):
+    """A decode step that cannot be captured fails its tick, and the next
+    one: the session does not carry on with the eager step."""
+    _needs_card()
+    from repro_torch import configs
+    from repro_torch.models.transformer import init_params
+    from repro_torch.serve import session as smod
+    cfg = configs.get("llama3-8b", smoke=True)
+    sess = smod.ServeSession(cfg, init_params(cfg, 0, device="cuda"),
+                             backend="q8", device="cuda",
+                             serve_cfg=smod.ServeConfig(slots=2, max_len=16))
+    real = smod.decode_step
+
+    def decode_step(*args, **kw):
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("this step cannot be captured")
+        return real(*args, **kw)
+
+    monkeypatch.setattr(smod, "decode_step", decode_step)
+    sess.submit(np.arange(5, dtype=np.int32), max_new_tokens=8)
+    sess.step()                            # prefill and decode, eager
+    for _ in range(2):
+        with pytest.raises(RuntimeError, match="cannot be captured"):
+            sess.step()
+    assert sess.graphs.stats == {"eager": 2, "captures": 0, "replays": 0}
+
+
+@pytest.mark.parametrize("arch", ["llama3-8b", "deepseek-moe-16b"])
+def test_graphs_of_many_prompt_lengths_keep_memory_bounded(arch):
+    """Every prompt length is a prefill shape with a graph of its own, and
+    a graph keeps no output: the prefill writes into the slot caches and
+    the logits buffer.  After 12 more lengths, each served twice (eagerly,
+    then captured and replayed), the memory in use has grown by less than
+    one row's KV cache (the graphs' input buffers only; a graph that kept
+    its prefill's caches would add one per length), and the peak is still
+    the first, longest length's."""
+    _needs_card()
+    from repro_torch import configs
+    from repro_torch.compression.tree import flatten_tree
+    from repro_torch.models.transformer import init_cache, init_params
+    from repro_torch.serve.session import ServeConfig, ServeSession
+    cfg = configs.get(arch, smoke=True)
+    max_len = 512
+    sess = ServeSession(cfg, init_params(cfg, 0, device="cuda"),
+                        backend="q8", device="cuda",
+                        serve_cfg=ServeConfig(slots=1, max_len=max_len))
+    row_cache = sum(t.numel() * t.element_size() for t in flatten_tree(
+        init_cache(cfg, 1, max_len, device="cpu")).values())
+    rng = np.random.default_rng(0)
+
+    def serve(n):
+        for _ in range(2):             # evicted at admission: prefill only
+            sess.submit(rng.integers(0, cfg.vocab_size, (n,)),
+                        max_new_tokens=1)
+            sess.step()
+        torch.cuda.synchronize()
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    serve(64)
+    peak_first = torch.cuda.max_memory_allocated()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    for n in range(40, 52):
+        serve(n)
+    assert sess.graphs.stats == {"eager": 13, "captures": 13, "replays": 13}
+    assert torch.cuda.memory_allocated() - base < row_cache
+    assert torch.cuda.max_memory_allocated() - peak_first < row_cache
