@@ -65,7 +65,24 @@ Phases (each fails the run on its own; nothing is caught and ignored):
              TOL_MOE_F32_LOGITS, launch counts of the path, an empty
              dispatch report, and the device busy time per decode step
              with the grouped kernel's share; eager and from graphs, as
-             in 6.
+             in 6;
+10. search parity (after 4) — the smoke llama3-8b in f32 on the card and
+             on the CPU: rd_sweep (F = 1) gives the same points, policy and
+             policy bytes; search_dc_v2 and search_dc_v1 (one sigma for
+             both) with the eval NLL computed on each device choose the
+             same hyperparameters and write identical blobs;
+11. fim     — fisher_for on llama3-8b at full width, 2 layers: in bf16 on
+             the card (finite, wq/wk/wv nonzero: gradients pass through
+             attention, which under grad takes the scan, so no kernel
+             launches), then in f32 on the card against the CPU;
+12. variational — variational_fim at the same width in f32, 4 steps:
+             sigma finite and > 0, vd_sparsify runs, ms/step, peak memory;
+13. rd_sweep — rd_sweep on the 2-layer full-width llama3-8b (bf16) with
+             the bench's fast grid: rd_quant and flash_attention launch
+             the predicted counts, the report stays empty, the policy
+             re-encodes to the sweep's bytes; every point and the split
+             of the seconds (assignment, statistics, encode, decode,
+             proxy).
 
 The line before the last is the card's name and power limit; one line
 before it is the ``{"kernels": [...]}`` summary; the last line is
@@ -150,6 +167,31 @@ DEPLOY_LAYERS = 2            # depth of the full-width container served
 # instances' sums in another order)
 MOE_F32_NEW_TOKENS = 12
 TOL_MOE_F32_LOGITS = 1e-4
+# the search loop's phases: the FIM's batches (fisher_for's defaults), the
+# variational FIM's steps and its bytes per parameter in f32 (mu, rho, their
+# four AdamW moments, their gradients, one sampled copy: 4 + 4 + 16 + 8 + 4,
+# and room for one leaf's temporaries: the embedding's, at full width)
+FIM_BATCHES, FIM_BATCH, FIM_SEQ = 2, 2, 16
+VD_STEPS = 4
+VD_BYTES_PER_PARAM = 44
+# rd_sweep: benchmarks/rd_sweep_bench.py's --fast grid, min_ndim=3 (the
+# stacked layer matrices: embed and head stay raw)
+SWEEP = dict(delta_rels=(1e-3, 6e-3), lambdas=(0.0, 1e-5), prompts=3,
+             decode_steps=6, fim_batches=1, min_ndim=3)
+# search parity at smoke size: the sweep's logit KL card vs CPU (a sum over
+# the vocabulary of f32 log-probability differences), the DC grids and the
+# accuracy budget on minus the eval NLL.  On the seeded smoke weights each
+# grid has points on both sides of the budget (a CPU run: DC-v2 keeps 0.01
+# and 0.02 of the deltas and passes at lambda 0 only, DC-v1 passes at
+# S = 32 only), so the choice is not a fallback.  DC-v1 runs lambda = 0
+# alone: its F_i (the empirical FIM of random weights, 1e-6 and less) make
+# any lambda > 0 zero most weights, which lowers a random model's NLL.
+TOL_KL_ABS = 1e-6
+DC_DELTAS = (0.005, 0.01, 0.02, 0.05)
+DC_LAMBDAS = (0.0, 1e-4)
+DC_S_GRID = (16.0, 32.0, 64.0)
+DC_V1_LAMBDAS = (0.0,)
+SEARCH_TOL = 0.005
 
 
 def log(msg: str) -> None:
@@ -1522,6 +1564,456 @@ def phase_serve_moe_f32(device, cpu="cpu"):
     return r
 
 
+# ---------------------------------------------------------------------------
+# the paper's search loop: the FIM, the variational FIM, the RD sweep
+# ---------------------------------------------------------------------------
+
+def _full_cut(device, num_layers=DEPLOY_LAYERS, **overrides):
+    """llama3-8b at its published widths, cut to ``num_layers`` layers."""
+    from repro_torch import configs
+    from repro_torch.models.transformer import init_params
+    cfg = configs.get("llama3-8b").replace(num_layers=num_layers,
+                                           **overrides)
+    return cfg, init_params(cfg, 0, device=device)
+
+
+def _fisher_leaves(cfg, params, what):
+    """fisher_for(FIM_BATCHES x FIM_BATCH x FIM_SEQ) of ``params`` with the
+    launch counts and the dispatch report of the run: (flat F, seconds,
+    launches)."""
+    import torch
+    from repro_torch.compression import flatten_tree
+    from repro_torch.compression.rd_search import fisher_for
+    from repro_torch.kernels import registry
+
+    on_card = next(iter(flatten_tree(params).values())).is_cuda
+    if on_card:
+        torch.cuda.synchronize()
+    registry.clear_dispatch_report()
+    registry.reset_launch_counts()
+    t0 = time.perf_counter()
+    f = flatten_tree(fisher_for(cfg, params, batches=FIM_BATCHES,
+                                batch=FIM_BATCH, seq=FIM_SEQ))
+    if on_card:
+        torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches, report = registry.launch_counts(), registry.dispatch_report()
+    check(not report, f"fim {what}: dispatch report not empty: {report}")
+    check(not any(launches.values()), f"fim {what}: kernels launched under "
+          f"grad (the training path takes none): {launches}")
+    for name, v in f.items():
+        check(v.dtype == torch.float32 and
+              bool(torch.isfinite(v).all().item()),
+              f"fim {what}: {name} is not a finite f32 tensor")
+    for name in ("wq", "wk", "wv"):
+        check(float(f[f"layers/attn/{name}"].abs().max()) > 0,
+              f"fim {what}: F of layers/attn/{name} is zero: no gradient "
+              "reached the attention projections")
+    return f, secs, launches
+
+
+def phase_fim(device, cpu="cpu"):
+    """The empirical FIM (``fisher_for``) of the full-width llama3-8b cut
+    to DEPLOY_LAYERS layers: in its bf16 on the card (every leaf finite,
+    wq/wk/wv nonzero, no kernel launched, empty report), then in f32 on the
+    card against the same f32 weights on the CPU, per leaf within TOL_F32
+    of max|F|."""
+    import torch
+    from repro_torch.compression import flatten_tree
+    from repro_torch.compression.tree import unflatten
+
+    cfg, params = _full_cut(device)
+    torch.cuda.reset_peak_memory_stats()
+    _, bf16_s, launches = _fisher_leaves(cfg, params, "bf16")
+    bf16_peak = torch.cuda.max_memory_allocated()
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg32, params = _full_cut(device, param_dtype="float32",
+                              compute_dtype="float32")
+    torch.cuda.reset_peak_memory_stats()
+    f_card, f32_s, _ = _fisher_leaves(cfg32, params, "f32 card")
+    f32_peak = torch.cuda.max_memory_allocated()
+    f_card = {k: v.cpu() for k, v in f_card.items()}
+    params_cpu = unflatten({k: v.cpu()
+                            for k, v in flatten_tree(params).items()})
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    f_cpu, cpu_s, _ = _fisher_leaves(cfg32, params_cpu, "f32 cpu")
+    del params_cpu
+    errs = {}
+    for name, want in f_cpu.items():
+        errs[name] = rel_err(f_card[name], want)[1]
+        check(errs[name] <= TOL_F32, f"fim f32: {name} on the card is "
+              f"{errs[name]:.3g} of max|F| from the CPU's (> {TOL_F32})")
+    worst = max(errs, key=errs.get)
+    n = sum(v.numel() for v in f_cpu.values())
+    log(f"[fim] llama3-8b full width, {cfg.num_layers} layers "
+        f"({n / 1e9:.3f} G params), fisher_for({FIM_BATCHES} x {FIM_BATCH} "
+        f"x {FIM_SEQ}): bf16 on the card {bf16_s:.2f} s (peak "
+        f"{bf16_peak / 2**30:.2f} GiB), f32 on the card {f32_s:.2f} s (peak "
+        f"{f32_peak / 2**30:.2f} GiB), f32 on the CPU {cpu_s:.2f} s; every "
+        f"leaf finite, wq/wk/wv nonzero, launches {launches}, empty report; "
+        f"card vs CPU (f32) worst leaf {worst} at {errs[worst]:.2e} of "
+        f"max|F| (tolerance {TOL_F32})")
+    return {"layers": cfg.num_layers, "params": n, "bf16_card_s": bf16_s,
+            "f32_card_s": f32_s, "f32_cpu_s": cpu_s,
+            "bf16_peak_bytes": bf16_peak, "f32_peak_bytes": f32_peak,
+            "launches": launches, "rel_err_card_vs_cpu": errs}
+
+
+def phase_variational(device):
+    """``variational_fim`` on the full-width llama3-8b in f32, VD_STEPS
+    steps, DEPLOY_LAYERS deep if (mu, rho), their AdamW moments, their
+    gradients and one sampled copy (VD_BYTES_PER_PARAM) fit in nine tenths
+    of the card, else one layer: sigma finite and > 0, vd_sparsify runs;
+    ms/step and the peak memory."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.compression import flatten_tree
+    from repro_torch.core.fim import variational_fim, vd_sparsify
+    from repro_torch.data.pipeline import make_batch, to_device
+    from repro_torch.kernels import registry
+    from repro_torch.models.transformer import param_specs, train_loss
+
+    total = torch.cuda.get_device_properties(device).total_memory
+    layers = DEPLOY_LAYERS
+    full = configs.get("llama3-8b")
+    while layers > 1:
+        n = sum(math.prod(s) for s, _ in param_specs(
+            full.replace(num_layers=layers)).values())
+        if VD_BYTES_PER_PARAM * n <= 0.9 * total:
+            break
+        layers -= 1
+    cfg, params = _full_cut(device, num_layers=layers,
+                            param_dtype="float32", compute_dtype="float32")
+    n = sum(v.numel() for v in flatten_tree(params).values())
+    batches = [to_device(make_batch(cfg, i, batch=FIM_BATCH, seq=FIM_SEQ),
+                         device) for i in range(FIM_BATCHES)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    registry.clear_dispatch_report()
+    registry.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = variational_fim(lambda p, b: train_loss(p, b, cfg), params,
+                          batches, steps=VD_STEPS, seed=0)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    launches, report = registry.launch_counts(), registry.dispatch_report()
+    check(not report, f"variational: dispatch report not empty: {report}")
+    check(not any(launches.values()), f"variational: kernels launched "
+          f"under grad: {launches}")
+    del params
+    sigma = flatten_tree(res.sigma)
+    for name, s in sigma.items():
+        check(bool(torch.isfinite(s).all().item()) and
+              float(s.min()) > 0, f"variational: sigma of {name} is not "
+              "finite and positive")
+    kept = flatten_tree(vd_sparsify(res))
+    pruned = sum(int((v == 0).sum()) for v in kept.values()) / n
+    s_med = {k: float(v.float().median()) for k, v in sigma.items()}
+    del res, sigma, kept
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[variational] llama3-8b full width in f32, {layers} layers "
+        f"({n / 1e9:.3f} G params): variational_fim {VD_STEPS} steps in "
+        f"{secs:.2f} s ({1e3 * secs / VD_STEPS:.1f} ms/step, the first "
+        f"step's allocations included), peak {peak / 2**30:.2f} GiB "
+        f"({peak / n:.1f} B/param) of {total / 2**30:.1f} GiB; sigma finite "
+        f"and > 0 in every leaf; vd_sparsify prunes {pruned:.4f} of the "
+        f"weights; no kernel launched, empty report")
+    return {"layers": layers, "params": n, "steps": VD_STEPS, "seconds": secs,
+            "ms_per_step": 1e3 * secs / VD_STEPS, "peak_bytes": peak,
+            "peak_bytes_per_param": peak / n, "card_bytes": total,
+            "pruned_share": pruned, "sigma_median": s_med}
+
+
+class _SweepClock:
+    """Seconds of the sweep's parts, each ended by a synchronize so the
+    device work lands in its own part: the module functions and methods
+    the sweep calls are wrapped for the phase and restored after it.
+    ``assign`` includes the bin statistics of the assignment's refinement
+    loop, which ``bin_stats`` also counts; ``blobs`` keeps every container
+    the sweep writes, in order."""
+
+    def __init__(self):
+        self.secs: dict = {}
+        self.blobs: list = []
+        self._undo: list = []
+
+    def wrap(self, owner, attr, part, keep_blob=False):
+        import torch
+        real = getattr(owner, attr)
+
+        def timed(*args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = real(*args, **kw)
+            torch.cuda.synchronize()
+            self.secs[part] = self.secs.get(part, 0.0) + \
+                time.perf_counter() - t0
+            if keep_blob:
+                self.blobs.append(out.blob)
+            return out
+        setattr(owner, attr, timed)
+        self._undo.append((owner, attr, real))
+
+    def restore(self):
+        for owner, attr, real in reversed(self._undo):
+            setattr(owner, attr, real)
+
+
+def _sweep_search():
+    from repro_torch.compression.rd_search import RDSearchConfig
+    return RDSearchConfig(**SWEEP)
+
+
+def predicted_sweep_launches(res, search, n_covered, layers) -> dict:
+    """rd_quant and flash_attention launches of one rd_sweep: every
+    assignment at lambda > 0 runs (1 + 1 refinement) x RD_PASSES passes;
+    stage A assigns every covered tensor at each grid point, stage B each
+    one at the winner's step and at each refine factor, then the refined
+    table once more (if any tensor was refined) and the final codec.  The
+    proxy prefills twice per measurement (the session's admission, then
+    the logits), for the reference tree and every measured candidate."""
+    per = 2 * RD_PASSES * n_covered
+    lam_pos = sum(lam > 0 for lam in search.lambdas) * len(search.delta_rels)
+    revalidated = res.refined_tensors > 0 or res.reverted
+    winner = per if res.winner.lam > 0 else 0
+    rd = (per * lam_pos + winner * (1 + len(search.refine_factors))
+          + winner * (int(revalidated) + 1))
+    measures = len(res.points) + int(revalidated) + 1
+    return {"rd_quant": rd, "flash_attention": 2 * layers * (1 + measures)}
+
+
+def phase_rd_sweep(device):
+    """``rd_sweep`` on the full-width llama3-8b cut to DEPLOY_LAYERS layers
+    (bf16) with the bench's fast grid (SWEEP, min_ndim=3: the stacked layer
+    matrices; embed and head stay raw): rd_quant and flash_attention
+    launch the predicted counts, the dispatch report stays empty, and the
+    policy re-applied through the registry writes the sweep's final
+    container byte for byte.  Prints every point and the split of the
+    phase's seconds."""
+    import torch
+    from repro_torch import compression
+    from repro_torch.compression import codec as codec_mod
+    from repro_torch.compression import rd_search
+    from repro_torch.kernels import registry
+
+    cfg, params = _full_cut(device)
+    search = _sweep_search()
+    covered = {k: v for k, v in compression.flatten_tree(params).items()
+               if v.dim() >= search.min_ndim and v.is_floating_point()}
+    n_cov = sum(v.numel() for v in covered.values())
+    clock = _SweepClock()
+    clock.wrap(rd_search, "rd_assign_levels", "assign")
+    clock.wrap(rd_search, "estimate_bin_probs_torch", "bin_stats")
+    clock.wrap(rd_search, "estimate_level_bits_torch", "level_bits")
+    clock.wrap(rd_search, "fisher_for", "fim")
+    clock.wrap(codec_mod.Codec, "compress_entries", "encode", keep_blob=True)
+    clock.wrap(rd_search, "decompress", "decode")
+    clock.wrap(rd_search.TaskProxy, "_greedy_tokens", "proxy_serve")
+    clock.wrap(rd_search.TaskProxy, "_log_probs", "proxy_logits")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    registry.clear_dispatch_report()
+    registry.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        res = rd_search.rd_sweep(cfg, params, search)
+        torch.cuda.synchronize()
+    finally:
+        clock.restore()
+    wall = time.perf_counter() - t0
+    launches, report = registry.launch_counts(), registry.dispatch_report()
+    peak = torch.cuda.max_memory_allocated()
+    want = predicted_sweep_launches(res, search, len(covered),
+                                    cfg.num_layers)
+    check(not report, f"rd_sweep: dispatch report not empty: {report}")
+    for kern, n in want.items():
+        check(launches[kern] == n, f"rd_sweep: {launches[kern]} {kern} "
+              f"launches, predicted {n}")
+    check(launches["dequant_matmul"] == launches[
+        "dequant_matmul_grouped"] == 0, f"rd_sweep: launches {launches}")
+    t0 = time.perf_counter()
+    blob = compression.get("deepcabac-rd", policy_table=res.policy.to_dict(),
+                           num_gr=search.num_gr,
+                           min_ndim=search.min_ndim).compress(params).blob
+    reencode_s = time.perf_counter() - t0
+    check(blob == clock.blobs[-1] and len(blob) == res.policy_bytes,
+          f"rd_sweep: the policy re-encodes to {len(blob)} bytes, the sweep "
+          f"wrote {res.policy_bytes}")
+    del params, blob
+    gc.collect()
+    torch.cuda.empty_cache()
+    secs = dict(clock.secs)
+    stats = secs.get("bin_stats", 0.0) + secs.get("level_bits", 0.0)
+    split = {"assignment": secs.get("assign", 0.0) - secs.get("bin_stats",
+                                                              0.0),
+             "statistics": stats, "encode": secs.get("encode", 0.0),
+             "decode": secs.get("decode", 0.0),
+             "proxy": secs.get("proxy_serve", 0.0)
+             + secs.get("proxy_logits", 0.0),
+             "fim": secs.get("fim", 0.0)}
+    split["other"] = wall - sum(split.values())
+    for p in res.points:
+        log(f"[rd_sweep] point delta_rel={p.delta_rel:g} lam={p.lam:g}: "
+            f"{p.bytes} bytes, token_err {p.token_err:.4f}, logit_kl "
+            f"{p.logit_kl:.3e}, on_front {p.on_front}")
+    log(f"[rd_sweep] llama3-8b full width, {cfg.num_layers} layers, "
+        f"{len(covered)} covered leaves ({n_cov / 1e6:.1f} M values): winner "
+        f"delta_rel={res.winner.delta_rel:g} lam={res.winner.lam:g}, policy "
+        f"{res.policy_bytes} bytes (token_err {res.policy_token_err:.4f}, "
+        f"logit_kl {res.policy_logit_kl:.3e}), {res.refined_tensors} tensors "
+        f"refined, reverted {res.reverted}; {wall:.1f} s: "
+        + ", ".join(f"{k} {v:.2f} s" for k, v in split.items())
+        + f"; launches {launches} (predicted {want}), empty report; peak "
+        f"{peak / 2**30:.2f} GiB; the policy re-encodes to the sweep's "
+        f"bytes ({reencode_s:.1f} s)")
+    return {"layers": cfg.num_layers, "covered_leaves": len(covered),
+            "covered_values": n_cov,
+            "points": [p.to_dict() for p in res.points],
+            "winner": res.winner.to_dict(), "policy": res.policy.to_dict(),
+            "policy_bytes": res.policy_bytes,
+            "policy_token_err": res.policy_token_err,
+            "policy_logit_kl": res.policy_logit_kl,
+            "refined_tensors": res.refined_tensors,
+            "reverted": res.reverted, "seconds": wall, "split_s": split,
+            "parts_s": secs, "launches": launches, "predicted": want,
+            "peak_bytes": peak, "reencode_s": reencode_s}
+
+
+def _eval_nll(cfg, like: dict, batches, log_to: list):
+    """An eval_fn for the DC searches: minus the mean NLL of a
+    reconstructed flat dict over ``batches``, on ``like``'s devices and
+    dtypes; each value is appended to ``log_to``."""
+    import torch
+    from repro_torch.compression.tree import unflatten
+    from repro_torch.models.transformer import train_loss
+
+    def eval_fn(rec: dict) -> float:
+        tree = unflatten({k: torch.as_tensor(rec[k]).to(v.device, v.dtype)
+                          for k, v in like.items()})
+        with torch.no_grad():
+            nll = sum(float(train_loss(tree, b, cfg)) for b in batches)
+        value = -nll / len(batches)
+        log_to.append(value)
+        return value
+    return eval_fn
+
+
+def _first_flip(evals: dict, floor: float, device, cpu):
+    """The first eval_fn call whose verdict (>= floor) differs between the
+    two runs, as (index, card value, cpu value), or None."""
+    a, b = evals[str(device)], evals[cpu]
+    for i, (x, y) in enumerate(zip(a, b)):
+        if (x >= floor) != (y >= floor):
+            return i, x, y
+    return None
+
+
+def phase_search_parity(device, cpu="cpu"):
+    """The search loops at smoke size (llama3-8b, f32) on the card and on
+    the CPU from the same weights: rd_sweep with F = 1 (assign="kernel":
+    the rd_quant kernel on the card, its plain version on the CPU) gives
+    the same points (bytes and token_err exactly, logit_kl within
+    TOL_KL_ABS), policy and policy bytes; search_dc_v2 and search_dc_v1
+    (one sigma for both runs: 1/sqrt(F) of the empirical FIM, taken on
+    the CPU) with the eval NLL computed where the weights are choose the
+    same hyperparameters and write identical blobs."""
+    import numpy as np
+    import torch
+    from repro_torch import compression, configs
+    from repro_torch.compression.rd_search import (RDSearchConfig,
+                                                   fisher_for, rd_sweep)
+    from repro_torch.compression.tree import unflatten
+    from repro_torch.core import deepcabac as dc
+    from repro_torch.data.pipeline import make_eval_batches, to_device
+    from repro_torch.kernels import registry
+    from repro_torch.models.transformer import init_params
+
+    cfg = configs.get("llama3-8b", smoke=True)
+    flat_cpu = compression.flatten_tree(init_params(cfg, 0, device=cpu))
+    flats = {str(device): {k: v.to(device) for k, v in flat_cpu.items()},
+             cpu: flat_cpu}
+    out = {}
+    search = RDSearchConfig(**{**SWEEP, "fim_batches": 0, "min_ndim": 2,
+                               "assign": "kernel"})
+    t0 = time.perf_counter()
+    sweeps = {}
+    for dev, flat in flats.items():
+        registry.reset_launch_counts()
+        sweeps[dev] = rd_sweep(cfg, unflatten(dict(flat)), search)
+        if dev == str(device):
+            sweep_launches = registry.launch_counts()
+    a, b = sweeps[str(device)], sweeps[cpu]
+    for p, q in zip(a.points, b.points):
+        same = (p.bytes, p.token_err, p.on_front) == \
+            (q.bytes, q.token_err, q.on_front)
+        check(same and abs(p.logit_kl - q.logit_kl) <= TOL_KL_ABS,
+              f"search parity: sweep point {p.to_dict()} on {device} != "
+              f"{q.to_dict()} on cpu")
+    check(a.policy.to_dict() == b.policy.to_dict() and
+          a.policy_bytes == b.policy_bytes,
+          f"search parity: sweep policy differs ({a.policy_bytes} vs "
+          f"{b.policy_bytes} bytes)")
+    check(sweep_launches["rd_quant"] > 0 and
+          sweep_launches["flash_attention"] > 0,
+          f"search parity: the smoke sweep on the card launched "
+          f"{sweep_launches}")
+    out["rd_sweep"] = {"points": [p.to_dict() for p in a.points],
+                       "policy_bytes": a.policy_bytes,
+                       "launches_card": sweep_launches,
+                       "seconds": time.perf_counter() - t0}
+    # DC-v1 / DC-v2: quantization on the host (f64 oracle), eval where the
+    # weights are
+    evals_b = [to_device(b_, cpu) for b_ in make_eval_batches(
+        cfg, 2, batch=2, seq=16)]
+    sigma = {k: torch.rsqrt(f + 1e-12) for k, f in compression.flatten_tree(
+        fisher_for(cfg, unflatten(dict(flat_cpu)), batches=2)).items()}
+    for method in ("dc-v2", "dc-v1"):
+        evals, results = {}, {}
+        t0 = time.perf_counter()
+        for dev, flat in flats.items():
+            evals[dev] = []
+            batches = [{k: v.to(dev) for k, v in b_.items()}
+                       for b_ in evals_b]
+            fn = _eval_nll(cfg, flat, batches, evals[dev])
+            orig = fn(flat)
+            if method == "dc-v2":
+                results[dev] = dc.search_dc_v2(
+                    flat, fn, orig, tol=SEARCH_TOL, deltas=DC_DELTAS,
+                    lambdas=DC_LAMBDAS)
+            else:
+                results[dev] = dc.search_dc_v1(
+                    flat, sigma, fn, orig, tol=SEARCH_TOL, s_grid=DC_S_GRID,
+                    lambdas=DC_V1_LAMBDAS)
+        r_d, r_c = results[str(device)], results[cpu]
+        if r_d.hyperparams != r_c.hyperparams or r_d.blob != r_c.blob:
+            flip = _first_flip(evals, evals[cpu][0] - SEARCH_TOL, device,
+                               cpu)
+            _fail(f"search parity {method}: {device} chose "
+                  f"{r_d.hyperparams} ({len(r_d.blob)} bytes), cpu "
+                  f"{r_c.hyperparams} ({len(r_c.blob)} bytes); first "
+                  f"flipped eval (index, {device}, cpu): {flip}")
+        diff = float(np.max(np.abs(np.array(evals[str(device)])
+                                   - np.array(evals[cpu]))))
+        out[method] = {"chosen": r_d.hyperparams, "bytes": len(r_d.blob),
+                       "evals": len(evals[cpu]),
+                       "max_eval_diff_card_vs_cpu": diff,
+                       "seconds": time.perf_counter() - t0}
+        log(f"[search] smoke llama3-8b {method}: {device} and cpu choose "
+            f"{r_d.hyperparams} ({len(r_d.blob)} bytes, identical blobs) "
+            f"over {len(evals[cpu])} evaluations (largest eval difference "
+            f"{diff:.2e}) in {out[method]['seconds']:.1f} s")
+    log(f"[search] smoke llama3-8b rd_sweep: card = cpu on "
+        f"{len(a.points)} points, the policy and {a.policy_bytes} policy "
+        f"bytes (card launches {sweep_launches})")
+    return out
+
+
 def _leaves(tree):
     for v in tree.values():
         if isinstance(v, dict):
@@ -1531,7 +2023,7 @@ def _leaves(tree):
 
 
 def summarize(dm_rows, fa_rows, grouped_rows, serve, serve_moe, rd_rows,
-              deploy, serve_moe_f32):
+              deploy, serve_moe_f32, sweep):
     """One entry per kernel and, for flash_attention and
     dequant_matmul_grouped, one per instance (``instance``).
     dequant_matmul: one full-width llama3-8b decode step's 225 calls at 4
@@ -1546,8 +2038,11 @@ def summarize(dm_rows, fa_rows, grouped_rows, serve, serve_moe, rd_rows,
     (serve_moe_f32);
     rd_quant: one 2-pass assignment of each of the 11 full-width shapes
     (layer 0 of each stacked leaf, embed, head; bf16), launches from the
-    deploy encode.  Launches of the other serving entries come from each
-    model's q8 serve, its eager run (the graph run's are equal).  The serving kernels' ``ms`` and ``library_ms`` are
+    deploy encode.  The search loop's path (``rd_sweep``) launches
+    rd_quant and the bf16 flash instance: those counts are
+    ``sweep_launches`` of both entries.  Launches of the other serving
+    entries come from each model's q8 serve, its eager run (the graph
+    run's are equal).  The serving kernels' ``ms`` and ``library_ms`` are
     CUDA-graph replays (``timing``), their eager loops' ``eager_ms``
     beside them; rd_quant's calls take milliseconds and are timed
     eagerly."""
@@ -1594,6 +2089,7 @@ def summarize(dm_rows, fa_rows, grouped_rows, serve, serve_moe, rd_rows,
                                             "bound_by")}}
     fa = fa_entry(32, "bfloat16", serve["q8"]["launches"]["flash_attention"],
                   "one llama3-8b prefill call: B=4 S=128 H=32 G=8 D=128 bf16")
+    fa["sweep_launches"] = sweep["launches"]["flash_attention"]
     fa32 = fa_entry(16, "float32",
                     serve_moe_f32["launches"]["flash_attention"],
                     "one deepseek-moe-16b f32 prefill call: B=4 S=128 H=16 "
@@ -1652,7 +2148,8 @@ def summarize(dm_rows, fa_rows, grouped_rows, serve, serve_moe, rd_rows,
           **{key: sum(r[key] for r in rd_rows)
              for key in ("ms", "plain_ms", "bound_ms")},
           "bound_by": "bytes" if t_b >= t_f else "operations",
-          "library_ms": None, "timing": "eager"}
+          "library_ms": None, "timing": "eager",
+          "sweep_launches": sweep["launches"]["rd_quant"]}
     return [dm, fa, fa32, gm, gm32, rd]
 
 
@@ -1676,6 +2173,7 @@ def main() -> int:
     results["parity_codec"] = phase_parity_codec(device)
     results["parity_moe"] = phase_parity_moe(device)
     results["parity_moe_bf16"] = phase_parity_moe_bf16(device)
+    results["search_parity"] = phase_search_parity(device)
     cfg, params = init_full(device, "llama3-8b")
     policy = rd_policy_rules(covered_leaves(params))
     results["rd_quant"] = phase_kernels_rd(params, policy)
@@ -1695,11 +2193,17 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     results["serve_moe_f32"] = phase_serve_moe_f32(device)
+    gc.collect()
+    torch.cuda.empty_cache()
+    results["fim"] = phase_fim(device)
+    results["variational"] = phase_variational(device)
+    results["rd_sweep"] = phase_rd_sweep(device)
     kernels = summarize(results["dequant_matmul"],
                         results["flash_attention"],
                         results["dequant_matmul_grouped"], results["serve"],
                         results["serve_moe"], results["rd_quant"],
-                        results["deploy"], results["serve_moe_f32"])
+                        results["deploy"], results["serve_moe_f32"],
+                        results["rd_sweep"])
     results["kernels"] = kernels
     results["seconds"] = time.perf_counter() - t0
     out_dir = ROOT / "chiprun_out"

@@ -6,7 +6,7 @@
     tree = compression.decompress(art.blob, like=params)
 
 Registered codecs: ``deepcabac-v2``, ``deepcabac-v3``, ``deepcabac-rd``,
-``ckpt-nearest``, ``serve-q8``, ``raw``.  The strategy and registry
+``ckpt-nearest``, ``serve-q8``, ``huffman``, ``raw``.  The strategy and registry
 modules load lazily, so ``models`` can import the q8 quantizer without
 pulling in the codec."""
 
@@ -23,6 +23,7 @@ _LAZY = {
     "EntropyCoder": "coders",
     "CabacCoder": "coders",
     "CabacV3Coder": "coders",
+    "HuffmanCoder": "coders",
     "RawLevelCoder": "coders",
     "Quantizer": "quantizers",
     "RDGridQuantizer": "quantizers",
@@ -39,6 +40,13 @@ _LAZY = {
     "PolicyQuantizer": "rd_search",
     "resolve_policy": "rd_search",
     "rd_assign_levels": "rd_search",
+    "TaskProxy": "rd_search",
+    "RDSearchConfig": "rd_search",
+    "RDPoint": "rd_search",
+    "RDSweepResult": "rd_search",
+    "pareto_front": "rd_search",
+    "fisher_for": "rd_search",
+    "rd_sweep": "rd_search",
 }
 
 

@@ -1,16 +1,19 @@
 """EntropyCoder strategies: quantized tensor -> DCBC container record (the
-port's copy of ``CabacCoder``, ``CabacV3Coder`` and ``RawLevelCoder`` from
-``repro.compression.coders``; the Huffman and delta coders wait).
-Decoding needs no strategy object: records are self-describing."""
+port's copy of ``CabacCoder``, ``CabacV3Coder``, ``HuffmanCoder`` and
+``RawLevelCoder`` from ``repro.compression.coders``; the delta coder
+waits).  Decoding needs no strategy object: records are self-describing."""
 
 from __future__ import annotations
 
 from dataclasses import dataclass
 
+import numpy as np
+
 from ..core import binarization as B
 from ..core.codec import (DEFAULT_CHUNK, Q8Tensor, QuantizedTensor,
                           encode_level_chunks, encode_level_chunks_batched)
 from ..core.container import ContainerWriter
+from ..core.huffman import build_huffman, pack_payload
 
 
 class EntropyCoder:
@@ -56,6 +59,22 @@ class CabacV3Coder(EntropyCoder):
             qt.levels, self.num_gr, self.chunk_size, backend=self.backend)
         writer.add_cabac_v3(name, qt.dtype, qt.shape, qt.step,
                             self.num_gr, self.chunk_size, chunks, counts)
+
+
+@dataclass
+class HuffmanCoder(EntropyCoder):
+    """Canonical scalar Huffman baseline (paper §IV-B-2) with the two-part
+    code table transmitted in-band ahead of the bitstream.  A benchmark
+    baseline: its per-symbol Python loops suit the paper-table fixtures,
+    not a full model."""
+
+    def add_record(self, writer, name, qt):
+        if not isinstance(qt, QuantizedTensor):
+            raise TypeError(f"HuffmanCoder codes scalar-step levels, got "
+                            f"{type(qt).__name__}")
+        flat = np.asarray(qt.levels).ravel()
+        payload = pack_payload(flat, build_huffman(flat))
+        writer.add_huffman(name, qt.dtype, qt.shape, qt.step, payload)
 
 
 @dataclass

@@ -32,7 +32,6 @@ import torch
 from ..arrays import dtype_name, is_float_dtype
 from ..core import binarization as B
 from ..core.codec import Q8Tensor, QuantizedTensor
-from ..core.deepcabac import quantize_tensor_rd
 from ..core.quant import nearest_level
 
 STACKED_TOP_KEYS = ("layers", "dense_layers")
@@ -147,6 +146,8 @@ class RDGridQuantizer(Quantizer):
     importance: dict | None = None
 
     def quantize(self, name: str, w) -> QuantizedTensor:
+        # core.deepcabac builds its DC-v1/v2 codecs from this module
+        from ..core.deepcabac import quantize_tensor_rd
         step = (self.delta if self.step_for is None
                 else float(self.step_for(name, w)))
         fim = (None if self.importance is None

@@ -15,7 +15,7 @@ from typing import Callable
 
 from ..core import binarization as B
 from ..core.codec import DEFAULT_CHUNK
-from .coders import CabacCoder, CabacV3Coder, RawLevelCoder
+from .coders import CabacCoder, CabacV3Coder, HuffmanCoder, RawLevelCoder
 from .codec import Codec
 from .quantizers import (NearestStdQuantizer, PerChannelInt8Quantizer,
                          RDGridQuantizer, ndim_float_policy, relative_step,
@@ -24,7 +24,7 @@ from .quantizers import (NearestStdQuantizer, PerChannelInt8Quantizer,
 _REGISTRY: dict[str, Callable[..., Codec]] = {}
 
 # the reference's other codecs, queued for later slices
-NOT_YET_PORTED = ("deepcabac-delta", "huffman", "kv-q8-cabac")
+NOT_YET_PORTED = ("deepcabac-delta", "kv-q8-cabac")
 
 
 def register(name: str, factory: Callable[..., Codec]) -> None:
@@ -156,6 +156,16 @@ def _serve_q8() -> Codec:
                  quantizer=PerChannelInt8Quantizer(), policy=serve_q8_policy)
 
 
+def _huffman(delta_rel: float = 1e-3, min_ndim: int = 2) -> Codec:
+    """Scalar Huffman baseline (paper §IV-B-2): the checkpoint codec's
+    nearest-level grid, coded with an explicit two-part Huffman code."""
+    return Codec("huffman",
+                 coder=HuffmanCoder(),
+                 quantizer=NearestStdQuantizer(delta_rel=delta_rel),
+                 policy=ndim_float_policy(min_ndim),
+                 hyperparams={"delta_rel": delta_rel})
+
+
 def _raw() -> Codec:
     """Lossless passthrough — every leaf stored verbatim."""
     return Codec("raw")
@@ -166,4 +176,5 @@ register("deepcabac-v3", _deepcabac_v3)
 register("deepcabac-rd", _deepcabac_rd)
 register("ckpt-nearest", _ckpt_nearest)
 register("serve-q8", _serve_q8)
+register("huffman", _huffman)
 register("raw", _raw)

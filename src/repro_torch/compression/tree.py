@@ -31,8 +31,9 @@ def unflatten(flat: dict) -> dict:
 
 
 def unflatten_like(flat: dict, template: dict) -> dict:
-    """Rebuild ``template``'s nested structure from a flat dict, casting
-    each tensor to the template leaf's dtype and checking shapes.
+    """Rebuild ``template``'s nested structure from a flat dict, moving
+    each tensor to the template leaf's device and dtype and checking
+    shapes.
     Quantized representations (anything with ``dequantize``) are placed
     as they are."""
     out = {}
@@ -43,5 +44,6 @@ def unflatten_like(flat: dict, template: dict) -> dict:
         if tuple(arr.shape) != tuple(leaf.shape):
             raise ValueError(f"{key}: checkpoint shape {tuple(arr.shape)} "
                              f"!= state {tuple(leaf.shape)}")
-        out[key] = arr if hasattr(arr, "dequantize") else arr.to(leaf.dtype)
+        out[key] = (arr if hasattr(arr, "dequantize")
+                    else arr.to(leaf.device, leaf.dtype))
     return unflatten(out)

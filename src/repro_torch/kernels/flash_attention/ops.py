@@ -5,6 +5,12 @@ routing (``repro.kernels.flash_attention.ops``):
 
 * decode (Sq == 1) is *routed* to :func:`~.scan.naive_attend`, by design,
   and records nothing;
+* a call that autograd differentiates (grad enabled and any of q, k, v
+  requiring grad) is routed to :func:`~.scan.online_softmax_scan` on every
+  platform, by design, and records nothing: the kernel has no backward,
+  and the reference's Pallas kernel has none either (its training path
+  differentiates the scan, its CPU default).  :func:`_flash_cuda` raises
+  if such a call reaches it, so a gradient is never dropped quietly;
 * on the card, the hand-written kernel runs unless a shape breaks its
   contract — ragged ``kv_len``, ``d != dv``, or a ``qpos`` that is not the
   right-aligned arange its causal mask hard-codes — and then
@@ -57,7 +63,19 @@ def _aligned(t):
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
+def _wants_grad(q, k, v) -> bool:
+    """True when autograd would differentiate through this call.  The
+    kernel has no backward (nor has the reference's), so such a call must
+    not reach it."""
+    return torch.is_grad_enabled() and any(
+        t.requires_grad for t in (q, k, v))
+
+
 def _flash_cuda(q, k, v):
+    if _wants_grad(q, k, v):
+        raise RuntimeError(
+            "flash_attention: the kernel has no backward, and an input "
+            "requires grad; attention() routes such a call to the scan")
     b, sq, h, d = q.shape
     skv, g = k.shape[1], k.shape[2]
     if not (q.dtype == k.dtype == v.dtype) or q.dtype not in (
@@ -163,7 +181,7 @@ def attention(q, k, v, qpos, *, kv_len=None, kv_block: int = 1024,
     ``qpos_canonical`` lets a caller that built ``qpos`` from an arange
     say so, sparing a device-to-host comparison per layer."""
     platform = platform_of(q)
-    if q.shape[1] <= 1 or platform == "cpu":
+    if q.shape[1] <= 1 or platform == "cpu" or _wants_grad(q, k, v):
         return _run_scan(q, k, v, qpos, kv_len, kv_block)
     reason = _kernel_constraint(q, k, v, qpos, kv_len, qpos_canonical)
     if reason is not None:

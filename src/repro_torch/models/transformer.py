@@ -1,8 +1,11 @@
 """Decoder-only backbone, dense and MoE families (port of
 ``repro.models.transformer``).
 
-Layers are stacked on a leading L axis with the reference's names and
-layouts; a Python loop over L takes the place of ``lax.scan``.  Stacked
+:func:`train_loss` is the NLL the FIM differentiates: nothing in the
+forward cuts autograd's graph (attention under grad takes the scan, see
+``kernels.flash_attention.ops``).  Layers are stacked on a leading L axis
+with the reference's names and layouts; a Python loop over L takes the
+place of ``lax.scan``.  Stacked
 q8 leaves are sliced per layer (``q8[l]`` / ``q8s[l]``), so each layer's
 projections read int8 levels through ``dequant_matmul`` and a MoE layer's
 expert banks through ``dequant_matmul_grouped``.  A MoE model runs its
@@ -314,6 +317,20 @@ def _head_logits(x, params, cfg: ModelConfig):
             else dequant_leaf(head_leaf, torch.float32))
     return torch.einsum("bsd,dv->bsv", x.to(torch.float32),
                         head.to(torch.float32))
+
+
+def train_loss(params, batch: dict, cfg: ModelConfig) -> torch.Tensor:
+    """Mean next-token NLL of ``batch`` (tokens and labels (B, S) int
+    tensors, ``data.pipeline.to_device``), as a 0-d f32 tensor that
+    autograd differentiates; a MoE model adds
+    ``router_aux_weight * aux / num_layers``."""
+    logits, _, aux = forward(params, cfg, tokens=batch["tokens"])
+    logp = torch.log_softmax(logits, dim=-1)
+    ll = torch.gather(logp, -1, batch["labels"][..., None])[..., 0]
+    loss = -torch.mean(ll)
+    if cfg.family == "moe":
+        loss = loss + cfg.router_aux_weight * aux / max(cfg.num_layers, 1)
+    return loss
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,

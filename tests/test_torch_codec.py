@@ -330,14 +330,14 @@ def test_registry_strictness_and_unported_codecs():
         compression.get("deepcabac-v3", lamda=0.1)
     c = compression.get("serve-q8", strict=False, delta_rel=0.1)
     assert c.hyperparams["dropped_overrides"] == ["delta_rel"]
-    for name in ("deepcabac-delta", "huffman", "kv-q8-cabac"):
+    for name in ("deepcabac-delta", "kv-q8-cabac"):
         with pytest.raises(NotImplementedError, match="not yet ported"):
             compression.get(name)
     with pytest.raises(ValueError, match="policy_table"):
         compression.get("deepcabac-rd")
     assert compression.available() == sorted(
         ["deepcabac-v2", "deepcabac-v3", "deepcabac-rd", "ckpt-nearest",
-         "serve-q8", "raw"])
+         "serve-q8", "huffman", "raw"])
 
 
 def test_size_report_matches_reference(trees):

@@ -845,3 +845,111 @@ def test_graphs_of_many_prompt_lengths_keep_memory_bounded(arch):
     assert sess.graphs.stats == {"eager": 13, "captures": 13, "replays": 13}
     assert torch.cuda.memory_allocated() - base < row_cache
     assert torch.cuda.max_memory_allocated() - peak_first < row_cache
+
+
+# ---------------------------------------------------------------------------
+# autograd: the kernel has no backward, so a gradient never meets it
+# ---------------------------------------------------------------------------
+
+def test_flash_kernel_raises_on_inputs_that_require_grad():
+    _needs_card()
+    q = torch.randn(1, 16, 4, 32, device="cuda", requires_grad=True)
+    k = torch.randn(1, 16, 2, 32, device="cuda")
+    v = torch.randn(1, 16, 2, 32, device="cuda")
+    with pytest.raises(RuntimeError, match="no backward"):
+        fops._flash_cuda(q, k, v)
+    with pytest.raises(RuntimeError, match="no backward"):
+        fops.flash_attention(q, k, v)
+    with torch.no_grad():                    # nothing to differentiate
+        fops._flash_cuda(q, k, v)
+
+
+def test_attention_under_grad_takes_the_scan_and_matches_the_cpu():
+    """A call that autograd differentiates routes to the scan on the card
+    (no launch, nothing recorded) and its gradients equal the CPU's; the
+    same call without grad still launches the kernel."""
+    _needs_card()
+    g = torch.Generator().manual_seed(8)
+    qc, kc, vc = (torch.randn(shape, generator=g) for shape in (
+        (2, 24, 4, 32), (2, 24, 2, 32), (2, 24, 2, 32)))
+    qpos = torch.arange(24)[None].expand(2, 24)
+    grads = {}
+    for dev in ("cuda", "cpu"):
+        q, k, v = (t.to(dev).requires_grad_(True) for t in (qc, kc, vc))
+        kernels.reset_launch_counts()
+        kernels.clear_dispatch_report()
+        out = fops.attention(q, k, v, qpos.to(dev), kv_block=16)
+        (out * out).sum().backward()
+        assert kernels.launch_counts()["flash_attention"] == 0
+        assert kernels.dispatch_report() == []
+        grads[dev] = [t.grad.cpu() for t in (q, k, v)]
+    for got, want in zip(grads["cuda"], grads["cpu"]):
+        assert _rel(got, want) <= 1e-4
+    kernels.reset_launch_counts()
+    q, k, v = (t.detach().cuda() for t in (qc, kc, vc))
+    fops.attention(q, k, v, qpos.cuda(), qpos_canonical=True)
+    assert kernels.launch_counts()["flash_attention"] == 1
+
+
+def test_fisher_for_on_the_card_matches_the_cpu():
+    """The empirical FIM of the smoke models (f32) on the card against the
+    CPU, per leaf within 1e-4 of max|F|: gradients reach wq, wk and wv,
+    and no kernel is launched (the model's float weights take torch
+    products; attention under grad takes the scan)."""
+    _needs_card()
+    from repro_torch import configs
+    from repro_torch.compression.rd_search import fisher_for
+    from repro_torch.compression.tree import flatten_tree, unflatten
+    from repro_torch.models.transformer import init_params
+    for arch in ("llama3-8b", "deepseek-moe-16b"):
+        cfg = configs.get(arch, smoke=True)
+        cpu = init_params(cfg, 0, device="cpu")
+        card = unflatten({k: v.cuda() for k, v in flatten_tree(cpu).items()})
+        kernels.reset_launch_counts()
+        kernels.clear_dispatch_report()
+        f_card = flatten_tree(fisher_for(cfg, card, batches=2))
+        assert sum(kernels.launch_counts().values()) == 0
+        assert kernels.dispatch_report() == []
+        f_cpu = flatten_tree(fisher_for(cfg, cpu, batches=2))
+        for name, want in f_cpu.items():
+            assert f_card[name].is_cuda
+            assert _rel(f_card[name], want) <= 1e-4, (arch, name)
+        for name in ("wq", "wk", "wv"):
+            assert float(f_card[f"layers/attn/{name}"].abs().max()) > 0
+
+
+def test_rd_sweep_on_the_card_reproduces_its_policy_bytes():
+    """rd_sweep on the card (smoke llama3-8b, bf16: the bf16 flash
+    instance at every proxy prefill, rd_quant for every lambda > 0
+    assignment): the policy re-applied through the registry gives the
+    swept container's bytes, and the launches are the predicted ones."""
+    _needs_card()
+    from repro_torch import compression, configs
+    from repro_torch.compression.rd_search import RDSearchConfig, rd_sweep
+    from repro_torch.models.transformer import init_params
+    cfg = configs.get("llama3-8b", smoke=True).replace(
+        param_dtype="bfloat16", compute_dtype="bfloat16")
+    params = init_params(cfg, 0, device="cuda")
+    search = RDSearchConfig(delta_rels=(1e-3, 6e-3), lambdas=(0.0, 1e-5),
+                            prompts=2, prompt_len=8, decode_steps=4,
+                            fim_batches=1, min_ndim=3)
+    kernels.reset_launch_counts()
+    kernels.clear_dispatch_report()
+    res = rd_sweep(cfg, params, search)
+    counts = kernels.launch_counts()
+    assert kernels.dispatch_report() == []
+    blob = compression.get("deepcabac-rd", policy_table=res.policy,
+                           min_ndim=3).compress(params).blob
+    assert len(blob) == res.policy_bytes
+    n_cov = 7                  # wq, wk, wv, wo, w_gate, w_up, w_down
+    measures = len(res.points) + 1 + (res.refined_tensors > 0
+                                      or res.reverted)
+    assert counts["flash_attention"] == 2 * cfg.num_layers * (1 + measures)
+    per = 4                    # (1 + 1 refinement) x 2 passes
+    lam_pos = sum(lam > 0 for lam in search.lambdas) * len(
+        search.delta_rels)
+    winner = per * n_cov * (res.winner.lam > 0)
+    want = (per * n_cov * lam_pos
+            + winner * (1 + len(search.refine_factors))
+            + winner * ((res.refined_tensors > 0 or res.reverted) + 1))
+    assert counts["rd_quant"] == want
