@@ -82,7 +82,22 @@ Phases (each fails the run on its own; nothing is caught and ignored):
              the predicted counts, the report stays empty, the policy
              re-encodes to the sweep's bytes; every point and the split
              of the seconds (assignment, statistics, encode, decode,
-             proxy).
+             proxy);
+14. delta_swap (after 7) — delta checkpoints and the live weight swap at
+             llama3-8b's published widths, 2 layers, trained in f32 on the
+             card: ``CheckpointManager(codec="deepcabac-delta",
+             delta_every=4, sharded=True, min_quant_ndim=3)`` saves a
+             keyframe over a (data 1, model 4) MeshSpec and two P-frames,
+             one AdamW step each; a q8 session cold-started from the
+             keyframe's manifest serves 4 x 128 prompt tokens from graphs
+             and takes each P-frame by ``swap_weights`` with the four
+             requests in flight: leaves equal to a cold start from the host
+             chain decode bit for bit, every coded tensor changed, no
+             capture after a swap, a later request equal to that cold
+             start (prefill logits bit for bit, tokens), launches of the
+             path as predicted, an empty report; the seconds of the saves,
+             the cold start and each swap (tc decode, q8 conversion,
+             ``copy_``), the host CABAC rates and the bytes of each frame.
 
 The line before the last is the card's name and power limit; one line
 before it is the ``{"kernels": [...]}`` summary; the last line is
@@ -192,6 +207,21 @@ DC_LAMBDAS = (0.0, 1e-4)
 DC_S_GRID = (16.0, 32.0, 64.0)
 DC_V1_LAMBDAS = (0.0,)
 SEARCH_TOL = 0.005
+# delta_swap: llama3-8b at full width, DEPLOY_LAYERS deep, trained in f32:
+# the steps saved (a keyframe and two P-frames, one AdamW step apart at
+# SWAP_LR), the keyframe cadence, the save mesh (shard math only, one
+# card), the new tokens of each of the 4 requests (the first from the
+# prefill), the decode ticks before each swap, the late request's new
+# tokens, and the disk the step directories take at most (the embedding
+# and head stay raw in every frame: 4.2 GB each)
+SWAP_STEPS = (1, 2, 3)
+SWAP_LR = 1e-5
+SWAP_DELTA_EVERY = 4
+SWAP_MESH = {"data": 1, "model": 4}
+SWAP_NEW_TOKENS = 32
+SWAP_TICKS = 8
+SWAP_LATE_TOKENS = 8
+SWAP_DISK_BYTES = 20 * 2**30
 
 
 def log(msg: str) -> None:
@@ -1066,6 +1096,320 @@ def phase_deploy_serve(device):
     return out
 
 
+def _train_step(cfg, params, opt, acfg, step):
+    """One AdamW step of ``train_loss`` on the pipeline's batch ``step``
+    (FIM_BATCH x FIM_SEQ), ``params`` and ``opt`` updated in place;
+    returns the loss."""
+    import torch
+    from repro_torch.compression.tree import flatten_tree, unflatten
+    from repro_torch.data.pipeline import make_batch, to_device
+    from repro_torch.models.transformer import train_loss
+    from repro_torch.optim.adamw import adamw_update
+
+    batch = to_device(make_batch(cfg, step, batch=FIM_BATCH, seq=FIM_SEQ),
+                      next(_leaves(params)).device)
+    flat = flatten_tree(params)
+    leaves = [p.detach().requires_grad_(True) for p in flat.values()]
+    loss = train_loss(unflatten(dict(zip(flat, leaves))), batch, cfg)
+    grads = torch.autograd.grad(loss, leaves)
+    del leaves
+    with torch.no_grad():
+        adamw_update(unflatten(dict(zip(flat, grads))), opt, params, acfg)
+    return float(loss.detach())
+
+
+def _tensor_bytes(manifest) -> dict:
+    """Payload bytes of a step's manifest by record encoding."""
+    out: dict = {}
+    for tinfo in manifest["tensors"].values():
+        n = sum(s["length"] for s in tinfo["shards"])
+        out[tinfo["encoding"]] = out.get(tinfo["encoding"], 0) + n
+    return out
+
+
+def _q8_leaves_equal(got: dict, want: dict) -> list:
+    """Names of the serving leaves (q8, q8s and the rest) that differ."""
+    import torch
+    from repro_torch.compression.tree import flatten_tree
+    a, b = flatten_tree(got), flatten_tree(want)
+    if sorted(a) != sorted(b):
+        return ["<tree structure>"]
+    return [k for k in a if a[k].dtype != b[k].dtype
+            or not torch.equal(a[k], b[k])]
+
+
+def phase_delta_swap(device):
+    """Delta ("P-frame") checkpoints and the live weight swap at llama3-8b's
+    published widths, cut to DEPLOY_LAYERS layers: the f32 training state on
+    the card saved as a sharded keyframe over SWAP_MESH (shard math only)
+    and two P-frames, each one AdamW step later, by ``CheckpointManager``
+    (deepcabac-delta, min_quant_ndim=3: the stacked layer matrices are
+    CABAC-coded, embed, head and norms stay raw); a graph-replaying q8
+    session cold-started from the keyframe's manifest serves 4 x 128
+    prompt tokens, and each P-frame is swapped in with the four requests in
+    flight.  After each swap the resident leaves must equal, bit for bit,
+    those of a q8 tree built from the host chain decode
+    (``restore_levels``), every coded tensor must have changed levels, and
+    the decode graph must not be captured again; a request admitted after
+    the last swap must give that cold session's prefill logits bit for bit
+    and its greedy tokens; the path's kernel launches must be
+    ``per_forward_launches``' and the dispatch report empty."""
+    import resource
+    import shutil
+
+    import numpy as np
+    import torch
+    from repro_torch import configs
+    from repro_torch.checkpoint import (CheckpointConfig, CheckpointManager,
+                                        MeshSpec, delta, sharded)
+    from repro_torch.compression.tree import flatten_tree
+    from repro_torch.core import codec as core_codec
+    from repro_torch.kernels import registry
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init
+    from repro_torch.serve import session as session_mod
+    from repro_torch.serve.backends import get_backend
+    from repro_torch.serve.session import ServeConfig, ServeSession
+
+    root = ROOT / "build" / "delta_swap"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    free = shutil.disk_usage(root).free
+    check(free >= SWAP_DISK_BYTES, f"delta_swap: {free / 2**30:.1f} GiB free "
+          f"under {root}, the phase writes up to "
+          f"{SWAP_DISK_BYTES / 2**30:.0f} GiB")
+    torch.cuda.reset_peak_memory_stats()
+    cfg_t, params = _full_cut(device, param_dtype="float32",
+                              compute_dtype="float32")
+    flat = flatten_tree(params)
+    n_params = sum(v.numel() for v in flat.values())
+    coded = sorted(k for k, v in flat.items() if v.dim() >= 3)
+    n_coded = sum(flat[k].numel() for k in coded)
+    del flat
+    acfg = AdamWConfig(lr=SWAP_LR)
+    opt = adamw_init(params, acfg)
+    mgr = CheckpointManager(CheckpointConfig(
+        str(root), codec="deepcabac-delta", delta_every=SWAP_DELTA_EVERY,
+        sharded=True, min_quant_ndim=3, keep=3))
+    mesh = MeshSpec.from_any(SWAP_MESH)
+    clock = _PartClock()
+
+    def gc_clock(phase, info, t0=[0.0]):
+        # the host's garbage collections while the session serves
+        if phase == "start":
+            t0[0] = time.perf_counter()
+        else:
+            clock.secs["gc"] = clock.secs.get("gc", 0.0) + \
+                time.perf_counter() - t0[0]
+    clock.wrap(delta, "encode_delta_chunks_batched", "tc_encode")
+    clock.wrap(sharded, "encode_level_chunks_batched", "intra_encode")
+    clock.wrap(sharded, "decode_level_chunks_batched", "intra_decode")
+    clock.wrap(core_codec, "decode_delta_chunks_batched", "tc_decode")
+    clock.wrap(session_mod, "_copy_into", "copy")
+    out = {"layers": cfg_t.num_layers, "params": n_params,
+           "coded_values": n_coded, "coded_tensors": coded,
+           "mesh": SWAP_MESH, "delta_every": SWAP_DELTA_EVERY, "lr": SWAP_LR}
+    try:
+        save_s, losses = [], []
+        for step in SWAP_STEPS:
+            if step > SWAP_STEPS[0]:
+                losses.append(_train_step(cfg_t, params, opt, acfg, step))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            mgr.save({"params": params, "step": np.int64(step)}, step,
+                     mesh=mesh)
+            save_s.append(time.perf_counter() - t0)
+        del params, opt
+        gc.collect()
+        torch.cuda.empty_cache()
+        train_peak = torch.cuda.max_memory_allocated()
+        metas, files = [], []
+        for step in SWAP_STEPS:
+            d = root / f"step_{step:08d}"
+            metas.append(json.loads((d / "meta.json").read_text()))
+            m = sharded.load_manifest(str(d))
+            files.append({"payload_bytes": sharded.manifest_payload_bytes(m),
+                          "by_encoding": _tensor_bytes(m)})
+        check([m["kind"] for m in metas] == ["keyframe", "delta", "delta"]
+              and [m["chain_depth"] for m in metas] == [0, 1, 2],
+              "delta_swap: chain "
+              f"{[(m['kind'], m['chain_depth']) for m in metas]}")
+        enc = dict(clock.secs)
+        out.update(save_s=save_s, losses=losses, metas=metas, files=files,
+                   train_peak_bytes=train_peak,
+                   intra_encode_values_per_s=n_coded / enc["intra_encode"],
+                   tc_encode_values_per_s=2 * n_coded / enc["tc_encode"])
+
+        # the server: the full-width model in its serving dtype (bf16),
+        # cold-started on q8 from the keyframe's manifest
+        cfg = configs.get("llama3-8b").replace(num_layers=DEPLOY_LAYERS)
+        scfg = ServeConfig(slots=4, max_len=160)
+        backend = get_backend("q8", track_levels=True)
+        clock.wrap(backend, "_convert", "q8_convert")
+        t0 = time.perf_counter()
+        sess = ServeSession(cfg, str(root / f"step_{SWAP_STEPS[0]:08d}"),
+                            backend=backend, serve_cfg=scfg, device=device)
+        torch.cuda.synchronize()
+        out["cold_start_s"] = time.perf_counter() - t0
+        out["intra_decode_values_per_s"] = \
+            n_coded / clock.secs["intra_decode"]
+        rng = np.random.default_rng(0)
+        prompts = rng.integers(0, cfg.vocab_size, (4, 128)).astype(np.int32)
+        handles = [sess.submit(p, SWAP_NEW_TOKENS) for p in prompts]
+        clock.wrap(sess, "_admit", "admit")
+        clock.wrap(sess.graphs, "_capture", "capture")
+        gc.callbacks.append(gc_clock)
+        registry.clear_dispatch_report()
+        registry.reset_launch_counts()
+        tick_ms: list = []
+
+        def ticks(n):
+            for _ in range(n):
+                t0 = time.perf_counter()
+                sess.step()
+                tick_ms.append(1e3 * (time.perf_counter() - t0))
+
+        swaps = []
+        ticks(SWAP_TICKS)
+        for k, step in enumerate(SWAP_STEPS[1:]):
+            pre = [list(h.tokens) for h in handles]
+            before_levels = dict(backend._levels)
+            caps = sess.graphs.stats["captures"]
+            part0 = dict(clock.secs)
+            t0 = time.perf_counter()
+            n_upd = sess.swap_weights(str(root / f"step_{step:08d}"))
+            torch.cuda.synchronize()
+            swap_s = time.perf_counter() - t0
+            split = {p: clock.secs.get(p, 0.0) - part0.get(p, 0.0)
+                     for p in ("tc_decode", "q8_convert", "copy")}
+            unchanged = [n for n in coded
+                         if np.array_equal(before_levels[n].levels,
+                                           backend._levels[n].levels)]
+            check(not unchanged, f"delta_swap: step {step} changed no level "
+                  f"of {unchanged}")
+            # the host chain decode of this step: the whole chain for the
+            # first P-frame, then the next link on top of it
+            t0 = time.perf_counter()
+            ents = (delta.restore_levels(str(root), step) if k == 0 else
+                    delta._apply_delta_file(
+                        ents, str(root / f"step_{step:08d}"), None, step))
+            chain_s = time.perf_counter() - t0
+            cold_tree = get_backend("q8").load_entries(cfg, ents,
+                                                       device=device)
+            bad = _q8_leaves_equal(sess.params, cold_tree)
+            check(not bad, f"delta_swap: after the swap of step {step} the "
+                  f"resident leaves differ from the chain's cold start: "
+                  f"{bad}")
+            if k < len(SWAP_STEPS) - 2:
+                del cold_tree
+                ticks(SWAP_TICKS)
+            else:
+                while sess.pending:
+                    ticks(1)
+            check(sess.graphs.stats["captures"] == caps,
+                  f"delta_swap: the swap of step {step} was followed by a "
+                  f"capture ({caps} -> {sess.graphs.stats['captures']})")
+            check(all(h.tokens[:len(p)] == p for h, p in zip(handles, pre)),
+                  f"delta_swap: a token emitted before the swap of step "
+                  f"{step} changed")
+            swaps.append({"step": step, "updated": n_upd, "seconds": swap_s,
+                          **{f"{p}_s": v for p, v in split.items()},
+                          "chain_restore_s": chain_s,
+                          "tc_decode_values_per_s": n_coded /
+                          split["tc_decode"]})
+        check(all(h.done and len(h.tokens) == SWAP_NEW_TOKENS
+                  for h in handles), "delta_swap: a request did not finish")
+        # a request admitted after the last swap, on the swapped session
+        # and on a session over the chain's cold start
+        late = sess.submit(prompts[0], SWAP_LATE_TOKENS)
+        sess._admit()
+        late_logits = sess.logits[:1].clone()
+        sess.run()
+        launches = registry.launch_counts()
+        report = registry.dispatch_report()
+        prefills = 2
+        fwd = prefills + sess.stats["decode_steps"]
+        per_fwd = per_forward_launches(cfg)
+        check(not report, f"delta_swap: dispatch report not empty: {report}")
+        check(launches["dequant_matmul"] == per_fwd["dequant_matmul"] * fwd,
+              f"delta_swap: {launches['dequant_matmul']} dequant_matmul "
+              f"launches, want {per_fwd['dequant_matmul']} x {fwd} passes")
+        check(launches["flash_attention"] == cfg.num_layers * prefills,
+              f"delta_swap: {launches['flash_attention']} flash launches, "
+              f"want {cfg.num_layers} x {prefills} prefills")
+        cold = ServeSession.from_loaded(cfg, cold_tree, backend="q8",
+                                        serve_cfg=scfg, device=device)
+        ref = cold.submit(prompts[0], SWAP_LATE_TOKENS)
+        cold._admit()
+        check(torch.equal(late_logits, cold.logits[:1]),
+              "delta_swap: the late request's prefill logits differ from "
+              "the chain's cold start")
+        cold.run()
+        check(late.tokens == ref.tokens, f"delta_swap: late tokens "
+              f"{late.tokens} != the cold start's {ref.tokens}")
+        check(bool(torch.isfinite(late_logits).all()) and
+              list(late_logits.shape) == [1, cfg.vocab_size],
+              "delta_swap: late prefill logits not finite or misshaped")
+        del cold, cold_tree, sess, ents
+        # tick 1 holds the prefill and tick 2 captures the decode graph
+        decode_before = float(np.median(tick_ms[2:SWAP_TICKS]))
+        decode_after = float(np.median(tick_ms[2 * SWAP_TICKS:]))
+        out.update(serve_split_s={p: clock.secs.get(p, 0.0)
+                                  for p in ("admit", "capture", "gc")})
+        out.update(swaps=swaps, launches=launches, dispatch_report=report,
+                   forward_passes=fwd, decode_steps_tick_ms=tick_ms,
+                   decode_ms_per_step_before=decode_before,
+                   decode_ms_per_step_after=decode_after,
+                   max_memory_allocated=torch.cuda.max_memory_allocated(),
+                   host_peak_rss_bytes=1024 * resource.getrusage(
+                       resource.RUSAGE_SELF).ru_maxrss,
+                   late_tokens=late.tokens)
+    finally:
+        clock.restore()
+        if gc_clock in gc.callbacks:
+            gc.callbacks.remove(gc_clock)
+        shutil.rmtree(root, ignore_errors=True)
+    kb = out["files"]
+    bits = [8 * f["payload_bytes"] / n_params for f in kb]
+    log(f"[delta_swap] llama3-8b full width, {cfg_t.num_layers} layers "
+        f"({n_params / 1e9:.3f} G params, {n_coded / 1e9:.4f} G coded in "
+        f"{len(coded)} stacked tensors): saves {_fmt(save_s[0])} s "
+        f"(keyframe, sharded over {SWAP_MESH}), "
+        f"{_fmt(save_s[1])} and {_fmt(save_s[2])} s (P-frames, one AdamW "
+        f"step each, losses {losses}); payloads "
+        f"{[f['payload_bytes'] for f in kb]} B = "
+        f"{[round(b, 4) for b in bits]} bits/param (by encoding "
+        f"{[f['by_encoding'] for f in kb]}); intra encode "
+        f"{out['intra_encode_values_per_s'] / 1e6:.1f} M values/s, tc "
+        f"encode {out['tc_encode_values_per_s'] / 1e6:.1f} M values/s, "
+        f"intra decode {out['intra_decode_values_per_s'] / 1e6:.1f} M "
+        f"values/s; q8 cold start from the manifest "
+        f"{out['cold_start_s']:.2f} s")
+    for i, s in enumerate(out["swaps"]):
+        chain = ("the whole chain" if i == 0 else
+                 "its link on the previous step's")
+        log(f"[delta_swap] swap of step {s['step']} with 4 requests in "
+            f"flight: {s['updated']} tensors in {s['seconds']:.2f} s (tc "
+            f"decode {s['tc_decode_s']:.2f} s = "
+            f"{s['tc_decode_values_per_s'] / 1e6:.1f} M values/s, q8 "
+            f"conversion {s['q8_convert_s']:.2f} s, copy_ "
+            f"{s['copy_s'] * 1e3:.2f} ms); leaves equal the chain's cold "
+            f"start (host chain decode {s['chain_restore_s']:.2f} s, "
+            f"{chain}), no capture after it")
+    log(f"[delta_swap] decode {decode_before:.2f} ms/step before the swaps, "
+        f"{decode_after:.2f} after (ticks 1 and 2: {_fmt(tick_ms[0])} and "
+        f"{_fmt(tick_ms[1])} ms; in the serving ticks admissions "
+        f"{_fmt(out['serve_split_s']['admit'])} s, the decode graph's "
+        f"capture {_fmt(out['serve_split_s']['capture'])} s, host garbage "
+        f"collection {_fmt(out['serve_split_s']['gc'])} s); late request "
+        f"equals the cold start (prefill logits bit for bit, tokens); "
+        f"launches {out['launches']} "
+        f"over {out['forward_passes']} forward passes, empty report; peak "
+        f"{out['max_memory_allocated'] / 2**30:.2f} GiB on the card "
+        f"(training {out['train_peak_bytes'] / 2**30:.2f}), host peak RSS "
+        f"{out['host_peak_rss_bytes'] / 2**30:.2f} GiB")
+    return out
+
+
 def _serve_full(cfg, params, backend, device, prompts, new_tokens,
                 mode="graph"):
     """Drive one full-width session, its steps replayed from CUDA graphs
@@ -1730,13 +2074,14 @@ def phase_variational(device):
             "pruned_share": pruned, "sigma_median": s_med}
 
 
-class _SweepClock:
-    """Seconds of the sweep's parts, each ended by a synchronize so the
-    device work lands in its own part: the module functions and methods
-    the sweep calls are wrapped for the phase and restored after it.
-    ``assign`` includes the bin statistics of the assignment's refinement
-    loop, which ``bin_stats`` also counts; ``blobs`` keeps every container
-    the sweep writes, in order."""
+class _PartClock:
+    """Seconds of a phase's parts (the RD sweep's, the live swap's), each
+    ended by a synchronize so the device work lands in its own part: the
+    module functions and methods the phase calls are wrapped for the
+    phase and restored after it.  In the sweep, ``assign`` includes the
+    bin statistics of the assignment's refinement loop, which
+    ``bin_stats`` also counts; ``blobs`` keeps every container the sweep
+    writes, in order."""
 
     def __init__(self):
         self.secs: dict = {}
@@ -1807,7 +2152,7 @@ def phase_rd_sweep(device):
     covered = {k: v for k, v in compression.flatten_tree(params).items()
                if v.dim() >= search.min_ndim and v.is_floating_point()}
     n_cov = sum(v.numel() for v in covered.values())
-    clock = _SweepClock()
+    clock = _PartClock()
     clock.wrap(rd_search, "rd_assign_levels", "assign")
     clock.wrap(rd_search, "estimate_bin_probs_torch", "bin_stats")
     clock.wrap(rd_search, "estimate_level_bits_torch", "level_bits")
@@ -2023,7 +2368,7 @@ def _leaves(tree):
 
 
 def summarize(dm_rows, fa_rows, grouped_rows, serve, serve_moe, rd_rows,
-              deploy, serve_moe_f32, sweep):
+              deploy, serve_moe_f32, sweep, swap):
     """One entry per kernel and, for flash_attention and
     dequant_matmul_grouped, one per instance (``instance``).
     dequant_matmul: one full-width llama3-8b decode step's 225 calls at 4
@@ -2040,7 +2385,9 @@ def summarize(dm_rows, fa_rows, grouped_rows, serve, serve_moe, rd_rows,
     (layer 0 of each stacked leaf, embed, head; bf16), launches from the
     deploy encode.  The search loop's path (``rd_sweep``) launches
     rd_quant and the bf16 flash instance: those counts are
-    ``sweep_launches`` of both entries.  Launches of the other serving
+    ``sweep_launches`` of both entries.  The live weight swap's path
+    (``delta_swap``) launches dequant_matmul and the bf16 flash instance:
+    ``delta_swap_launches`` of both entries.  Launches of the other serving
     entries come from each model's q8 serve, its eager run (the graph
     run's are equal).  The serving kernels' ``ms`` and ``library_ms`` are
     CUDA-graph replays (``timing``), their eager loops' ``eager_ms``
@@ -2090,6 +2437,8 @@ def summarize(dm_rows, fa_rows, grouped_rows, serve, serve_moe, rd_rows,
     fa = fa_entry(32, "bfloat16", serve["q8"]["launches"]["flash_attention"],
                   "one llama3-8b prefill call: B=4 S=128 H=32 G=8 D=128 bf16")
     fa["sweep_launches"] = sweep["launches"]["flash_attention"]
+    fa["delta_swap_launches"] = swap["launches"]["flash_attention"]
+    dm["delta_swap_launches"] = swap["launches"]["dequant_matmul"]
     fa32 = fa_entry(16, "float32",
                     serve_moe_f32["launches"]["flash_attention"],
                     "one deepseek-moe-16b f32 prefill call: B=4 S=128 H=16 "
@@ -2165,45 +2514,58 @@ def main() -> int:
     device = torch.device("cuda")
     t0 = time.perf_counter()
     results = {"device": name, "card": card}
-    results["build"] = phase_build()
-    results["dequant_matmul"] = phase_kernels_dequant(device)
-    results["flash_attention"] = phase_kernels_flash(device)
-    results["dequant_matmul_grouped"] = phase_kernels_grouped(device)
-    results["parity"] = phase_parity(device)
-    results["parity_codec"] = phase_parity_codec(device)
-    results["parity_moe"] = phase_parity_moe(device)
-    results["parity_moe_bf16"] = phase_parity_moe_bf16(device)
-    results["search_parity"] = phase_search_parity(device)
+    phase_s: dict = {}
+
+    def run(key, fn, *args):
+        t = time.perf_counter()
+        results[key] = fn(*args)
+        phase_s[key] = time.perf_counter() - t
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    run("build", phase_build)
+    run("dequant_matmul", phase_kernels_dequant, device)
+    run("flash_attention", phase_kernels_flash, device)
+    run("dequant_matmul_grouped", phase_kernels_grouped, device)
+    run("parity", phase_parity, device)
+    run("parity_codec", phase_parity_codec, device)
+    run("parity_moe", phase_parity_moe, device)
+    run("parity_moe_bf16", phase_parity_moe_bf16, device)
+    run("search_parity", phase_search_parity, device)
     cfg, params = init_full(device, "llama3-8b")
     policy = rd_policy_rules(covered_leaves(params))
-    results["rd_quant"] = phase_kernels_rd(params, policy)
-    results["deploy_rd"] = phase_deploy_rd(params, policy)
-    results["serve"] = phase_serve(cfg, params, device)
+    run("rd_quant", phase_kernels_rd, params, policy)
+    run("deploy_rd", phase_deploy_rd, params, policy)
+    run("serve", phase_serve, cfg, params, device)
     del params
-    gc.collect()
-    torch.cuda.empty_cache()
-    results["deploy"] = phase_deploy_serve(device)
+    free()
+    run("deploy", phase_deploy_serve, device)
+    free()
+    run("delta_swap", phase_delta_swap, device)
+    free()
     # deepseek-moe-16b once every llama3-8b tensor is freed
     cfg, params = init_full(device, "deepseek-moe-16b")
-    results["serve_moe"] = phase_serve(cfg, params, device)
+    run("serve_moe", phase_serve, cfg, params, device)
     del params
-    gc.collect()
-    torch.cuda.empty_cache()
-    results["container_moe"] = phase_container_moe(device)
-    gc.collect()
-    torch.cuda.empty_cache()
-    results["serve_moe_f32"] = phase_serve_moe_f32(device)
-    gc.collect()
-    torch.cuda.empty_cache()
-    results["fim"] = phase_fim(device)
-    results["variational"] = phase_variational(device)
-    results["rd_sweep"] = phase_rd_sweep(device)
+    free()
+    run("container_moe", phase_container_moe, device)
+    free()
+    run("serve_moe_f32", phase_serve_moe_f32, device)
+    free()
+    run("fim", phase_fim, device)
+    run("variational", phase_variational, device)
+    run("rd_sweep", phase_rd_sweep, device)
+    results["phase_seconds"] = phase_s
+    log("[done] seconds by phase: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in phase_s.items()))
     kernels = summarize(results["dequant_matmul"],
                         results["flash_attention"],
                         results["dequant_matmul_grouped"], results["serve"],
                         results["serve_moe"], results["rd_quant"],
                         results["deploy"], results["serve_moe_f32"],
-                        results["rd_sweep"])
+                        results["rd_sweep"], results["delta_swap"])
     results["kernels"] = kernels
     results["seconds"] = time.perf_counter() - t0
     out_dir = ROOT / "chiprun_out"

@@ -6,9 +6,9 @@
     tree = compression.decompress(art.blob, like=params)
 
 Registered codecs: ``deepcabac-v2``, ``deepcabac-v3``, ``deepcabac-rd``,
-``ckpt-nearest``, ``serve-q8``, ``huffman``, ``raw``.  The strategy and registry
-modules load lazily, so ``models`` can import the q8 quantizer without
-pulling in the codec."""
+``deepcabac-delta``, ``ckpt-nearest``, ``serve-q8``, ``huffman``, ``raw``.
+The strategy and registry modules load lazily, so ``models`` can import
+the q8 quantizer without pulling in the codec."""
 
 from .quantizers import (  # noqa: F401
     quantize_leaf, quantize_tree_q8, serve_q8_policy)
@@ -17,12 +17,14 @@ from .tree import flatten_tree, unflatten, unflatten_like  # noqa: F401
 _LAZY = {
     "Artifact": "artifact",
     "Codec": "codec",
+    "DeltaCodec": "codec",
     "decompress": "codec",
     "iter_decompress": "codec",
     "DecodeOptions": "codec",
     "EntropyCoder": "coders",
     "CabacCoder": "coders",
     "CabacV3Coder": "coders",
+    "CabacDeltaCoder": "coders",
     "HuffmanCoder": "coders",
     "RawLevelCoder": "coders",
     "Quantizer": "quantizers",

@@ -1,7 +1,7 @@
 """EntropyCoder strategies: quantized tensor -> DCBC container record (the
-port's copy of ``CabacCoder``, ``CabacV3Coder``, ``HuffmanCoder`` and
-``RawLevelCoder`` from ``repro.compression.coders``; the delta coder
-waits).  Decoding needs no strategy object: records are self-describing."""
+port's copy of ``repro.compression.coders``).  Decoding needs no strategy
+object: records are self-describing (a delta record needs its base frame's
+levels besides, ``core.codec.decode_delta_record``)."""
 
 from __future__ import annotations
 
@@ -10,7 +10,8 @@ from dataclasses import dataclass
 import numpy as np
 
 from ..core import binarization as B
-from ..core.codec import (DEFAULT_CHUNK, Q8Tensor, QuantizedTensor,
+from ..core.codec import (DEFAULT_CHUNK, DeltaTensor, Q8Tensor,
+                          QuantizedTensor, encode_delta_chunks_batched,
                           encode_level_chunks, encode_level_chunks_batched)
 from ..core.container import ContainerWriter
 from ..core.huffman import build_huffman, pack_payload
@@ -59,6 +60,30 @@ class CabacV3Coder(EntropyCoder):
             qt.levels, self.num_gr, self.chunk_size, backend=self.backend)
         writer.add_cabac_v3(name, qt.dtype, qt.shape, qt.step,
                             self.num_gr, self.chunk_size, chunks, counts)
+
+
+@dataclass
+class CabacDeltaCoder(EntropyCoder):
+    """Temporal-context CABAC over integer-level *residuals* ("P-frame"
+    records): each residual's context bank is selected by the class of
+    its co-located base-frame level, and the chunk layout mirrors the v3
+    lane schedule.  Containers carrying these records are version 4 and
+    undecodable without the base frame the delta manifest names."""
+
+    num_gr: int = B.DEFAULT_NUM_GR
+    chunk_size: int = DEFAULT_CHUNK
+    backend: str = "auto"          # lane engine for encode: auto | c | numpy
+
+    def add_record(self, writer, name, dt):
+        if not isinstance(dt, DeltaTensor):
+            raise TypeError(
+                f"CabacDeltaCoder codes level residuals, "
+                f"got {type(dt).__name__}")
+        chunks, counts = encode_delta_chunks_batched(
+            dt.resid, dt.base, self.num_gr, self.chunk_size,
+            backend=self.backend)
+        writer.add_cabac_delta(name, dt.dtype, dt.shape, dt.step,
+                               self.num_gr, self.chunk_size, chunks, counts)
 
 
 @dataclass

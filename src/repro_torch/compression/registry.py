@@ -15,8 +15,9 @@ from typing import Callable
 
 from ..core import binarization as B
 from ..core.codec import DEFAULT_CHUNK
-from .coders import CabacCoder, CabacV3Coder, HuffmanCoder, RawLevelCoder
-from .codec import Codec
+from .coders import (CabacCoder, CabacDeltaCoder, CabacV3Coder, HuffmanCoder,
+                     RawLevelCoder)
+from .codec import Codec, DeltaCodec
 from .quantizers import (NearestStdQuantizer, PerChannelInt8Quantizer,
                          RDGridQuantizer, ndim_float_policy, relative_step,
                          serve_q8_policy)
@@ -24,7 +25,7 @@ from .quantizers import (NearestStdQuantizer, PerChannelInt8Quantizer,
 _REGISTRY: dict[str, Callable[..., Codec]] = {}
 
 # the reference's other codecs, queued for later slices
-NOT_YET_PORTED = ("deepcabac-delta", "kv-q8-cabac")
+NOT_YET_PORTED = ("kv-q8-cabac",)
 
 
 def register(name: str, factory: Callable[..., Codec]) -> None:
@@ -166,12 +167,35 @@ def _huffman(delta_rel: float = 1e-3, min_ndim: int = 2) -> Codec:
                  hyperparams={"delta_rel": delta_rel})
 
 
+def _deepcabac_delta(delta_rel: float = 1e-3, min_ndim: int = 2,
+                     num_gr: int = B.DEFAULT_NUM_GR,
+                     chunk_size: int = DEFAULT_CHUNK,
+                     backend: str = "auto") -> DeltaCodec:
+    """Temporal delta ("P-frame") codec: ``compress`` is a nearest-level
+    keyframe codec with lane-scheduled v3 records; ``compress_delta``
+    quantizes a new frame on the base frame's grids and codes the
+    integer-level residuals with temporal-context CABAC (container v4).
+    The chain linkage lives in the delta manifest
+    (``repro_torch.checkpoint.delta``)."""
+    return DeltaCodec(
+        "deepcabac-delta",
+        coder=CabacV3Coder(num_gr=num_gr, chunk_size=chunk_size,
+                           backend=backend),
+        quantizer=NearestStdQuantizer(delta_rel=delta_rel),
+        policy=ndim_float_policy(min_ndim),
+        hyperparams={"delta_rel": delta_rel, "num_gr": num_gr,
+                     "chunk_size": chunk_size},
+        delta_coder=CabacDeltaCoder(num_gr=num_gr, chunk_size=chunk_size,
+                                    backend=backend))
+
+
 def _raw() -> Codec:
     """Lossless passthrough — every leaf stored verbatim."""
     return Codec("raw")
 
 
 register("deepcabac-v2", _deepcabac_v2)
+register("deepcabac-delta", _deepcabac_delta)
 register("deepcabac-v3", _deepcabac_v3)
 register("deepcabac-rd", _deepcabac_rd)
 register("ckpt-nearest", _ckpt_nearest)

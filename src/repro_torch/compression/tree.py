@@ -30,10 +30,10 @@ def unflatten(flat: dict) -> dict:
     return tree
 
 
-def unflatten_like(flat: dict, template: dict) -> dict:
+def unflatten_like(flat: dict, template: dict, device=None) -> dict:
     """Rebuild ``template``'s nested structure from a flat dict, moving
-    each tensor to the template leaf's device and dtype and checking
-    shapes.
+    each tensor to ``device`` (default: the template leaf's device) and
+    the leaf's dtype, and checking shapes.
     Quantized representations (anything with ``dequantize``) are placed
     as they are."""
     out = {}
@@ -45,5 +45,6 @@ def unflatten_like(flat: dict, template: dict) -> dict:
             raise ValueError(f"{key}: checkpoint shape {tuple(arr.shape)} "
                              f"!= state {tuple(leaf.shape)}")
         out[key] = (arr if hasattr(arr, "dequantize")
-                    else arr.to(leaf.device, leaf.dtype))
+                    else arr.to(leaf.device if device is None else device,
+                                leaf.dtype))
     return unflatten(out)

@@ -1,6 +1,6 @@
 """DeepCABAC binarization (paper §III-B, Figs. 6–7); the port's copy of
-``repro.core.binarization`` (the temporal-context ``*_tc`` functions wait
-for the delta slice).
+``repro.core.binarization``, the temporal-context ``*_tc`` functions of the
+delta ("P-frame") mode included.
 
 Each quantized integer weight ``v`` is coded as:
 
@@ -29,7 +29,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from .cabac import ContextSet, RangeDecoder, RangeEncoder
+from .cabac import TEMPORAL_CLASSES, ContextSet, RangeDecoder, RangeEncoder
 
 DEFAULT_NUM_GR = 10   # paper appendix: "we set the AbsGr(n)-Flag to 10"
 EG_CTXS = 24          # unary exponent positions with dedicated contexts
@@ -51,6 +51,16 @@ def num_contexts(num_gr: int = DEFAULT_NUM_GR) -> int:
 
 def make_contexts(num_gr: int = DEFAULT_NUM_GR) -> ContextSet:
     return ContextSet(num_contexts(num_gr))
+
+
+def num_contexts_tc(num_gr: int = DEFAULT_NUM_GR) -> int:
+    """Context count of the temporal-context (delta) mode: one full intra
+    bank per temporal significance class of the co-located base level."""
+    return TEMPORAL_CLASSES * num_contexts(num_gr)
+
+
+def make_contexts_tc(num_gr: int = DEFAULT_NUM_GR) -> ContextSet:
+    return ContextSet(num_contexts_tc(num_gr))
 
 
 # ---------------------------------------------------------------------------
@@ -135,6 +145,103 @@ def decode_levels(dec: RangeDecoder, count: int,
 
 
 # ---------------------------------------------------------------------------
+# Temporal-context ("P-frame") stream coding
+# ---------------------------------------------------------------------------
+#
+# Delta residuals reuse the intra binarization verbatim, but every context
+# index is offset into one of TEMPORAL_CLASSES banks selected by the class
+# of the co-located base-frame level (cabac.temporal_classes).  Bypass bins
+# stay bypass; the within-lane prev_sig conditioning of the sigFlag is kept
+# inside each bank, so the mode strictly refines the intra model.
+
+def encode_levels_tc(enc: RangeEncoder, levels: np.ndarray, cls: np.ndarray,
+                     num_gr: int = DEFAULT_NUM_GR) -> None:
+    """Encode a flat int array with per-value temporal-class context banks.
+
+    ``cls[idx]`` in ``[0, TEMPORAL_CLASSES)`` selects the bank for value
+    ``idx``; ``enc`` must have been built with :func:`make_contexts_tc`.
+    """
+    base_nctx = num_contexts(num_gr)
+    eg_base = ctx_eg_base(num_gr)
+    eg_last = eg_base + EG_CTXS - 1
+    encode_bin = enc.encode_bin
+    encode_bypass_bits = enc.encode_bypass_bits
+    cls_list = np.asarray(cls, dtype=np.int64).tolist()
+    prev_sig = 0
+    for idx, v in enumerate(levels.tolist()):
+        off = cls_list[idx] * base_nctx
+        if v == 0:
+            encode_bin(off + prev_sig, 0)
+            prev_sig = 0
+            continue
+        encode_bin(off + prev_sig, 1)
+        prev_sig = 1
+        encode_bin(off + CTX_SIGN, 1 if v < 0 else 0)
+        a = -v if v < 0 else v
+        j = 1
+        while j <= num_gr:
+            gr = 1 if a > j else 0
+            encode_bin(off + CTX_GR_BASE + j - 1, gr)
+            if not gr:
+                break
+            j += 1
+        if a > num_gr:
+            i = a - num_gr
+            k = i.bit_length() - 1
+            for pos in range(k):
+                c = eg_base + pos
+                encode_bin(off + (c if c <= eg_last else eg_last), 1)
+            c = eg_base + k
+            encode_bin(off + (c if c <= eg_last else eg_last), 0)
+            if k:
+                encode_bypass_bits(i - (1 << k), k)
+
+
+def decode_levels_tc(dec: RangeDecoder, cls: np.ndarray,
+                     num_gr: int = DEFAULT_NUM_GR) -> np.ndarray:
+    """Decode ``len(cls)`` integers (mirror of :func:`encode_levels_tc`)."""
+    base_nctx = num_contexts(num_gr)
+    eg_base = ctx_eg_base(num_gr)
+    eg_last = eg_base + EG_CTXS - 1
+    decode_bin = dec.decode_bin
+    decode_bypass_bits = dec.decode_bypass_bits
+    cls_list = np.asarray(cls, dtype=np.int64).tolist()
+    count = len(cls_list)
+    out = np.empty(count, dtype=np.int64)
+    prev_sig = 0
+    for idx in range(count):
+        off = cls_list[idx] * base_nctx
+        if not decode_bin(off + prev_sig):
+            out[idx] = 0
+            prev_sig = 0
+            continue
+        prev_sig = 1
+        neg = decode_bin(off + CTX_SIGN)
+        a = 1
+        j = 1
+        while j <= num_gr:
+            if decode_bin(off + CTX_GR_BASE + j - 1):
+                a = j + 1
+                j += 1
+            else:
+                a = j
+                break
+        else:
+            k = 0
+            while True:
+                c = eg_base + k
+                if not decode_bin(off + (c if c <= eg_last else eg_last)):
+                    break
+                k += 1
+            i = 1 << k
+            if k:
+                i += decode_bypass_bits(k)
+            a = num_gr + i
+        out[idx] = -a if neg else a
+    return out
+
+
+# ---------------------------------------------------------------------------
 # Vectorized bin expansion (for the rate model & analysis — no coder state)
 # ---------------------------------------------------------------------------
 
@@ -172,6 +279,26 @@ def expand_bins(levels: np.ndarray, num_gr: int = DEFAULT_NUM_GR
     for v in levels.tolist():
         for c, b in binarize_value(int(v), num_gr, prev_sig):
             ctxs.append(c)
+            bits.append(b)
+        prev_sig = 0 if v == 0 else 1
+    return np.asarray(bits, dtype=np.int8), np.asarray(ctxs, dtype=np.int32)
+
+
+def expand_bins_tc(levels: np.ndarray, cls: np.ndarray,
+                   num_gr: int = DEFAULT_NUM_GR
+                   ) -> tuple[np.ndarray, np.ndarray]:
+    """(bits, ctx_ids) with temporal-class bank offsets applied to every
+    context-coded bin (bypass bins keep ctx == -1).  Drives the lockstep
+    numpy lane encoder of the delta mode."""
+    base_nctx = num_contexts(num_gr)
+    bits: list[int] = []
+    ctxs: list[int] = []
+    cls_list = np.asarray(cls, dtype=np.int64).tolist()
+    prev_sig = 0
+    for idx, v in enumerate(levels.tolist()):
+        off = cls_list[idx] * base_nctx
+        for c, b in binarize_value(int(v), num_gr, prev_sig):
+            ctxs.append(c if c < 0 else c + off)
             bits.append(b)
         prev_sig = 0 if v == 0 else 1
     return np.asarray(bits, dtype=np.int8), np.asarray(ctxs, dtype=np.int32)

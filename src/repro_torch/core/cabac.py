@@ -1,6 +1,6 @@
 """Adaptive binary range coder with context models (the CABAC engine); the
-port's copy of ``repro.core.cabac`` (temporal context classes wait for the
-delta slice).
+port's copy of ``repro.core.cabac``, temporal context classes of the delta
+("P-frame") mode included.
 
 This is the lossless entropy-coding engine of DeepCABAC (paper §II-B, §III-B).
 It is an *exact* binary arithmetic coder: ``decode(encode(bits)) == bits``
@@ -23,6 +23,8 @@ Design notes
 """
 
 from __future__ import annotations
+
+import numpy as np
 
 PROB_BITS = 12
 PROB_ONE = 1 << PROB_BITS          # 4096
@@ -179,3 +181,36 @@ class RangeDecoder:
         for _ in range(nbits):
             v = (v << 1) | self.decode_bypass()
         return v
+
+
+# ---------------------------------------------------------------------------
+# Temporal context classes (delta / "P-frame" coding)
+# ---------------------------------------------------------------------------
+
+# Residuals between two checkpoints are coded with a *temporal-context*
+# CABAC mode: every element selects one of TEMPORAL_CLASSES context banks
+# by the significance of its co-located previous-frame level — the
+# inter-frame analogue of the sigFlag's previous-weight conditioning.
+# Class 0: prev level was zero; class 1: small (|prev| <= TC_SMALL_MAX);
+# class 2: large.  The thresholds are part of the wire format (both sides
+# derive classes from the shared base frame; nothing is transmitted), so
+# changing them is a container-version event.
+TEMPORAL_CLASSES = 3
+TC_SMALL_MAX = 2
+
+
+def temporal_classes(prev_levels) -> np.ndarray:
+    """Per-element context-bank class of a delta stream, derived from the
+    co-located base-frame levels.  Encoder and decoder call this on the
+    *same* base levels, so the class arrays — and therefore every context
+    index — agree bit-for-bit across the scalar/numpy/C engines."""
+    return temporal_classes_u8(prev_levels).astype(np.int64)
+
+
+def temporal_classes_u8(prev_levels) -> np.ndarray:
+    """:func:`temporal_classes` as uint8, one byte per value: what the
+    delta coder hands the lane engines."""
+    b = np.asarray(prev_levels, dtype=np.int64).ravel()
+    cls = (b != 0).view(np.uint8)
+    cls += ((b > TC_SMALL_MAX) | (b < -TC_SMALL_MAX)).view(np.uint8)
+    return cls

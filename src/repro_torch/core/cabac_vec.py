@@ -1,6 +1,6 @@
 """Lane-parallel vectorized CABAC: N independent chunk streams in lockstep
-(the port's copy of ``repro.core.cabac_vec``; the temporal-context
-``*_tc`` lanes wait for the delta slice).
+(the port's copy of ``repro.core.cabac_vec``, the temporal-context
+``*_tc`` lanes of the delta ("P-frame") mode included).
 
 The interval subdivision of a range coder is inherently sequential *within*
 a stream, but the chunk split the container emits makes streams
@@ -47,6 +47,7 @@ from .cabac import (ADAPT_SHIFT, MASK32, PROB_BITS, PROB_HALF, PROB_MAX,
 __all__ = [
     "available_backends", "resolve_backend",
     "encode_lanes", "decode_lanes",
+    "encode_lanes_tc", "decode_lanes_tc",
     "VecRangeEncoder", "VecRangeDecoder",
 ]
 
@@ -203,10 +204,13 @@ _P_SIG, _P_SIGN, _P_GR, _P_EGE, _P_BYP, _P_DONE = range(6)
 
 
 def _decode_lanes_numpy(payloads: list[bytes], counts: np.ndarray,
-                        num_gr: int) -> list[np.ndarray]:
+                        num_gr: int,
+                        cls_arrays: list[np.ndarray] | None = None
+                        ) -> list[np.ndarray]:
     n = len(payloads)
     counts = np.asarray(counts, dtype=_I64)
-    nctx = B.num_contexts(num_gr)
+    base_nctx = B.num_contexts(num_gr)
+    nctx = B.num_contexts_tc(num_gr) if cls_arrays is not None else base_nctx
     eg_base = B.ctx_eg_base(num_gr)
     eg_last = eg_base + B.EG_CTXS - 1
     dec = VecRangeDecoder(payloads, nctx)
@@ -223,6 +227,16 @@ def _decode_lanes_numpy(payloads: list[bytes], counts: np.ndarray,
     iota = np.arange(n)                         # keep writing to out[:, c]
     sign = np.ones(n, dtype=_I64)
 
+    # Temporal-context mode: per-lane class of the value currently being
+    # decoded, gathered by out_idx (classes are known up front — they come
+    # from the shared base frame, not from the stream).
+    cls_pad = None
+    if cls_arrays is not None:
+        cls_pad = np.zeros((n, maxc + 1), dtype=_I64)
+        for i, c in enumerate(cls_arrays):
+            c = np.asarray(c, dtype=_I64).ravel()
+            cls_pad[i, :c.size] = c
+
     one = np.ones(n, dtype=_I64)
     while not bool((phase == _P_DONE).all()):
         # ctx of the bin each lane decodes this step (selected by phase);
@@ -231,6 +245,8 @@ def _decode_lanes_numpy(payloads: list[bytes], counts: np.ndarray,
               np.where(phase == _P_SIGN, B.CTX_SIGN,
               np.where(phase == _P_GR, B.CTX_GR_BASE + jj - 1,
                        np.minimum(eg_base + jj, eg_last))))
+        if cls_pad is not None:
+            ctx = ctx + cls_pad[iota, out_idx] * base_nctx
         is_byp = phase >= _P_BYP
         bit = dec.decode_bins(ctx, is_byp)
         b1 = bit.astype(bool)
@@ -295,12 +311,18 @@ def _decode_lanes_numpy(payloads: list[bytes], counts: np.ndarray,
     return [out[i, :counts[i]] for i in range(n)]
 
 
-def _encode_lanes_numpy(level_arrays: list[np.ndarray], num_gr: int
+def _encode_lanes_numpy(level_arrays: list[np.ndarray], num_gr: int,
+                        cls_arrays: list[np.ndarray] | None = None
                         ) -> list[bytes]:
     n = len(level_arrays)
-    nctx = B.num_contexts(num_gr)
-    expanded = [B.expand_bins(np.asarray(lv).ravel(), num_gr)
-                for lv in level_arrays]
+    if cls_arrays is not None:
+        nctx = B.num_contexts_tc(num_gr)
+        expanded = [B.expand_bins_tc(np.asarray(lv).ravel(), cls, num_gr)
+                    for lv, cls in zip(level_arrays, cls_arrays)]
+    else:
+        nctx = B.num_contexts(num_gr)
+        expanded = [B.expand_bins(np.asarray(lv).ravel(), num_gr)
+                    for lv in level_arrays]
     nbins = np.asarray([len(b) for b, _ in expanded], dtype=_I64)
     tmax = int(nbins.max(initial=0))
     bits = np.zeros((n, tmax), dtype=_I64)
@@ -358,6 +380,10 @@ def _build_kernel():
     lib.cabac_decode_lanes.restype = i32
     lib.cabac_encode_lanes.argtypes = [vp, vp, vp, i64, vp, i32, i32]
     lib.cabac_encode_lanes.restype = None
+    lib.cabac_decode_lanes_tc.argtypes = [vp, vp, vp, vp, vp, i32, i32]
+    lib.cabac_decode_lanes_tc.restype = i32
+    lib.cabac_encode_lanes_tc.argtypes = [vp, vp, vp, vp, i64, vp, i32, i32]
+    lib.cabac_encode_lanes_tc.restype = None
     return lib
 
 
@@ -399,8 +425,20 @@ def _addr(arr: np.ndarray, elem_offset: int = 0) -> int:
     return arr.ctypes.data + elem_offset * arr.itemsize
 
 
+def _flat_classes(cls_arrays, total: int) -> np.ndarray:
+    """The lanes' class ids concatenated, one byte each: they share the
+    value offsets of the levels (``ooff`` / ``loff``)."""
+    if not total:
+        return np.zeros(1, dtype=np.uint8)
+    return np.ascontiguousarray(np.concatenate(
+        [np.asarray(c).ravel().astype(np.uint8, copy=False)
+         for c in cls_arrays]))
+
+
 def _decode_lanes_c(payloads: list[bytes], counts: np.ndarray,
-                    num_gr: int, lib, threads: int) -> list[np.ndarray]:
+                    num_gr: int, lib, threads: int,
+                    cls_arrays: list[np.ndarray] | None = None
+                    ) -> list[np.ndarray]:
     n = len(payloads)
     counts = np.asarray(counts, dtype=_I64)
     data = np.frombuffer(b"".join(payloads), dtype=np.uint8)
@@ -411,10 +449,16 @@ def _decode_lanes_c(payloads: list[bytes], counts: np.ndarray,
     ooff = np.zeros(n + 1, dtype=_I64)
     np.cumsum(counts, out=ooff[1:])
     out = np.empty(max(int(ooff[-1]), 1), dtype=_I64)
+    cls = (None if cls_arrays is None
+           else _flat_classes(cls_arrays, int(ooff[-1])))
 
     def run(lo, hi):
         # lane offsets are absolute, so each group passes its slice of
         # doff / ooff and the shared base pointers
+        if cls is not None:
+            return lib.cabac_decode_lanes_tc(
+                _addr(data), _addr(doff, lo), _addr(cls), _addr(out),
+                _addr(ooff, lo), hi - lo, num_gr)
         return lib.cabac_decode_lanes(_addr(data), _addr(doff, lo),
                                       _addr(out), _addr(ooff, lo),
                                       hi - lo, num_gr)
@@ -427,7 +471,9 @@ def _decode_lanes_c(payloads: list[bytes], counts: np.ndarray,
 
 
 def _encode_lanes_c(level_arrays: list[np.ndarray], num_gr: int, lib,
-                    threads: int) -> list[bytes]:
+                    threads: int,
+                    cls_arrays: list[np.ndarray] | None = None
+                    ) -> list[bytes]:
     n = len(level_arrays)
     flats = [np.ascontiguousarray(np.asarray(lv).ravel(), dtype=_I64)
              for lv in level_arrays]
@@ -440,8 +486,16 @@ def _encode_lanes_c(level_arrays: list[np.ndarray], num_gr: int, lib,
     stride = (maxc * (num_gr + 130)) // 8 + 32
     out = np.empty((n, stride), dtype=np.uint8)
     out_lens = np.zeros(n, dtype=_I64)
+    cls = (None if cls_arrays is None
+           else _flat_classes(cls_arrays, int(loff[-1])))
 
     def run(lo, hi):
+        if cls is not None:
+            lib.cabac_encode_lanes_tc(_addr(levels), _addr(cls),
+                                      _addr(loff, lo),
+                                      _addr(out, lo * stride), stride,
+                                      _addr(out_lens, lo), hi - lo, num_gr)
+            return
         lib.cabac_encode_lanes(_addr(levels), _addr(loff, lo),
                                _addr(out, lo * stride), stride,
                                _addr(out_lens, lo), hi - lo, num_gr)
@@ -506,3 +560,66 @@ def encode_lanes(level_arrays: list[np.ndarray],
         return _encode_lanes_c(level_arrays, num_gr, _get_kernel(),
                                default_threads())
     return _encode_lanes_numpy(level_arrays, num_gr)
+
+
+# ---------------------------------------------------------------------------
+# Temporal-context ("P-frame") lanes
+# ---------------------------------------------------------------------------
+
+def _check_classes(cls_arrays, sizes) -> None:
+    from .cabac import TEMPORAL_CLASSES
+    if len(cls_arrays) != len(sizes):
+        raise ValueError("one class array per lane is required")
+    for cls, size in zip(cls_arrays, sizes):
+        c = np.asarray(cls)
+        if c.size != size:
+            raise ValueError(
+                f"class array of {c.size} values for a lane of {size}")
+        if c.size and (int(c.min()) < 0
+                       or int(c.max()) >= TEMPORAL_CLASSES):
+            raise ValueError("temporal class ids must be in "
+                             f"[0, {TEMPORAL_CLASSES})")
+
+
+def decode_lanes_tc(payloads: list[bytes], cls_arrays: list[np.ndarray],
+                    num_gr: int = B.DEFAULT_NUM_GR,
+                    backend: str = "auto") -> list[np.ndarray]:
+    """Temporal-context decode: lane ``i`` yields ``len(cls_arrays[i])``
+    levels, each coded in the context bank named by its class id (derived
+    from the co-located base-frame level via ``cabac.temporal_classes``).
+    Bit-exact with ``RangeDecoder`` + ``decode_levels_tc`` per lane; the
+    ``OverflowError`` contract matches :func:`decode_lanes`."""
+    if not payloads:
+        return []
+    counts = np.asarray([np.asarray(c).size for c in cls_arrays],
+                        dtype=_I64)
+    _check_classes(cls_arrays, counts.tolist())
+    if resolve_backend(backend) == "c":
+        return _decode_lanes_c(payloads, counts, num_gr, _get_kernel(),
+                               default_threads(), cls_arrays=cls_arrays)
+    return _decode_lanes_numpy(payloads, counts, num_gr,
+                               cls_arrays=cls_arrays)
+
+
+def encode_lanes_tc(level_arrays: list[np.ndarray],
+                    cls_arrays: list[np.ndarray],
+                    num_gr: int = B.DEFAULT_NUM_GR,
+                    backend: str = "auto") -> list[bytes]:
+    """Temporal-context encode; byte-exact with ``RangeEncoder`` +
+    ``encode_levels_tc`` per lane."""
+    if not level_arrays:
+        return []
+    sizes = []
+    for lv in level_arrays:
+        a = np.asarray(lv)
+        sizes.append(a.size)
+        if a.size and int(np.abs(a).max()) > MAX_ABS_LEVEL:
+            raise OverflowError(
+                "cabac_vec lanes code |level| <= 2**61 - 1; use the scalar "
+                "coder for wider values")
+    _check_classes(cls_arrays, sizes)
+    if resolve_backend(backend) == "c":
+        return _encode_lanes_c(level_arrays, num_gr, _get_kernel(),
+                               default_threads(), cls_arrays=cls_arrays)
+    return _encode_lanes_numpy(level_arrays, num_gr,
+                               cls_arrays=cls_arrays)

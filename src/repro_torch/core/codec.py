@@ -5,7 +5,7 @@ Levels are host numpy int64 arrays, as in the reference; everything a
 decode reconstructs (raw records, dequantized tensors) is a CPU torch
 tensor, so bf16 needs no ``ml_dtypes``: it is carried as torch bf16 and
 written as its bit pattern.  The bytes of every record equal the
-reference's.  Delta (temporal-context) records wait for the delta slice.
+reference's, the temporal-context delta ("P-frame") records included.
 """
 
 from __future__ import annotations
@@ -18,7 +18,7 @@ import torch
 from ..arrays import cast_host, tensor_from_bytes, torch_dtype
 from . import binarization as B
 from . import cabac_vec
-from .cabac import RangeDecoder, RangeEncoder
+from .cabac import RangeDecoder, RangeEncoder, temporal_classes_u8
 from .container import (ENC_CABAC, ENC_CABAC_DELTA, ENC_CABAC_V3, ENC_HUFF,
                         ENC_Q8, ENC_RAW, ContainerReader, ContainerWriter)
 
@@ -159,6 +159,127 @@ def decode_level_chunks_batched(chunk_payloads: list[bytes],
     return out
 
 
+# ---------------------------------------------------------------------------
+# Temporal-context delta ("P-frame") chunk coding
+# ---------------------------------------------------------------------------
+
+@dataclass
+class DeltaTensor:
+    """An integer-level residual against a base frame's levels.
+
+    ``resid = new_levels - base_levels`` elementwise on the *same*
+    quantization grid (the base frame's ``step``), so base + every chained
+    residual reconstructs the direct encoding bit for bit.  ``base`` rides
+    along because the entropy coder conditions each residual's context
+    bank on the co-located base level (``cabac.temporal_classes``).
+    """
+
+    resid: np.ndarray             # int64, original shape
+    base: np.ndarray              # int64, same shape (context source)
+    step: float
+    dtype: str = "float32"        # reconstruction dtype
+
+    @property
+    def shape(self) -> tuple[int, ...]:
+        return tuple(self.resid.shape)
+
+    def new_levels(self) -> np.ndarray:
+        return (self.base.astype(np.int64, copy=False)
+                + self.resid.astype(np.int64, copy=False))
+
+
+def encode_delta_chunks_batched(resid: np.ndarray, base_levels: np.ndarray,
+                                num_gr: int = B.DEFAULT_NUM_GR,
+                                chunk_size: int = DEFAULT_CHUNK,
+                                backend: str = "auto"
+                                ) -> tuple[list[bytes], list[int]]:
+    """Chunk a flat residual array and temporal-context-encode all chunks
+    as one lane batch; classes come from the co-located ``base_levels``.
+    Returns ``(payloads, counts)`` like the v3 encoder."""
+    flat = np.asarray(resid).ravel()
+    cls = temporal_classes_u8(base_levels)
+    if cls.size != flat.size:
+        raise ValueError(
+            f"delta of {flat.size} values against a base of {cls.size}")
+    blocks = [flat[s:s + chunk_size]
+              for s in range(0, max(flat.size, 1), chunk_size)]
+    cblocks = [cls[s:s + chunk_size]
+               for s in range(0, max(flat.size, 1), chunk_size)]
+    payloads = cabac_vec.encode_lanes_tc(blocks, cblocks, num_gr,
+                                         backend=backend)
+    return payloads, [b.size for b in blocks]
+
+
+def _decode_chunks_scalar_tc(chunk_payloads, cls_blocks, num_gr):
+    return [B.decode_levels_tc(
+                RangeDecoder(bytes(p), B.make_contexts_tc(num_gr)), c, num_gr)
+            for p, c in zip(chunk_payloads, cls_blocks)]
+
+
+def decode_delta_chunks_batched(chunk_payloads: list[bytes],
+                                chunk_counts: list[int],
+                                base_levels: np.ndarray,
+                                num_gr: int = B.DEFAULT_NUM_GR,
+                                opts: DecodeOptions | None = None
+                                ) -> np.ndarray:
+    """Decode temporal-context residual chunks; ``base_levels`` supplies
+    the per-element context classes and must cover ``sum(chunk_counts)``
+    values.  Returns the flat residual (not base + resid)."""
+    opts = opts or DecodeOptions()
+    cls = temporal_classes_u8(base_levels)
+    total = int(sum(chunk_counts))
+    if cls.size != total:
+        raise ValueError(
+            f"delta record of {total} values against a base of {cls.size}")
+    if not chunk_payloads:
+        return np.empty(0, dtype=np.int64)
+    offs = np.zeros(len(chunk_counts) + 1, dtype=np.int64)
+    np.cumsum(chunk_counts, out=offs[1:])
+    cls_blocks = [cls[offs[i]:offs[i + 1]]
+                  for i in range(len(chunk_counts))]
+    if opts.backend == "scalar":
+        parts = _decode_chunks_scalar_tc(chunk_payloads, cls_blocks, num_gr)
+    else:
+        parts = []
+        lanes = max(int(opts.lanes), 1)
+        for s in range(0, len(chunk_payloads), lanes):
+            batch = [bytes(p) for p in chunk_payloads[s:s + lanes]]
+            cbatch = cls_blocks[s:s + lanes]
+            try:
+                parts.extend(cabac_vec.decode_lanes_tc(
+                    batch, cbatch, num_gr, backend=opts.backend))
+            except OverflowError:
+                parts.extend(_decode_chunks_scalar_tc(batch, cbatch, num_gr))
+    out = (np.concatenate(parts) if parts else np.empty(0, dtype=np.int64))
+    assert out.size == total, f"decoded {out.size} of {total} values"
+    return out
+
+
+def decode_delta_record(hdr, payload, base_levels: np.ndarray,
+                        dequantize: bool = False,
+                        opts: DecodeOptions | None = None):
+    """Decode one ENC_CABAC_DELTA record next to its base frame's levels
+    and return the reconstructed *new-frame* tensor (base + residual) —
+    as a :class:`QuantizedTensor` by default, so chained deltas can feed
+    the next link's base; a CPU tensor with ``dequantize=True``."""
+    if hdr.encoding != ENC_CABAC_DELTA:
+        raise ValueError(
+            f"{hdr.name}: not a delta record (encoding {hdr.encoding})")
+    base = np.asarray(base_levels, dtype=np.int64)
+    count = _count(hdr)
+    if base.size != count:
+        raise ValueError(
+            f"{hdr.name}: delta record of shape {hdr.shape} against a "
+            f"base of {base.size} values")
+    counts = _v3_chunk_counts(hdr)
+    chunks = _split_chunks(payload, hdr.chunk_lens)
+    resid = decode_delta_chunks_batched(chunks, counts, base, hdr.num_gr,
+                                        opts)
+    levels = (base.ravel() + resid).reshape(hdr.shape)
+    qt = QuantizedTensor(levels=levels, step=hdr.step, dtype=hdr.dtype)
+    return qt.dequantize() if dequantize else qt
+
+
 def encode_state_dict(entries: dict, num_gr: int = B.DEFAULT_NUM_GR,
                       chunk_size: int = DEFAULT_CHUNK) -> bytes:
     """Quantized tensors are CABAC-coded (v1 records); raw tensors (torch
@@ -229,9 +350,12 @@ def decode_record(hdr, payload, dequantize: bool = True,
         qt = QuantizedTensor(levels=levels, step=hdr.step, dtype=hdr.dtype)
         return qt.dequantize() if dequantize else qt
     if hdr.encoding == ENC_CABAC_DELTA:
-        raise NotImplementedError(
-            f"{hdr.name}: ENC_CABAC_DELTA (temporal-context delta) records: "
-            "not yet ported")
+        raise ValueError(
+            f"{hdr.name}: ENC_CABAC_DELTA records are residuals against a "
+            "base frame and cannot be decoded standalone — resolve the "
+            "delta chain (repro_torch.checkpoint.delta.resolve_chain) and "
+            "decode through decode_delta_record with the base frame's "
+            "levels")
     if hdr.encoding == ENC_Q8:
         sc_count = int(np.prod(hdr.scale_shape)) if hdr.scale_shape else 1
         scale = np.frombuffer(payload, dtype="<f4",

@@ -1,7 +1,6 @@
 """Serialized bitstream container for DeepCABAC-coded pytrees (the port's
-copy of ``repro.core.container``: it writes versions 1-3 byte for byte as
-the reference does and reads versions 1-4; a version 4 delta record parses,
-but decoding it waits for the delta slice).
+copy of ``repro.core.container``: it writes and reads versions 1-4 byte for
+byte as the reference does).
 
 Layout (little-endian):
 
@@ -35,8 +34,14 @@ only the header grows per-chunk value counts and the total count, so a
 reader can schedule all chunks of a tensor into one lane-parallel decode
 batch (``cabac_vec``).  Version 4 adds the temporal-context delta record
 (encoding 5, residuals against a base frame named outside the container).
-The writer emits the lowest version that covers the records present.
-Chunks are independently decodable (fresh context state per chunk).
+Its levels are decodable only next to the base frame's (each value's
+context bank is selected by the class of its co-located base level).  The
+writer emits the lowest version that covers the records present.  Chunks
+are independently decodable (fresh context state per chunk).  Records are
+independently addressable: :meth:`ContainerWriter.record_spans` gives
+each record's (offset, length) and :func:`read_record_at` parses one
+record from a byte-range read (the sharded-checkpoint manifest's
+contract).
 """
 
 from __future__ import annotations
@@ -85,9 +90,16 @@ def _pack_str(s: str, lenfmt: str) -> bytes:
 
 class ContainerWriter:
     def __init__(self):
-        self._records: list[bytes] = []
+        # each record as (header + payload length, payload): the payload is
+        # copied once, when the container is serialized
+        self._records: list[tuple[bytes, bytes]] = []
         self._needs_v2 = False
         self._needs_v3 = False
+        self._needs_v4 = False
+
+    def _add(self, hdr: bytes, payload: bytes) -> None:
+        self._records.append((hdr + struct.pack("<Q", len(payload)),
+                              payload))
 
     def add_raw(self, name: str, arr) -> None:
         """A tensor stored verbatim: a torch tensor (any device; bf16 as
@@ -98,7 +110,7 @@ class ContainerWriter:
                + _pack_str(dtype, "<B")
                + struct.pack("<B", len(shape))
                + struct.pack(f"<{len(shape)}I", *shape))
-        self._records.append(hdr + struct.pack("<Q", len(payload)) + payload)
+        self._add(hdr, payload)
 
     def add_cabac(self, name: str, dtype: str, shape: tuple[int, ...],
                   step: float, num_gr: int, chunk_size: int,
@@ -112,7 +124,7 @@ class ContainerWriter:
                              len(chunk_payloads))
                + struct.pack(f"<{len(chunk_payloads)}I",
                              *[len(c) for c in chunk_payloads]))
-        self._records.append(hdr + struct.pack("<Q", len(payload)) + payload)
+        self._add(hdr, payload)
 
     def add_cabac_v3(self, name: str, dtype: str, shape: tuple[int, ...],
                      step: float, num_gr: int, chunk_size: int,
@@ -136,8 +148,36 @@ class ContainerWriter:
                + struct.pack("<dBIQI", step, num_gr, chunk_size, total, nch)
                + struct.pack(f"<{nch}I", *[len(c) for c in chunk_payloads])
                + struct.pack(f"<{nch}I", *chunk_counts))
-        self._records.append(hdr + struct.pack("<Q", len(payload)) + payload)
+        self._add(hdr, payload)
         self._needs_v3 = True
+
+    def add_cabac_delta(self, name: str, dtype: str, shape: tuple[int, ...],
+                        step: float, num_gr: int, chunk_size: int,
+                        chunk_payloads: list[bytes],
+                        chunk_counts: list[int]) -> None:
+        """Temporal-context-coded level *residuals* against a base frame.
+
+        Header layout is identical to :meth:`add_cabac_v3`; the chunk
+        bitstreams differ (temporal-context banks, cabac_vec
+        ``encode_lanes_tc``) and can only be decoded next to the base
+        frame's levels — the chain linkage lives in the delta manifest
+        (``repro.checkpoint.delta``), not in the container."""
+        if len(chunk_counts) != len(chunk_payloads):
+            raise ValueError(
+                f"{len(chunk_counts)} chunk counts for "
+                f"{len(chunk_payloads)} chunk payloads")
+        total = sum(int(c) for c in chunk_counts)
+        payload = b"".join(chunk_payloads)
+        ndim = len(shape)
+        nch = len(chunk_payloads)
+        hdr = (_pack_str(name, "<H") + struct.pack("<B", ENC_CABAC_DELTA)
+               + _pack_str(dtype, "<B")
+               + struct.pack("<B", ndim) + struct.pack(f"<{ndim}I", *shape)
+               + struct.pack("<dBIQI", step, num_gr, chunk_size, total, nch)
+               + struct.pack(f"<{nch}I", *[len(c) for c in chunk_payloads])
+               + struct.pack(f"<{nch}I", *chunk_counts))
+        self._add(hdr, payload)
+        self._needs_v4 = True
 
     def add_huffman(self, name: str, dtype: str, shape: tuple[int, ...],
                     step: float, payload: bytes) -> None:
@@ -148,7 +188,7 @@ class ContainerWriter:
                + _pack_str(dtype, "<B")
                + struct.pack("<B", ndim) + struct.pack(f"<{ndim}I", *shape)
                + struct.pack("<d", step))
-        self._records.append(hdr + struct.pack("<Q", len(payload)) + payload)
+        self._add(hdr, payload)
         self._needs_v2 = True
 
     def add_q8(self, name: str, dtype: str, levels: np.ndarray,
@@ -166,14 +206,28 @@ class ContainerWriter:
                + struct.pack("<B", scale.ndim)
                + struct.pack(f"<{scale.ndim}I", *scale.shape))
         payload = scale.tobytes() + levels.tobytes()
-        self._records.append(hdr + struct.pack("<Q", len(payload)) + payload)
+        self._add(hdr, payload)
         self._needs_v2 = True
 
     def tobytes(self) -> bytes:
-        version = (VERSION_V3 if self._needs_v3
+        version = (VERSION_V4 if self._needs_v4
+                   else VERSION_V3 if self._needs_v3
                    else VERSION_V2 if self._needs_v2 else VERSION)
         head = MAGIC + struct.pack("<HI", version, len(self._records))
-        return head + b"".join(self._records)
+        return b"".join([head, *(part for rec in self._records
+                                 for part in rec)])
+
+    def record_spans(self) -> list[tuple[int, int]]:
+        """(byte offset, byte length) of each record in the container
+        :meth:`tobytes` serializes, in add order.  Offsets include the
+        container header, so a reader can pread one record straight out
+        of the file and hand it to :func:`read_record_at` — the
+        sharded-checkpoint manifest persists exactly these spans."""
+        spans, off = [], HEADER_LEN
+        for hdr, payload in self._records:
+            spans.append((off, len(hdr) + len(payload)))
+            off += len(hdr) + len(payload)
+        return spans
 
 
 def _parse_record(data, view, off: int, label: str
@@ -235,6 +289,22 @@ def _parse_record(data, view, off: int, label: str
                        chunk_size, chunk_lens, tuple(scale_shape),
                        chunk_counts, total)
     return hdr, payload, off + plen
+
+
+def read_record_at(data, offset: int = 0
+                   ) -> tuple[RecordHeader, memoryview]:
+    """Parse exactly one record from ``data`` starting at ``offset``.
+
+    ``data`` is a *byte-range read* of one record — no container header,
+    no surrounding records required — so a manifest-driven restore can
+    ``seek(offset); read(length)`` a single shard record out of a large
+    shard file instead of mapping the whole file
+    (``ContainerWriter.record_spans`` is where the spans come from).
+    Truncated inputs raise a descriptive ``ValueError`` like the
+    whole-container reader."""
+    view = memoryview(data)
+    hdr, payload, _ = _parse_record(data, view, offset, "byte-range record")
+    return hdr, payload
 
 
 class ContainerReader:

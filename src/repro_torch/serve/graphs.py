@@ -121,6 +121,11 @@ class StepGraphs:
         registry.credit_launches(g.launches)
         self.stats["replays"] += 1
 
+    def reset(self) -> None:
+        """Drop every captured graph (a tensor they read was replaced):
+        each shape captures again on its next use."""
+        self._graphs.clear()
+
     def replay_only(self, key) -> None:
         """Replay ``key``'s graph on the inputs it last had, counting no
         launches: for timing the device work of a step."""

@@ -21,6 +21,15 @@ the parameters are written in place, never reallocated, since the graphs
 hold their addresses; a graph keeps no output of its own, so more prompt
 lengths mean more graphs but no more device memory than the largest
 step's temporaries.  ``eager_steps()`` runs the steps eagerly.
+
+:meth:`ServeSession.swap_weights` swaps a delta ("P-frame") checkpoint
+step into a running session between steps: each updated tensor is written
+into the resident one in place (``copy_``, same shape and dtype by
+construction), so the captured graphs replay with the new weights and
+nothing is recaptured.  A leaf the session shares with another session's
+tree (``WeightBackend.warm_from``) is replaced by a new tensor instead, so
+the other session's weights stay as they were, and this session's graphs
+are dropped to capture again (``stats["graph_resets"]``).
 """
 
 from __future__ import annotations
@@ -96,7 +105,8 @@ class ServeSession:
     """Continuous-batching serving session over a slot KV cache."""
 
     def __init__(self, cfg: ModelConfig, weights, *, backend="bf16",
-                 serve_cfg: ServeConfig | None = None, device="cuda"):
+                 serve_cfg: ServeConfig | None = None, device="cuda",
+                 preloaded: bool = False):
         serve_cfg = serve_cfg or ServeConfig()
         if serve_cfg.slots < 1 or serve_cfg.max_len < 1:
             raise ValueError(
@@ -117,7 +127,11 @@ class ServeSession:
         self.cfg = cfg
         self.serve_cfg = serve_cfg
         self.backend = resolve_backend(backend)
-        self.params = self.backend.load(cfg, weights, device=self.device)
+        # preloaded: ``weights`` is already this backend's serving tree
+        # (built by load_entries or warm_from); loading it again would
+        # clobber the backend's tracked levels
+        self.params = (weights if preloaded else
+                       self.backend.load(cfg, weights, device=self.device))
 
         self._slots = [_Slot() for _ in range(serve_cfg.slots)]
         self._queue: deque[RequestHandle] = deque()
@@ -125,13 +139,32 @@ class ServeSession:
         self._rngs: dict[int, np.random.Generator] = {}
         self.stats = {"decode_steps": 0, "decode_rows": 0,
                       "free_slot_rows": 0, "skipped_all_free_steps": 0,
-                      "prefill_tokens": 0}
+                      "prefill_tokens": 0, "swaps": 0, "graph_resets": 0}
         self._caches = init_cache(cfg, serve_cfg.slots, serve_cfg.max_len,
                                   device=self.device)
         # the last step's logits, rows [:k] after a k-row prefill
         self.logits = torch.empty((serve_cfg.slots, cfg.vocab_size),
                                   dtype=torch.float32, device=self.device)
         self.graphs = StepGraphs(self.device)
+
+    @classmethod
+    def from_container(cls, cfg: ModelConfig, blob: bytes, *,
+                       backend="container",
+                       serve_cfg: ServeConfig | None = None,
+                       device="cuda") -> "ServeSession":
+        """Build a session straight from a DCBC deployment artifact."""
+        return cls(cfg, blob, backend=backend, serve_cfg=serve_cfg,
+                   device=device)
+
+    @classmethod
+    def from_loaded(cls, cfg: ModelConfig, params, *, backend,
+                    serve_cfg: ServeConfig | None = None,
+                    device="cuda") -> "ServeSession":
+        """Wrap an already-built serving tree.  ``backend`` must be the
+        instance that produced ``params`` (its tracked levels, if any,
+        describe exactly this tree), so delta swaps keep working."""
+        return cls(cfg, params, backend=backend, serve_cfg=serve_cfg,
+                   device=device, preloaded=True)
 
     # -- client API ----------------------------------------------------------
 
@@ -185,6 +218,38 @@ class ServeSession:
         handle.finish_reason = "cancelled"
         self._rngs.pop(handle.id, None)
         return True
+
+    def swap_weights(self, source) -> int:
+        """Swap in a delta ("P-frame") checkpoint step between steps: the
+        backend decodes the step's records against its tracked base
+        levels (``WeightBackend.apply_delta``) and each updated tensor is
+        written into the resident one in place.  In-flight requests keep
+        their slots and caches; the next step decodes with the new
+        weights, and the captured graphs replay without a recapture.  A
+        shape or dtype that differs from the resident leaf's raises.  A
+        leaf shared with another session (``backend.shared``) is replaced
+        instead, and this session's graphs are dropped.  Returns the
+        number of updated tensors."""
+        updates = self.backend.apply_delta(self.cfg, source,
+                                           device=self.device)
+        replaced = False
+        for name, leaf in updates.items():
+            *parents, last = name.split("/")
+            node = self.params
+            for p in parents:
+                node = node[p]
+            if name in self.backend.shared:
+                _check_like(name, node[last], leaf)
+                node[last] = leaf
+                self.backend.shared.discard(name)
+                replaced = True
+            else:
+                _copy_into(name, node[last], leaf)
+        if replaced:
+            self.graphs.reset()
+            self.stats["graph_resets"] += 1
+        self.stats["swaps"] += 1
+        return len(updates)
 
     def run(self, max_steps: int | None = None) -> None:
         """Step until every submitted request finished (or max_steps)."""
@@ -324,3 +389,32 @@ class ServeSession:
             self._rngs[req.id] = rng
         z = logits_row.astype(np.float64) / req.temperature
         return int(np.argmax(z + rng.gumbel(size=z.shape)))
+
+
+def _pairs(name: str, old, new) -> list:
+    """(name, resident tensor, update) per tensor of a leaf: a q8 leaf is
+    a ``{"q8", "q8s"}`` dict."""
+    if isinstance(old, dict) or isinstance(new, dict):
+        if not (isinstance(old, dict) and isinstance(new, dict)
+                and old.keys() == new.keys()):
+            raise ValueError(f"{name}: the update's structure differs "
+                             "from the resident leaf's")
+        return [(f"{name}/{k}", old[k], new[k]) for k in sorted(old)]
+    return [(name, old, new)]
+
+
+def _check_like(name: str, old, new) -> list:
+    pairs = _pairs(name, old, new)
+    for n, o, t in pairs:
+        if o.shape != t.shape or o.dtype != t.dtype:
+            raise ValueError(
+                f"{n}: update {tuple(t.shape)} {t.dtype} does not match "
+                f"the resident {tuple(o.shape)} {o.dtype}")
+    return pairs
+
+
+def _copy_into(name: str, old, new) -> None:
+    """Write ``new`` into the resident leaf ``old`` in place (the graphs
+    hold its address)."""
+    for _, o, t in _check_like(name, old, new):
+        o.copy_(t)

@@ -84,6 +84,15 @@ def _port_build(name: str) -> bytes:
         w.add_q8("q8", "float32", q8_levels, q8_scale)
         w.add_cabac("cab", "float32", (150,), 0.0625, 10, 64,
                     codec.encode_level_chunks(cab, 10, 64))
+    elif name == "v4_delta":
+        base, resid, intra = gg.v4_parts()
+        chunks, counts = codec.encode_delta_chunks_batched(resid, base, 10,
+                                                           64)
+        w.add_cabac_delta("delta", "float32", (20, 15), 0.125, 10, 64,
+                          chunks, counts)
+        chunks, counts = codec.encode_level_chunks_batched(intra, 10, 64)
+        w.add_cabac_v3("intra", "bfloat16", (40,), 0.5, 10, 64, chunks,
+                       counts)
     else:
         big, small = gg.v3_parts()
         chunks, counts = codec.encode_level_chunks_batched(big, 10, 128)
@@ -97,7 +106,8 @@ def _port_build(name: str) -> bytes:
     return w.tobytes()
 
 
-@pytest.mark.parametrize("name", ["v1_basic", "v2_mixed", "v3_lanes"])
+@pytest.mark.parametrize("name", ["v1_basic", "v2_mixed", "v3_lanes",
+                                  "v4_delta"])
 def test_golden_encode_is_byte_exact(name):
     assert _port_build(name) == gg.load_fixture(name)
 
@@ -140,15 +150,21 @@ def test_golden_decodes_to_reference(name, path):
 
 
 def test_v4_delta_record_is_not_yet_ported():
+    """The v4 golden's delta record decodes against its base to the
+    reference's levels (tests/test_torch_delta.py holds every decode path);
+    alone it is refused, as the reference refuses it."""
     blob = gg.load_fixture("v4_delta")
-    with pytest.raises(NotImplementedError, match="not yet ported"):
+    base, resid, intra = gg.v4_parts()
+    with pytest.raises(ValueError, match="cannot be decoded standalone"):
         codec.decode_state_dict(blob)
-    # the intra record of the same container still decodes
     recs = {h.name: (h, p) for h, p in ContainerReader(blob)}
+    h, p = recs["delta"]
+    np.testing.assert_array_equal(
+        codec.decode_delta_record(h, p, base).levels.ravel(), base + resid)
+    # the intra record of the same container decodes on its own
     h, p = recs["intra"]
     np.testing.assert_array_equal(
-        codec.decode_record(h, p, dequantize=False).levels.ravel(),
-        gg.v4_parts()[2])
+        codec.decode_record(h, p, dequantize=False).levels.ravel(), intra)
 
 
 def test_binarization_paper_vectors():
@@ -330,14 +346,14 @@ def test_registry_strictness_and_unported_codecs():
         compression.get("deepcabac-v3", lamda=0.1)
     c = compression.get("serve-q8", strict=False, delta_rel=0.1)
     assert c.hyperparams["dropped_overrides"] == ["delta_rel"]
-    for name in ("deepcabac-delta", "kv-q8-cabac"):
+    for name in ("kv-q8-cabac",):
         with pytest.raises(NotImplementedError, match="not yet ported"):
             compression.get(name)
     with pytest.raises(ValueError, match="policy_table"):
         compression.get("deepcabac-rd")
     assert compression.available() == sorted(
-        ["deepcabac-v2", "deepcabac-v3", "deepcabac-rd", "ckpt-nearest",
-         "serve-q8", "huffman", "raw"])
+        ["deepcabac-v2", "deepcabac-v3", "deepcabac-rd", "deepcabac-delta",
+         "ckpt-nearest", "serve-q8", "huffman", "raw"])
 
 
 def test_size_report_matches_reference(trees):

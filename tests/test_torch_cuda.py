@@ -14,6 +14,7 @@ for a smoke model's logits on the card against the CPU (f32 through every
 layer, as in ``chip_smoke.py``'s parity phases).
 """
 
+import contextlib
 import importlib.util
 import sys
 from pathlib import Path
@@ -953,3 +954,68 @@ def test_rd_sweep_on_the_card_reproduces_its_policy_bytes():
             + winner * (1 + len(search.refine_factors))
             + winner * ((res.refined_tensors > 0 or res.reverted) + 1))
     assert counts["rd_quant"] == want
+
+
+def _swap_chain(root):
+    """A keyframe and two P-frames of the llama3-8b smoke model (seeded
+    init, two multiplicative drifts), written by the port's manager."""
+    from repro_torch import compression, configs
+    from repro_torch.checkpoint import CheckpointConfig, CheckpointManager
+    from repro_torch.models.transformer import init_params
+    cfg = configs.get("llama3-8b", smoke=True)
+    params = init_params(cfg, 0, device="cpu")
+    mgr = CheckpointManager(CheckpointConfig(
+        str(root), codec="deepcabac-delta", delta_every=4, keep=10))
+    rng = np.random.default_rng(0)
+    for step in (1, 2, 3):
+        if step > 1:
+            for v in compression.flatten_tree(params).values():
+                v.mul_(torch.from_numpy(
+                    1 + 1e-3 * rng.standard_normal(tuple(v.shape))).float())
+        mgr.save({"params": params, "step": np.int32(step)}, step)
+    dirs = [str(root / f"step_{s:08d}") for s in (1, 2, 3)]
+    with open(f"{dirs[0]}/params.dcbc", "rb") as f:
+        return cfg, f.read(), dirs
+
+
+def test_swap_under_graph_replay_equals_eager_and_cpu(tmp_path):
+    """Two P-frames swapped into a q8 session with two requests in flight:
+    from graphs (no capture after a swap) the leaves and tokens equal the
+    eager session's bit for bit, and the tokens equal the CPU's."""
+    _needs_card()
+    from repro_torch import compression
+    from repro_torch.serve.backends import get_backend
+    from repro_torch.serve.session import (ServeConfig, ServeSession,
+                                           eager_steps)
+    cfg, kf_blob, dirs = _swap_chain(tmp_path)
+    prompts = np.random.default_rng(1).integers(0, cfg.vocab_size, (2, 6))
+    out = {}
+    for mode, device in (("graph", "cuda"), ("eager", "cuda"),
+                         ("cpu", "cpu")):
+        sess = ServeSession(cfg, kf_blob,
+                            backend=get_backend("q8", track_levels=True),
+                            serve_cfg=ServeConfig(slots=2, max_len=32),
+                            device=device)
+        hs = [sess.submit(p.astype(np.int32), max_new_tokens=12)
+              for p in prompts]
+        with eager_steps() if mode == "eager" else contextlib.nullcontext():
+            for _ in range(3):
+                sess.step()
+            caps = sess.graphs.stats["captures"]
+            sess.swap_weights(dirs[1])
+            for _ in range(3):
+                sess.step()
+            sess.swap_weights(dirs[2])
+            sess.run()
+        assert sess.graphs.stats["captures"] == caps
+        out[mode] = ([h.tokens for h in hs],
+                     {k: v.cpu() for k, v in
+                      compression.flatten_tree(sess.params).items()},
+                     dict(sess.graphs.stats))
+    graph, eager, cpu = out["graph"], out["eager"], out["cpu"]
+    assert graph[2]["captures"] == 1 and graph[2]["replays"] >= 10
+    assert graph[0] == eager[0] == cpu[0]
+    for k, v in eager[1].items():
+        assert torch.equal(graph[1][k], v), k
+        if k.endswith(("/q8", "/q8s")):
+            assert torch.equal(cpu[1][k], v), k

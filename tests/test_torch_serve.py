@@ -120,7 +120,8 @@ def test_unported_serving_paths_raise(weights):
     with pytest.raises(NotImplementedError, match="paged"):
         ServeSession(tcfg, params_from_numpy(flat, "cpu"), device="cpu",
                      serve_cfg=ServeConfig(kv_page_size=16))
-    with pytest.raises(NotImplementedError, match="manifest"):
+    # a manifest path is a weight source now: a missing one raises
+    with pytest.raises(FileNotFoundError, match="params.manifest.json"):
         ServeSession(tcfg, "ckpt/step_1", backend="q8", device="cpu")
     with pytest.raises(TypeError, match="container backend loads DCBC"):
         ServeSession(tcfg, {}, backend="container", device="cpu")
