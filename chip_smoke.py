@@ -11,7 +11,9 @@ Phases (each fails the run on its own; nothing is caught and ignored):
              (one nvcc per source, started together) and the host CABAC
              lane engine (cc), which must be the engine in use;
 3. kernels — each kernel against its plain PyTorch version at the main
-             paths' shapes (llama3-8b and deepseek-moe-16b), with stated
+             paths' shapes (llama3-8b and deepseek-moe-16b; the D = 64
+             flash instances at musicgen-medium's heads; the grouped
+             kernel at deepseek-v3-671b's 256-expert banks), with stated
              tolerances, timed beside its plain version, a one-call PyTorch
              yardstick (where one exists) and its bound; rd_quant's levels
              must equal the plain version's exactly on layer 0 of every
@@ -77,7 +79,7 @@ Phases (each fails the run on its own; nothing is caught and ignored):
              launches), then in f32 on the card against the CPU;
 12. variational — variational_fim at the same width in f32, 4 steps:
              sigma finite and > 0, vd_sparsify runs, ms/step, peak memory;
-13. rd_sweep — rd_sweep on the 2-layer full-width llama3-8b (bf16) with
+13. rd_sweep — rd_sweep on the 1-layer full-width llama3-8b (bf16) with
              the bench's fast grid: rd_quant and flash_attention launch
              the predicted counts, the report stays empty, the policy
              re-encodes to the sweep's bytes; every point and the split
@@ -97,7 +99,27 @@ Phases (each fails the run on its own; nothing is caught and ignored):
              start (prefill logits bit for bit, tokens), launches of the
              path as predicted, an empty report; the seconds of the saves,
              the cold start and each swap (tc decode, q8 conversion,
-             ``copy_``), the host CABAC rates and the bytes of each frame.
+             ``copy_``), the host CABAC rates and the bytes of each frame;
+15. parity_variants (after 4) — the smoke qwen3-8b, qwen1.5-4b,
+             mistral-nemo-12b, qwen2-vl-7b, musicgen-medium and
+             deepseek-v3-671b (f32, q8; qwen2-vl-7b also bf16) on the card
+             and on the CPU: identical greedy tokens, close logits, equal
+             q8 levels; reports hold only MLA's d != dv records;
+16. serve_dense (after 9) — qwen3-8b at published widths and full depth
+             (36 layers), served as in 6 (the q8 check of layer 0, then
+             q8 and bf16, eager and graphs);
+17. serve_mla — deepseek-v3-671b at published widths cut to 4 layers (3
+             dense, 1 MoE of 256 experts top-8), built on q8 leaf by leaf
+             and served as in 6; launches as predicted, no flash launch,
+             only the d != dv (192 != 128) records; one full-width MLA
+             block in f32, card against CPU;
+18. embeds_full — musicgen-medium (48 layers, the D = 64 flash instance)
+             and qwen2-vl-7b (28 layers, M-RoPE over a patch grid and
+             text) at full depth on q8: ``prefill(embeds=...)`` of 4 x 128
+             and 31 decode steps fed back through a stub frontend table;
+             then each at 2 layers in f32, card tokens equal to the CPU's.
+
+13 runs at 1 layer (RD_SWEEP_LAYERS), so that 15-18 fit the time limit.
 
 The line before the last is the card's name and power limit; one line
 before it is the ``{"kernels": [...]}`` summary; the last line is
@@ -140,6 +162,16 @@ DM_SHAPES = {
 DM_ROWS = (1, 4, 16, 512)    # decode rows at 1 and 4 slots; 16
 #                              (continuous batching); prefill B*S
 DM_PREFILL_M = DM_ROWS[-1]
+# deepseek-v3-671b's MLA projections (4 layers: calls per forward pass of
+# the 4-layer serve) at a 4-slot decode step and a 4 x 128 prefill; the
+# latents' up-projection w_uk / w_uv takes the whole cache at decode: M =
+# 4 slots x 160 positions
+DM_MLA_SHAPES = [((7168, 1536), 4, "w_dq", (4, 512)),
+                 ((1536, 24576), 4, "w_uq", (4, 512)),
+                 ((7168, 512), 4, "w_dkv", (4, 512)),
+                 ((7168, 64), 4, "w_kr", (4, 512)),
+                 ((512, 16384), 8, "w_uk,w_uv", (640, 512)),
+                 ((16384, 7168), 4, "wo", (4, 512))]
 # deepseek-moe-16b's expert banks: E experts, (K, N) with calls per forward
 # pass, and rows per expert: the capacity buffer of a 4-slot decode step
 # (4 x cap 8) and of a 4 x 128-token prefill (4 x cap 16)
@@ -147,8 +179,37 @@ GROUPED_E = 64
 GROUPED_SHAPES = [((2048, 1408), 54, "w_gate,w_up"), ((1408, 2048), 27,
                                                       "w_down")]
 GROUPED_ROWS = (32, 64)
-# flash attention's (H, G) at full width: llama3-8b, deepseek-moe-16b
+# deepseek-v3-671b's expert banks: 256 experts, (K, N) with calls per
+# forward pass, and rows per expert at 1 and 4 slots (4 x cap 8; a 4 x 128
+# prefill's capacity buffer is 4 x cap 8 too: 128 x 8 x 1.25 / 256 < 8).
+# The bank is 3.76 GB of levels; its plain version is computed 32 experts
+# at a time (f32 of the whole bank is 15 GB), and the torch.bmm yardstick
+# multiplies a bf16 bank (7.5 GB)
+GROUPED_V3_E = 256
+GROUPED_V3_SHAPES = [((7168, 2048), 2, "w_gate,w_up"),
+                     ((2048, 7168), 1, "w_down")]
+GROUPED_V3_ROWS = (8, 32)
+GROUPED_V3_CHUNK = 32
+# the other dense variants and MLA: their smoke models run card against
+# CPU (f32, q8; qwen2-vl-7b also in bf16), prefill logits within
+# TOL_VARIANT_LOGITS of max|logit| (the readings are 3.0e-7 in bf16 and
+# 6.2e-7 to 1.1e-6 in f32, NVIDIA H100 80GB HBM3, 700 W, so a kernel fault
+# that moves the logits by 1e-4 or more fails); deepseek-v3-671b served at its
+# published widths cut to SERVE_MLA_LAYERS (its 3 leading dense layers and
+# one MoE layer); an embeddings model's generated token t is fed back as
+# row t % EMBED_TABLE_ROWS of a seeded stub frontend table, its 2-layer f32
+# runs (EMBED_F32_LAYERS) take EMBED_F32_NEW_TOKENS tokens
+VARIANTS = ("qwen3-8b", "qwen1.5-4b", "mistral-nemo-12b", "qwen2-vl-7b",
+            "musicgen-medium", "deepseek-v3-671b")
+TOL_VARIANT_LOGITS = 1e-4
+SERVE_MLA_LAYERS = 4
+EMBED_TABLE_ROWS = 4096
+EMBED_F32_LAYERS = 2
+EMBED_F32_NEW_TOKENS = 12
+# flash attention's (H, G) and D at full width: llama3-8b, deepseek-moe-16b
+# (D = 128), musicgen-medium (D = 64)
 FLASH_HEADS = ((32, 8), (16, 16))
+FLASH_D64_HEADS = (24, 24)
 TOL_F32 = 1e-4               # relative to max|plain|: f32 sums in other order
 TOL_FLASH_BF16 = 2e-2        # bf16 output and p rounded to bf16 before PV
 # bf16 smoke deepseek-moe-16b, card against CPU, relative to max|logit|:
@@ -191,6 +252,8 @@ VD_STEPS = 4
 VD_BYTES_PER_PARAM = 44
 # rd_sweep: benchmarks/rd_sweep_bench.py's --fast grid, min_ndim=3 (the
 # stacked layer matrices: embed and head stay raw)
+RD_SWEEP_LAYERS = 1          # the sweep's depth (its launches of rd_quant
+#                              go with the 7 stacked tensors, not the depth)
 SWEEP = dict(delta_rels=(1e-3, 6e-3), lambdas=(0.0, 1e-5), prompts=3,
              decode_steps=6, fim_batches=1, min_ndim=3)
 # search parity at smoke size: the sweep's logit KL card vs CPU (a sum over
@@ -368,7 +431,8 @@ def _dm_bound(m, k, n, x_bytes):
 
 def phase_kernels_dequant(device):
     """dequant_matmul vs its plain version at every main-path shape and
-    DM_ROWS: the decode instance at M <= 8, the tensor-core one above."""
+    DM_ROWS (deepseek-v3-671b's MLA projections at their own rows): the
+    decode instance at M <= 8, the tensor-core one above."""
     import torch
     from repro_torch.kernels.dequant_matmul.ops import (dequant_matmul_cuda,
                                                         schedule)
@@ -378,8 +442,10 @@ def phase_kernels_dequant(device):
     gen = torch.Generator(device=device)
     gen.manual_seed(0)
     rows = []
-    for arch, (k, n), calls, names in [(a, *shape) for a, shapes in
-                                       DM_SHAPES.items() for shape in shapes]:
+    cases = [(a, *shape, DM_ROWS) for a, shapes in DM_SHAPES.items()
+             for shape in shapes] + [("deepseek-v3-671b", *shape)
+                                     for shape in DM_MLA_SHAPES]
+    for arch, (k, n), calls, names, m_rows in cases:
         # rotate weight copies so each call reads its weights from HBM,
         # as a decode step does (the L2 holds 50 MB)
         copies = max(1, math.ceil(120e6 / (k * n)))
@@ -388,7 +454,7 @@ def phase_kernels_dequant(device):
         sc = torch.rand(n, generator=gen, device=device) * 0.01 + 1e-4
         w_deq = ws[0].float() * sc        # library yardstick's operand
         w_bf16 = w_deq.bfloat16()         # cuBLAS speed reference's
-        for m in DM_ROWS:
+        for m in m_rows:
             kc, splits, _, bm = schedule(m, k, n, sms)
             inst = "decode" if m <= 8 else "tensor_core"
             for xdt in (torch.float32, torch.bfloat16):
@@ -462,9 +528,10 @@ def phase_kernels_flash(device):
 
     gen = torch.Generator(device=device)
     gen.manual_seed(1)
-    b, d = 4, 128
+    b = 4
     rows = []
-    for (h, g), s in [(hg, s) for hg in FLASH_HEADS for s in (128, 100)]:
+    cases = [(hg, 128) for hg in FLASH_HEADS] + [(FLASH_D64_HEADS, 64)]
+    for (h, g), d, s in [(hg, d, s) for hg, d in cases for s in (128, 100)]:
         for dt, tol in ((torch.bfloat16, TOL_FLASH_BF16),
                         (torch.float32, TOL_F32)):
             q = torch.randn((b, s, h, d), generator=gen, device=device
@@ -595,6 +662,71 @@ def phase_kernels_grouped(device):
                     f"({by})")
             del w_deq
         del wq
+    return rows
+
+
+def phase_kernels_grouped_v3(device):
+    """dequant_matmul_grouped at deepseek-v3-671b's expert banks (E = 256,
+    bf16 x, the stacked (N,) scale) against its plain version, computed
+    GROUPED_V3_CHUNK experts at a time (the same function: each expert's
+    product is independent), at 1 and 4 slots' rows.  The torch.bmm
+    yardstick multiplies the bank dequantized to bf16 (an f32 bank would
+    be 15 GB)."""
+    import torch
+    from repro_torch.kernels.dequant_matmul.ops import \
+        dequant_matmul_grouped_cuda
+    from repro_torch.kernels.dequant_matmul.ref import \
+        dequant_matmul_grouped_ref
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(3)
+    e, c = GROUPED_V3_E, GROUPED_V3_CHUNK
+    rows = []
+    for (k, n), calls, names in GROUPED_V3_SHAPES:
+        wq = torch.randint(-127, 128, (e, k, n), generator=gen,
+                           device=device, dtype=torch.int8)
+        sc = torch.rand((n,), generator=gen, device=device) * 0.01 + 1e-4
+        w_bf16 = torch.empty((e, k, n), dtype=torch.bfloat16, device=device)
+        for i in range(0, e, c):
+            w_bf16[i:i + c] = (wq[i:i + c].float() * sc).to(torch.bfloat16)
+        for m in GROUPED_V3_ROWS:
+            x = torch.randn((e, m, k), generator=gen, device=device).to(
+                torch.bfloat16)
+
+            def plain():
+                return torch.cat([dequant_matmul_grouped_ref(
+                    x[i:i + c], wq[i:i + c], sc) for i in range(0, e, c)])
+
+            def kernel():
+                return dequant_matmul_grouped_cuda(x, wq, sc)
+            got, want = kernel(), plain()
+            torch.cuda.synchronize()
+            abs_e, rel_e = rel_err(got, want)
+            check(torch.isfinite(got).all().item(),
+                  f"dequant_matmul_grouped non-finite at E={e} m={m} k={k} "
+                  f"n={n}")
+            check(rel_e <= TOL_F32, f"dequant_matmul_grouped E={e} m={m} "
+                  f"k={k} n={n}: rel err {rel_e:.3g} > {TOL_F32}")
+            del got, want
+            ms, eager = time_ms_graph(kernel), time_ms(kernel)
+            plain_ms = time_ms(plain, max_iters=5)
+            lib = time_ms_graph(lambda: torch.bmm(x, w_bf16))
+            bound, by = _grouped_bound(e, m, k, n, 2, n)
+            rows.append({"e": e, "m": m, "k": k, "n": n, "x": "bfloat16",
+                         "instance": "tc_bf16", "scale": "shared",
+                         "calls_per_forward": calls, "weights": names,
+                         "max_abs_err": abs_e, "max_rel_err": rel_e,
+                         "ms": ms, "eager_ms": eager, "plain_ms": plain_ms,
+                         "library_ms": lib, "library_bank": "bfloat16",
+                         "bound_ms": bound, "bound_by": by})
+            log(f"[kernels] dequant_matmul_grouped E={e} m={m:3d} k={k:5d} "
+                f"n={n:5d} x=bfloat16 (tc_bf16) scale=shared err "
+                f"{rel_e:.2e}  kernel {ms:.4f} ms (eager {eager:.4f})  "
+                f"plain {plain_ms:.4f}  library (bf16 bank) {lib:.4f}  "
+                f"bound {bound:.4f} ({by})")
+            del x
+        del wq, w_bf16
+        torch.cuda.empty_cache()
     return rows
 
 
@@ -929,6 +1061,183 @@ def phase_parity_moe_bf16(device, cpu="cpu"):
           f"between {device} and cpu:\n{tok_d}\n{tok_c}")
     return {"logits_rel_diff": err, "tokens_differ": differ,
             "tokens": int(tok_d.size), "launches": launches}
+
+
+def allowed_records(cfg) -> set:
+    """The dispatch records a run of ``cfg`` may leave: MLA's attention has
+    d != dv, so its prefills take the scan, recorded, as the reference's
+    do (``repro/kernels/flash_attention/ops.py``); nothing else."""
+    if cfg.attention != "mla":
+        return set()
+    d = cfg.qk_nope_head_dim + cfg.qk_rope_head_dim
+    return {("flash_attention", "fallback",
+             f"d != dv ({d} != {cfg.v_head_dim})")}
+
+
+def report_ok(cfg, report) -> bool:
+    """Every record allowed, and the MLA records present: its prefills ran
+    the scan."""
+    allowed = allowed_records(cfg)
+    got = {(r["op"], r["kind"], r["reason"]) for r in report}
+    return got == allowed
+
+
+def pos3d_grid(b, gh, gw, n_text, device):
+    """(3, b, gh * gw + n_text) M-RoPE streams of an image followed by
+    text: a (gh, gw) patch grid (t = 0, h = row, w = column), then text
+    positions from max(gh, gw) on, equal in all three streams."""
+    import torch
+    hh = torch.arange(gh * gw) // gw
+    ww = torch.arange(gh * gw) % gw
+    text = max(gh, gw) + torch.arange(n_text)
+    st = torch.stack([torch.cat([torch.zeros(gh * gw, dtype=torch.long),
+                                 text]), torch.cat([hh, text]),
+                      torch.cat([ww, text])])
+    return st[:, None, :].expand(3, b, st.shape[1]).contiguous().to(device)
+
+
+def embed_inputs(cfg, b, s, seed, device, dtype=None):
+    """A prompt of precomputed embeddings (b, s, d), its pos3d for an
+    M-RoPE model (a patch grid over half the prompt, then text), and the
+    stub frontend's table (EMBED_TABLE_ROWS, d): made on the CPU from a
+    seeded generator and moved, so the card and the CPU see the same."""
+    import torch
+    g = torch.Generator().manual_seed(seed)
+    dt = dtype or getattr(torch, cfg.compute_dtype)
+    emb = torch.randn((b, s, cfg.d_model), generator=g).to(dt)
+    table = torch.randn((min(EMBED_TABLE_ROWS, cfg.vocab_size),
+                         cfg.d_model), generator=g).to(dt)
+    pos3d = None
+    if cfg.m_rope:
+        side = max(int((s // 2) ** 0.5), 1)
+        pos3d = pos3d_grid(b, side, side, s - side * side, "cpu")
+    return (emb.to(device), None if pos3d is None else pos3d.to(device),
+            table.to(device))
+
+
+def greedy_embeds(params, cfg, embeds, pos3d, table, new_tokens):
+    """An embeddings model's greedy loop: ``prefill(embeds=...)``, then
+    ``new_tokens - 1`` decode steps, each fed the stub table's row of the
+    last token (t % rows) and, for M-RoPE, the text position after the
+    prompt's largest.  Returns (tokens (B, new_tokens), prefill logits
+    (B, V) f32 on the host, prefill ms, decode ms per step), by the host
+    clock around synchronised work."""
+    import torch
+    from repro_torch.models.transformer import decode_step, prefill
+    b, s = embeds.shape[:2]
+    on_card = embeds.is_cuda
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+    sync()
+    t0 = time.perf_counter()
+    logits, caches = prefill(params, cfg, embeds=embeds, pos3d=pos3d,
+                             max_len=s + new_tokens)
+    tok = logits.argmax(-1)
+    sync()
+    prefill_ms = 1e3 * (time.perf_counter() - t0)
+    first = logits.float().cpu().numpy()
+    toks = [tok]
+    nxt = None if pos3d is None else pos3d.amax(dim=(0, 2)) + 1     # (B,)
+    t0 = time.perf_counter()
+    for i in range(new_tokens - 1):
+        e = table[tok % table.shape[0]][:, None, :]
+        p3 = None if nxt is None else (nxt + i)[None, :, None].expand(3, b,
+                                                                      1)
+        logits, caches = decode_step(params, cfg, caches, s + i, embeds=e,
+                                     pos3d=p3)
+        tok = logits.argmax(-1)
+        toks.append(tok)
+    sync()
+    decode_ms = 1e3 * (time.perf_counter() - t0) / max(new_tokens - 1, 1)
+    return (torch.stack(toks, 1).cpu().numpy(), first, prefill_ms,
+            decode_ms)
+
+
+def phase_parity_variants(device, cpu="cpu"):
+    """The six other smoke models (VARIANTS: qk-norm, QKV bias, M-RoPE and
+    embeddings in, layernorm and gelu, MLA) in f32 on q8, and qwen2-vl-7b
+    once more in bf16, on ``device`` and on the CPU from the same converted
+    weights: identical greedy tokens (token models through the session,
+    embeddings models through ``greedy_embeds``), close prefill logits,
+    q8 levels and scales made on the card equal to the CPU's, and
+    dispatch reports that hold only MLA's d != dv records."""
+    import numpy as np
+    import torch
+    from repro_torch import configs
+    from repro_torch.compression import flatten_tree, quantize_tree_q8
+    from repro_torch.convert import params_from_numpy, tensor_to_numpy
+    from repro_torch.kernels import registry
+    from repro_torch.models.transformer import init_params, prefill
+    from repro_torch.serve.session import ServeConfig, ServeSession
+
+    cases = [(a, "float32") for a in VARIANTS] + [("qwen2-vl-7b",
+                                                    "bfloat16")]
+    res = {}
+    for arch, dtype in cases:
+        cfg = configs.get(arch, smoke=True).replace(param_dtype=dtype,
+                                                    compute_dtype=dtype)
+        raw = init_params(cfg, 0, device=cpu)
+        flat_q8 = {k: tensor_to_numpy(v)
+                   for k, v in flatten_tree(quantize_tree_q8(raw)).items()}
+        rng = np.random.default_rng(6)
+        prompts = rng.integers(0, cfg.vocab_size, (4, 16)).astype(np.int32)
+        out = {}
+        for dev in (device, cpu):
+            tree = params_from_numpy(flat_q8, dev)
+            registry.clear_dispatch_report()
+            registry.reset_launch_counts()
+            if cfg.embed_input:
+                sess = ServeSession(cfg, tree, backend="q8", device=dev,
+                                    serve_cfg=ServeConfig(slots=4,
+                                                          max_len=28))
+                hs = [sess.submit(p, max_new_tokens=12) for p in prompts]
+                sess.run()
+                tokens = np.stack([h.result() for h in hs])
+                logits, _ = prefill(sess.params, cfg,
+                                    tokens=torch.from_numpy(prompts).to(dev),
+                                    max_len=28)
+                logits = logits.float().cpu().numpy()
+            else:
+                emb, p3, table = embed_inputs(cfg, 4, 16, 6, dev)
+                tokens, logits, _, _ = greedy_embeds(tree, cfg, emb, p3,
+                                                     table, 12)
+            out[str(dev)] = (tokens, logits, registry.launch_counts(),
+                             registry.dispatch_report())
+        (tok_d, lo_d, launches, report), (tok_c, lo_c, _, _) = \
+            out[str(device)], out[cpu]
+        what = f"{arch} {dtype} smoke"
+        err = float(np.max(np.abs(lo_d - lo_c)) / np.max(np.abs(lo_c)))
+        tol = TOL_VARIANT_LOGITS
+        mism = q8_mismatches(flatten_tree(raw), device)
+        differ = int((tok_d != tok_c).sum())
+        log(f"[parity] {what} q8: {differ} of {tok_d.size} greedy tokens "
+            f"differ between {device} and cpu; prefill logits rel diff "
+            f"{err:.2e} (tolerance {tol}); card launches {launches}; "
+            f"q8 mismatches {mism}; report {len(report)} records "
+            f"{sorted({r['reason'] for r in report})}")
+        check(np.isfinite(lo_d).all(), f"{what}: non-finite logits")
+        check(differ == 0, f"{what}: greedy tokens differ between "
+              f"{device} and cpu:\n{tok_d}\n{tok_c}")
+        check(err <= tol, f"{what}: prefill logits differ: rel {err:.3g}")
+        check(mism == 0, f"{what}: {mism} q8 entries quantized on {device} "
+              "differ from the CPU's")
+        on_card = torch.device(device).type == "cuda"
+        check(not on_card or report_ok(cfg, report), f"{what}: dispatch "
+              f"report {report}, want only {allowed_records(cfg)}")
+        check(not on_card or launches["dequant_matmul"] > 0 and
+              (launches["flash_attention"] > 0) == (cfg.attention != "mla")
+              and (launches["dequant_matmul_grouped"] > 0) ==
+              (cfg.family == "moe"),
+              f"{what}: the card's launches {launches} are not the path's")
+        res[f"{arch}/{dtype}"] = {"logits_rel_diff": err,
+                                  "tokens_differ": differ,
+                                  "launches": launches,
+                                  "report": sorted({r["reason"]
+                                                    for r in report}),
+                                  "q8_mismatch_card_vs_cpu": mism}
+    return res
 
 
 def phase_deploy_rd(params, policy):
@@ -1566,8 +1875,9 @@ def _serve_full(cfg, params, backend, device, prompts, new_tokens,
 def _serve_modes(cfg, params, backend, device, prompts, new_tokens):
     """``_serve_full`` eagerly, then with graphs, in one process: greedy
     tokens and launch counts must be equal in both modes and the dispatch
-    report empty in each.  Returns the graph run with the eager run's
-    numbers under ``"eager"`` (tokens and logits of the graph run).  Its
+    report empty in each (for MLA: MLA's d != dv records only).  Returns
+    the graph run with the eager run's numbers under ``"eager"`` (tokens
+    and logits of the graph run).  Its
     ``launches`` are the eager run's, which the wrappers counted where
     they launched; a replay credits its capture's counts instead
     (``launches_graph``, checked equal)."""
@@ -1591,8 +1901,9 @@ def _serve_modes(cfg, params, backend, device, prompts, new_tokens):
             f"peak {r['max_memory_allocated'] / 2**30:.2f} GiB, split "
             f"{ {k: round(v, 3) for k, v in split.items()} }, "
             f"graphs {r['graph_stats']}")
-        check(not r["dispatch_report"], f"{cfg.name} {backend} {mode}: "
-              f"dispatch report not empty: {r['dispatch_report']}")
+        check(report_ok(cfg, r["dispatch_report"]), f"{cfg.name} "
+              f"{backend} {mode}: dispatch report {r['dispatch_report']}, "
+              f"want only {allowed_records(cfg)}")
     eager, graph = runs["eager"], runs["graph"]
     differ = int((eager["tokens"] != graph["tokens"]).sum())
     check(differ == 0, f"{cfg.name} {backend}: {differ} greedy tokens "
@@ -1649,17 +1960,25 @@ def _kernel_ms(prof, names) -> float:
 
 def per_forward_launches(cfg) -> dict:
     """Kernel launches of one q8 forward pass, counted from the model's
-    structure: 7 projections per dense layer (4 attention, 3 MLP); per MoE
-    layer 4 attention, the router and 3 shared-expert projections through
-    dequant_matmul and 3 expert-bank products through
+    structure: per dense layer the attention projections (GQA 4; MLA 7:
+    w_dq, w_uq, w_dkv, w_kr, w_uk, w_uv, wo, 6 without a q LoRA) and 3 MLP;
+    per MoE layer the attention's, the router and 3 shared-expert
+    projections through dequant_matmul and 3 expert-bank products through
     dequant_matmul_grouped; the untied head."""
     n_layers = cfg.num_layers
+    attn = 4 if cfg.attention != "mla" else 6 + bool(cfg.q_lora_rank)
     if cfg.family == "dense":
-        return {"dequant_matmul": 7 * n_layers + 1,
+        return {"dequant_matmul": (attn + 3) * n_layers + 1,
                 "dequant_matmul_grouped": 0}
     nd = cfg.first_dense_layers
-    return {"dequant_matmul": 7 * nd + 8 * (n_layers - nd) + 1,
-            "dequant_matmul_grouped": 3 * (n_layers - nd)}
+    return {"dequant_matmul": (attn + 3) * nd + (attn + 4) * (n_layers - nd)
+            + 1, "dequant_matmul_grouped": 3 * (n_layers - nd)}
+
+
+def flash_per_prefill(cfg) -> int:
+    """flash_attention launches of one prefill: one per layer, none for
+    MLA (d != dv takes the scan)."""
+    return 0 if cfg.attention == "mla" else cfg.num_layers
 
 
 def init_full(device, arch, **overrides):
@@ -1908,6 +2227,228 @@ def phase_serve_moe_f32(device, cpu="cpu"):
     return r
 
 
+def init_q8_leafwise(cfg, device) -> dict:
+    """``init_params(cfg, 0)``'s tree on q8, built leaf by leaf: each leaf
+    is drawn (a stacked one a layer at a time), quantized where the serving
+    rule quantizes it and dropped, so the full-precision tree is never
+    whole (deepseek-v3's 256-expert bank is 11.3 G parameters)."""
+    import torch
+    from repro_torch.compression.quantizers import (quantize_leaf,
+                                                    serve_q8_policy)
+    from repro_torch.compression.tree import unflatten
+    from repro_torch.models.transformer import iter_params
+
+    t0 = time.perf_counter()
+    flat, n = {}, 0
+    for name, leaf in iter_params(cfg, 0, device=device):
+        n += leaf.numel()
+        flat[name] = (quantize_leaf(leaf) if serve_q8_policy(name, leaf)
+                      else leaf)
+        del leaf
+    torch.cuda.synchronize()
+    log(f"[serve] {cfg.name} full width, {cfg.num_layers} layers: "
+        f"{n / 1e9:.3f} B parameters ({cfg.param_dtype}) drawn and "
+        f"quantized leaf by leaf in {time.perf_counter() - t0:.1f} s")
+    return unflatten(flat)
+
+
+def phase_serve_mla(device, cpu="cpu"):
+    """deepseek-v3-671b at its published widths cut to SERVE_MLA_LAYERS
+    layers (the 3 leading dense layers, d_ff 18432, and one MoE layer of
+    256 experts top-8), bf16, built on q8 leaf by leaf and served as
+    ``_serve_modes`` does (4 x 128 + 32 greedy, eagerly and from graphs):
+    tokens and launches equal in both modes, dequant_matmul and
+    dequant_matmul_grouped launched as ``per_forward_launches`` predicts,
+    no flash launch, and only the d != dv (192 != 128) records.  Then one
+    full-width MLA block in f32 on q8 (prefill of 2 x 64, a ragged decode
+    step) on the card against the CPU."""
+    import numpy as np
+    import torch
+    from repro_torch import configs
+
+    cfg = configs.get("deepseek-v3-671b").replace(
+        num_layers=SERVE_MLA_LAYERS)
+    tree = init_q8_leafwise(cfg, device)
+    gc.collect()
+    torch.cuda.empty_cache()
+    rng = np.random.default_rng(7)
+    prompts = rng.integers(0, cfg.vocab_size, (4, 128)).astype(np.int32)
+    r = _serve_modes(cfg, tree, "q8", device, prompts, 32)
+    del r["tokens"], r["logits"]
+    fwd = 1 + r["decode_steps"]
+    e = r["eager"]
+    what = f"deepseek-v3-671b {cfg.num_layers} layers q8"
+    check(r["logits_finite"], f"{what}: non-finite logits")
+    check(r["logits_shape"] == [4, cfg.vocab_size],
+          f"{what}: logits shape {r['logits_shape']}")
+    check(r["launches"]["flash_attention"] == 0,
+          f"{what}: {r['launches']['flash_attention']} flash launches")
+    for kern, n in per_forward_launches(cfg).items():
+        check(r["launches"][kern] == n * fwd, f"{what}: "
+              f"{r['launches'][kern]} {kern} launches, want {n} x {fwd} "
+              "passes")
+    log(f"[serve] {what}: graphs (eager in brackets): prefill forward "
+        f"{r['prefill_forward_ms']:.2f} ms ({e['prefill_forward_ms']:.2f}), "
+        f"decode {r['decode_ms_per_step_median']:.2f} ms/step median "
+        f"({e['decode_ms_per_step_median']:.2f}), device busy "
+        f"{_fmt(r['device_busy_ms_per_step'])} "
+        f"({_fmt(e['device_busy_ms_per_step'])}) ms per step, of which "
+        f"the grouped kernel {r['grouped_ms_per_step']:.3f}, idle "
+        f"{_fmt(r['device_idle_share'])} traced, "
+        f"{_fmt(r['untraced_idle_share'])} untraced; launches "
+        f"{r['launches']}; peak {r['max_memory_allocated'] / 2**30:.2f} GiB")
+    del tree
+    gc.collect()
+    torch.cuda.empty_cache()
+    r["layers"] = cfg.num_layers
+    r["block_f32"] = _mla_block_f32(device, cpu)
+    return r
+
+
+def _mla_block_f32(device, cpu="cpu"):
+    """One deepseek-v3-671b MLA block at its published widths in f32 on q8
+    (its 7 projections, 187 M parameters, drawn on the CPU from a seed and
+    quantized there): a 2 x 64 prefill into an f32 latent cache, then a
+    decode step at ragged offsets, on the card and on the CPU; the outputs'
+    distance relative to max|cpu| and the latents' must be within
+    TOL_F32."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.compression import flatten_tree, quantize_tree_q8
+    from repro_torch.compression.tree import unflatten
+    from repro_torch.models.attention import mla_attention
+    from repro_torch.models.transformer import _layout
+
+    cfg = configs.get("deepseek-v3-671b").replace(
+        num_layers=1, family="dense", first_dense_layers=0,
+        param_dtype="float32", compute_dtype="float32")
+    g = torch.Generator().manual_seed(11)
+    leaves = {}
+    for name, (shape, init, _) in _layout(cfg).items():
+        if name.startswith("layers/attn/"):
+            leaves[name] = (torch.ones(shape) if init == "ones" else
+                            torch.randn(shape, generator=g) * init[1])
+    p_cpu = quantize_tree_q8(unflatten(leaves))["layers"]["attn"]
+    p_cpu = {k: ({kk: vv[0] for kk, vv in v.items()} if isinstance(v, dict)
+                 else v[0]) for k, v in p_cpu.items()}
+    p_dev = unflatten({k: v.to(device) for k, v in
+                       flatten_tree(p_cpu).items()})
+    b, s, max_len = 2, 64, 80
+    x = torch.randn((b, s, cfg.d_model), generator=g)
+    x1 = torch.randn((b, 1, cfg.d_model), generator=g)
+    cp = torch.tensor([64, 40])
+    out = {}
+    t0 = time.perf_counter()
+    for dev, p in ((cpu, p_cpu), (str(device), p_dev)):
+        cache = {"ckv": torch.zeros((b, max_len, cfg.kv_lora_rank),
+                                    device=dev),
+                 "kr": torch.zeros((b, max_len, cfg.qk_rope_head_dim),
+                                   device=dev)}
+        pos = torch.arange(s, device=dev).expand(b, s)
+        y, cache = mla_attention(x.to(dev), p, cfg, pos, cache=cache,
+                                 qpos_canonical=True)
+        y1, cache = mla_attention(x1.to(dev), p, cfg, cp.to(dev)[:, None],
+                                  cache=cache, cache_pos=cp.to(dev))
+        out[dev] = [t.cpu() for t in (y, y1, cache["ckv"], cache["kr"])]
+    dist = {name: rel_err(out[str(device)][i], out[cpu][i])[1]
+            for i, name in enumerate(("prefill", "decode", "ckv", "kr"))}
+    log(f"[serve] deepseek-v3-671b MLA block, full width, f32 on q8: card "
+        f"against cpu, rel distance {dist} (tolerance {TOL_F32}; "
+        f"{time.perf_counter() - t0:.1f} s)")
+    for name, d in dist.items():
+        check(d <= TOL_F32, f"MLA block f32 {name}: card vs cpu rel {d:.3g}")
+    return dist
+
+
+def phase_embeds_full(device, cpu="cpu"):
+    """The embeddings models at their published widths and full depth,
+    bf16 on q8: musicgen-medium (48 layers, layernorm, gelu, head dim 64:
+    the D = 64 flash instance) and qwen2-vl-7b (28 layers, M-RoPE with a
+    patch grid and text positions, rep-7 GQA): ``prefill(embeds=...)`` of
+    4 x 128, then 31 decode steps (32 tokens) fed back through the stub
+    table, eagerly; launches as predicted, an empty report.  Then each at
+    EMBED_F32_LAYERS layers in f32 on q8, card against CPU: greedy tokens
+    equal, prefill logits within TOL_MOE_F32_LOGITS."""
+    import numpy as np
+    import torch
+    from repro_torch import configs
+    from repro_torch.compression import flatten_tree
+    from repro_torch.compression.tree import unflatten
+    from repro_torch.kernels import registry
+
+    res = {}
+    for arch in ("musicgen-medium", "qwen2-vl-7b"):
+        cfg = configs.get(arch)
+        tree = init_q8_leafwise(cfg, device)
+        emb, p3, table = embed_inputs(cfg, 4, 128, 8, device)
+        torch.cuda.reset_peak_memory_stats()
+        registry.clear_dispatch_report()
+        registry.reset_launch_counts()
+        toks, lo, pre_ms, dec_ms = greedy_embeds(tree, cfg, emb, p3, table,
+                                                 32)
+        launches, report = registry.launch_counts(), registry.dispatch_report()
+        peak = torch.cuda.max_memory_allocated()
+        what = f"{arch} {cfg.num_layers} layers q8 bf16"
+        check(np.isfinite(lo).all() and lo.shape == (4, cfg.vocab_size),
+              f"{what}: prefill logits {lo.shape}, finite "
+              f"{np.isfinite(lo).all()}")
+        check(not report, f"{what}: dispatch report not empty: {report}")
+        check(launches["flash_attention"] == cfg.num_layers,
+              f"{what}: {launches['flash_attention']} flash launches")
+        for kern, n in per_forward_launches(cfg).items():
+            check(launches[kern] == n * 32, f"{what}: {launches[kern]} "
+                  f"{kern} launches, want {n} x 32 passes")
+        log(f"[embeds] {what}: prefill(embeds=4 x 128) {pre_ms:.2f} ms, "
+            f"decode {dec_ms:.2f} ms/step eager over 31 steps, launches "
+            f"{launches}, empty report, peak {peak / 2**30:.2f} GiB; first "
+            f"row tail {toks[0, -8:].tolist()}")
+        res[arch] = {"layers": cfg.num_layers, "prefill_ms": pre_ms,
+                     "decode_ms_per_step": dec_ms, "launches": launches,
+                     "max_memory_allocated": peak,
+                     "first_row_tail": toks[0, -8:].tolist()}
+        del tree, emb, p3, table
+        gc.collect()
+        torch.cuda.empty_cache()
+        # the same widths in f32, EMBED_F32_LAYERS deep, card against CPU
+        cfg = cfg.replace(num_layers=EMBED_F32_LAYERS, param_dtype="float32",
+                          compute_dtype="float32")
+        tree = init_q8_leafwise(cfg, device)
+        trees = {str(device): tree, cpu: unflatten(
+            {k: v.cpu() for k, v in flatten_tree(tree).items()})}
+        out = {}
+        t0 = time.perf_counter()
+        for dev in (str(device), cpu):
+            emb, p3, table = embed_inputs(cfg, 4, 128, 9, dev)
+            registry.reset_launch_counts()
+            out[dev] = greedy_embeds(trees[dev], cfg, emb, p3, table,
+                                     EMBED_F32_NEW_TOKENS)
+            if dev == str(device):
+                f32_launches = registry.launch_counts()
+        cpu_s = time.perf_counter() - t0
+        (tok_d, lo_d, _, _), (tok_c, lo_c, _, _) = out[str(device)], out[cpu]
+        err = float(np.max(np.abs(lo_d - lo_c)) / np.max(np.abs(lo_c)))
+        differ = int((tok_d != tok_c).sum())
+        what = f"{arch} {cfg.num_layers} layers f32"
+        log(f"[embeds] {what} on q8: card against cpu ({cpu_s:.1f} s): "
+            f"prefill logits rel diff {err:.2e} (tolerance "
+            f"{TOL_MOE_F32_LOGITS}), {differ} of {tok_d.size} greedy tokens "
+            f"differ; card launches {f32_launches}")
+        check(err <= TOL_MOE_F32_LOGITS, f"{what}: prefill logits differ "
+              f"from the CPU's: rel {err:.3g}")
+        check(differ == 0, f"{what}: {differ} greedy tokens differ between "
+              f"{device} and cpu:\n{tok_d}\n{tok_c}")
+        check(f32_launches["flash_attention"] == cfg.num_layers,
+              f"{what}: {f32_launches['flash_attention']} flash launches")
+        res[arch]["f32"] = {"layers": cfg.num_layers,
+                            "logits_rel_diff_vs_cpu": err,
+                            "tokens_differ_vs_cpu": differ,
+                            "launches": f32_launches, "seconds": cpu_s}
+        del tree, trees, out
+        gc.collect()
+        torch.cuda.empty_cache()
+    return res
+
+
 # ---------------------------------------------------------------------------
 # the paper's search loop: the FIM, the variational FIM, the RD sweep
 # ---------------------------------------------------------------------------
@@ -2134,20 +2675,20 @@ def predicted_sweep_launches(res, search, n_covered, layers) -> dict:
 
 
 def phase_rd_sweep(device):
-    """``rd_sweep`` on the full-width llama3-8b cut to DEPLOY_LAYERS layers
-    (bf16) with the bench's fast grid (SWEEP, min_ndim=3: the stacked layer
-    matrices; embed and head stay raw): rd_quant and flash_attention
-    launch the predicted counts, the dispatch report stays empty, and the
-    policy re-applied through the registry writes the sweep's final
-    container byte for byte.  Prints every point and the split of the
-    phase's seconds."""
+    """``rd_sweep`` on the full-width llama3-8b cut to RD_SWEEP_LAYERS
+    layers (bf16) with the bench's fast grid (SWEEP, min_ndim=3: the
+    stacked layer matrices; embed and head stay raw): rd_quant and
+    flash_attention launch the predicted counts, the dispatch report stays
+    empty, and the policy re-applied through the registry writes the
+    sweep's final container byte for byte.  Prints every point and the
+    split of the phase's seconds."""
     import torch
     from repro_torch import compression
     from repro_torch.compression import codec as codec_mod
     from repro_torch.compression import rd_search
     from repro_torch.kernels import registry
 
-    cfg, params = _full_cut(device)
+    cfg, params = _full_cut(device, num_layers=RD_SWEEP_LAYERS)
     search = _sweep_search()
     covered = {k: v for k, v in compression.flatten_tree(params).items()
                if v.dim() >= search.min_ndim and v.is_floating_point()}
@@ -2368,7 +2909,8 @@ def _leaves(tree):
 
 
 def summarize(dm_rows, fa_rows, grouped_rows, serve, serve_moe, rd_rows,
-              deploy, serve_moe_f32, sweep, swap):
+              deploy, serve_moe_f32, sweep, swap, grouped_v3, serve_dense,
+              serve_mla, embeds):
     """One entry per kernel and, for flash_attention and
     dequant_matmul_grouped, one per instance (``instance``).
     dequant_matmul: one full-width llama3-8b decode step's 225 calls at 4
@@ -2392,7 +2934,13 @@ def summarize(dm_rows, fa_rows, grouped_rows, serve, serve_moe, rd_rows,
     run's are equal).  The serving kernels' ``ms`` and ``library_ms`` are
     CUDA-graph replays (``timing``), their eager loops' ``eager_ms``
     beside them; rd_quant's calls take milliseconds and are timed
-    eagerly."""
+    eagerly.  The other dense variants and MLA (PR 20): the D = 64 flash
+    instances at musicgen-medium's prefill (B=4, S=128, H=G=24), launched
+    by ``embeds_full`` (bf16 at 48 layers, f32 at 2), the grouped kernel
+    at deepseek-v3-671b's 256 experts (one decode step's 3 calls at M=32,
+    launched by ``serve_mla``), and the launches of each serving path of
+    qwen3-8b, deepseek-v3-671b, musicgen-medium and qwen2-vl-7b beside
+    the kernels they run."""
     def row(m, k, n, x):
         return next(r for r in dm_rows if (r["arch"], r["m"], r["k"], r["n"],
                                            r["x"]) ==
@@ -2419,16 +2967,16 @@ def summarize(dm_rows, fa_rows, grouped_rows, serve, serve_moe, rd_rows,
                           "M=512 (bf16 x) and the head at M=4 (f32 x)",
           **{f"prefill_{key}": sum(r[key] * c for r, c in prefill)
              for key in ("ms", "bound_ms", "library_ms")}}
-    def fa_entry(h, dtype, launches, work):
-        r0 = next(r for r in fa_rows if (r["s"], r["h"], r["dtype"]) ==
-                  (128, h, dtype))
+    def fa_entry(h, dtype, launches, work, d=128):
+        r0 = next(r for r in fa_rows if (r["s"], r["h"], r["dtype"],
+                                         r["d"]) == (128, h, dtype, d))
         return {"name": "flash_attention", "route": "cuda",
                 "source": "src/repro_torch/kernels/flash_attention/csrc/"
                           "flash_attention.cu",
                 "replaces": "src/repro/kernels/flash_attention/kernel.py:72",
                 "launches": launches,
                 "max_abs_err": max(r["max_abs_err"] for r in fa_rows
-                                   if r["dtype"] == dtype),
+                                   if (r["dtype"], r["d"]) == (dtype, d)),
                 "work": work, "instance": r0["instance"],
                 "timing": "cuda_graph",
                 **{key: r0[key] for key in ("ms", "eager_ms", "plain_ms",
@@ -2499,7 +3047,42 @@ def summarize(dm_rows, fa_rows, grouped_rows, serve, serve_moe, rd_rows,
           "bound_by": "bytes" if t_b >= t_f else "operations",
           "library_ms": None, "timing": "eager",
           "sweep_launches": sweep["launches"]["rd_quant"]}
-    return [dm, fa, fa32, gm, gm32, rd]
+    mg, qv = embeds["musicgen-medium"], embeds["qwen2-vl-7b"]
+    dm["serve_dense_launches"] = serve_dense["q8"]["launches"][
+        "dequant_matmul"]
+    dm["serve_mla_launches"] = serve_mla["launches"]["dequant_matmul"]
+    dm["embeds_full_launches"] = {a: embeds[a]["launches"]["dequant_matmul"]
+                                  for a in embeds}
+    fa["serve_dense_launches"] = serve_dense["q8"]["launches"][
+        "flash_attention"]
+    fa["embeds_full_launches"] = {"qwen2-vl-7b": qv["launches"][
+        "flash_attention"]}
+    fa64 = fa_entry(FLASH_D64_HEADS[0], "bfloat16",
+                    mg["launches"]["flash_attention"],
+                    "one musicgen-medium prefill call: B=4 S=128 H=G=24 "
+                    "D=64 bf16", d=64)
+    fa64_32 = fa_entry(FLASH_D64_HEADS[0], "float32",
+                       mg["f32"]["launches"]["flash_attention"],
+                       "one musicgen-medium f32 prefill call: B=4 S=128 "
+                       "H=G=24 D=64 f32", d=64)
+    vstep = [(next(r for r in grouped_v3 if (r["m"], r["k"], r["n"]) ==
+                   (GROUPED_V3_ROWS[-1], k, n)), calls)
+             for (k, n), calls, _ in GROUPED_V3_SHAPES]
+    gv3 = {**{key: gm[key] for key in ("name", "route", "source",
+                                       "replaces")},
+           "launches": serve_mla["launches"]["dequant_matmul_grouped"],
+           "max_abs_err": max(r["max_abs_err"] for r in grouped_v3),
+           "work": f"one deepseek-v3-671b decode step's MoE layer: 3 calls, "
+                   f"E={GROUPED_V3_E}, M={GROUPED_V3_ROWS[-1]} per expert "
+                   "(4 slots; a 4 x 128 prefill's capacity is the same), "
+                   "bf16 x, shared (N,) scale",
+           "instance": "tc_bf16", "timing": "cuda_graph",
+           "library_bank": "bfloat16",
+           **{key: sum(r[key] * c for r, c in vstep)
+              for key in ("ms", "eager_ms", "plain_ms", "bound_ms",
+                          "library_ms")},
+           "bound_by": vstep[0][0]["bound_by"]}
+    return [dm, fa, fa32, fa64, fa64_32, gm, gm32, gv3, rd]
 
 
 def main() -> int:
@@ -2529,10 +3112,12 @@ def main() -> int:
     run("dequant_matmul", phase_kernels_dequant, device)
     run("flash_attention", phase_kernels_flash, device)
     run("dequant_matmul_grouped", phase_kernels_grouped, device)
+    run("dequant_matmul_grouped_v3", phase_kernels_grouped_v3, device)
     run("parity", phase_parity, device)
     run("parity_codec", phase_parity_codec, device)
     run("parity_moe", phase_parity_moe, device)
     run("parity_moe_bf16", phase_parity_moe_bf16, device)
+    run("parity_variants", phase_parity_variants, device)
     run("search_parity", phase_search_parity, device)
     cfg, params = init_full(device, "llama3-8b")
     policy = rd_policy_rules(covered_leaves(params))
@@ -2554,6 +3139,15 @@ def main() -> int:
     free()
     run("serve_moe_f32", phase_serve_moe_f32, device)
     free()
+    # the other dense variants and MLA at their published widths
+    cfg, params = init_full(device, "qwen3-8b")
+    run("serve_dense", phase_serve, cfg, params, device)
+    del params
+    free()
+    run("serve_mla", phase_serve_mla, device)
+    free()
+    run("embeds_full", phase_embeds_full, device)
+    free()
     run("fim", phase_fim, device)
     run("variational", phase_variational, device)
     run("rd_sweep", phase_rd_sweep, device)
@@ -2565,7 +3159,10 @@ def main() -> int:
                         results["dequant_matmul_grouped"], results["serve"],
                         results["serve_moe"], results["rd_quant"],
                         results["deploy"], results["serve_moe_f32"],
-                        results["rd_sweep"], results["delta_swap"])
+                        results["rd_sweep"], results["delta_swap"],
+                        results["dequant_matmul_grouped_v3"],
+                        results["serve_dense"], results["serve_mla"],
+                        results["embeds_full"])
     results["kernels"] = kernels
     results["seconds"] = time.perf_counter() - t0
     out_dir = ROOT / "chiprun_out"

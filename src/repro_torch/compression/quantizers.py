@@ -17,8 +17,9 @@ by 127 divides by a 0-d tensor on the weight's device: PyTorch's CUDA
 kernel turns ``t / 127.0`` (a Python scalar) into ``t * (1 / 127)``, which
 moves a scale by an ulp and flips levels on a rounding edge, so the card
 would quantize differently from the CPU and the reference.  Stacked
-tensors are quantized one layer at a time, so no f32 copy of a whole
-(L, K, N) stack is ever made.
+tensors are quantized one layer at a time, and a layer larger than
+``Q8_CHUNK_VALUES`` in runs of its experts, so no f32 copy of a whole
+stack or of a 256-expert bank is made.
 """
 
 from __future__ import annotations
@@ -35,6 +36,11 @@ from ..core.codec import Q8Tensor, QuantizedTensor
 from ..core.quant import nearest_level
 
 STACKED_TOP_KEYS = ("layers", "dense_layers")
+
+# f32 values one step of ``quantize_leaf`` takes from a stacked leaf (1 GiB):
+# a whole layer of every model but deepseek-v3-671b, whose 256-expert bank
+# layer (3.76 G values) goes through in runs of experts
+Q8_CHUNK_VALUES = 1 << 28
 
 
 @runtime_checkable
@@ -69,14 +75,24 @@ def quantize_leaf(w: torch.Tensor) -> dict:
         q = torch.empty(w.shape, dtype=torch.int8, device=w.device)
         scales = torch.empty((w.shape[0], w.shape[-1]), dtype=torch.float32,
                              device=w.device)
-        axes = tuple(range(0, w.dim() - 2))      # within one layer
+        mat = w.shape[-2:]
+        per = max(1, Q8_CHUNK_VALUES // (mat[0] * mat[1]))  # matrices
         for i in range(w.shape[0]):
-            wf = w[i].to(torch.float32)
-            amax = wf.abs().amax(dim=axes, keepdim=True)    # (1.., out)
-            q[i] = torch.clamp(torch.round(
-                wf / torch.clamp_min(amax / q_max, 1e-12)), -127, 127
-            ).to(torch.int8)
-            scales[i] = torch.clamp_min(amax.reshape(-1) / q_max, 1e-12)
+            # a layer's (K, out) matrices (its experts) in chunks of `per`:
+            # the max is exact in any order, so the levels do not depend
+            # on the chunking
+            parts, qi = w[i].reshape(-1, *mat), q[i].view(-1, *mat)
+            chunks = range(0, parts.shape[0], per)
+            amax = None
+            for j in chunks:
+                m = parts[j:j + per].to(torch.float32).abs().amax(dim=(0, 1))
+                amax = m if amax is None else torch.maximum(amax, m)
+            step = torch.clamp_min(amax / q_max, 1e-12)           # (out,)
+            for j in chunks:
+                qi[j:j + per] = torch.clamp(torch.round(
+                    parts[j:j + per].to(torch.float32) / step), -127, 127
+                ).to(torch.int8)
+            scales[i] = step
         return {"q8": q, "q8s": scales}
     wf = w.to(torch.float32)
     axes = tuple(range(w.dim() - 1))

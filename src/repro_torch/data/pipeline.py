@@ -5,9 +5,9 @@ for the same (seed, step)).
 Batch contents are a pure function of (seed, step).  The stream is a
 noisy affine-recurrence language
     t_{k+1} = (a * t_k + b) mod V   with prob (1 - noise), else uniform
-so a model can learn it.  :func:`to_device` turns a token batch into the
-tensors the port's model takes; the ``embeds`` and ``pos3d`` inputs of
-the stub-frontend and m-rope architectures wait with those models.
+so a model can learn it.  :func:`to_device` turns a batch into the
+tensors the port's model takes: tokens, labels and the M-RoPE ``pos3d``
+as int64, a stub frontend's ``embeds`` as f32.
 """
 
 from __future__ import annotations
@@ -54,11 +54,16 @@ def make_eval_batches(cfg, n: int, *, batch: int, seq: int,
             for i in range(n)]
 
 
+_INT_INPUTS = ("tokens", "labels", "pos3d")
+
+
 def to_device(batch: dict, device) -> dict:
-    """A token batch as int64 tensors on ``device`` (tokens, labels)."""
-    extra = sorted(set(batch) - {"tokens", "labels"})
+    """A batch as tensors on ``device``: tokens, labels and pos3d int64,
+    embeds f32.  Any other key raises."""
+    extra = sorted(set(batch) - {*_INT_INPUTS, "embeds"})
     if extra:
-        raise NotImplementedError(
-            f"batch inputs {extra}: not yet ported (token inputs only)")
-    return {k: torch.from_numpy(np.asarray(v)).to(device, torch.int64)
-            for k, v in batch.items()}
+        raise ValueError(f"batch inputs {extra}: the model takes "
+                         "tokens or embeds, labels and pos3d")
+    return {k: torch.from_numpy(np.asarray(v)).to(
+        device, torch.int64 if k in _INT_INPUTS else torch.float32)
+        for k, v in batch.items()}

@@ -13,9 +13,23 @@
 // D=128, bf16) it reads q, k, v and writes the output once, 10.5 MB, a
 // 3.1 us bound at 3.35 TB/s, against 0.54 GFLOP of work (0.5 us on the bf16
 // tensor cores).  In f32 at deepseek-moe-16b's (H, G) = (16, 16): 16.8 MB,
-// 5.0 us, against 0.27 GFLOP (1.6 us at the 3xTF32 rate below).
+// 5.0 us, against 0.27 GFLOP (1.6 us at the 3xTF32 rate below).  At
+// musicgen-medium's prefill (B=4, S=128, H=G=24, D=64): 6.3 MB in bf16,
+// 1.9 us, against 0.20 GFLOP (0.2 us); 12.6 MB in f32, 3.8 us, against
+// 1.2 us at the 3xTF32 rate.
 //
-// Two instances:
+// Two kernels, each built for D = 32 (the smoke models), 64 (musicgen-
+// medium) and 128 (the other full-width models).  Nothing in either
+// depends on D but the loop counts and the shared rows, and D = 64 keeps
+// the D = 128 instance's bank arithmetic: a bf16 row of D + 8 elements is
+// 144 bytes (36 words, 4 mod 32, as 272 bytes at D = 128), so the 8 rows
+// of an ldmatrix phase start at banks 0, 4, .., 28 and hit 32 distinct
+// banks; f32 Q and K rows of D + 8 words are 8 mod 32 and V rows of D + 4
+// are 4 mod 32, as at D = 128.  A row is D / 8 (bf16) or D / 4 (f32)
+// 16-byte cp.async copies, 8 or 16 at D = 64.  Q stays in registers in the
+// bf16 kernel (4 k16 fragments at D = 64, 8 at D = 128).  Shared memory
+// per block at D = 64: 45 KB in bf16 (under the 48 KB default, so no
+// attribute; 4 blocks per SM), 88 KB in f32 (2 blocks per SM).
 //
 // * bf16 (flash_fwd_tc, the main path): tensor cores.  The reference takes
 //   q.k^T from bf16 inputs into f32 and p.astype(bf16) @ v into f32;
@@ -758,6 +772,10 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
     case 32:
       return is_bf16 ? launch_tc<32>(q, k, v, out, B, Sq, Skv, H, G, scale, st)
                      : launch_f32<32>(q, k, v, out, B, Sq, Skv, H, G, scale,
+                                      st);
+    case 64:
+      return is_bf16 ? launch_tc<64>(q, k, v, out, B, Sq, Skv, H, G, scale, st)
+                     : launch_f32<64>(q, k, v, out, B, Sq, Skv, H, G, scale,
                                       st);
     case 128:
       return is_bf16

@@ -38,7 +38,8 @@ from ..registry import count_launch, platform_of, record_event
 from .ref import flash_attention_ref
 from .scan import naive_attend, online_softmax_scan
 
-KERNEL_HEAD_DIMS = (32, 128)        # smoke and full-width llama3-8b
+# smoke models; musicgen-medium; llama3-8b and the other GQA models
+KERNEL_HEAD_DIMS = (32, 64, 128)
 
 _ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
              ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,

@@ -6,14 +6,20 @@ backend, optionally from a DeepCABAC container.
         --prompt-len 128 --steps 32
     PYTHONPATH=src python -m repro_torch.launch.serve \\
         --arch deepseek-moe-16b --backend q8 --prompt-len 128
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --arch qwen3-8b --backend q8 --prompt-len 128
 
-``--backend``: ``bf16`` (full-precision weights), ``q8`` (int8 matmul
-weights), ``container`` (stream the DCBC blob; serve-q8 records stay
-int8).  Without ``--ckpt`` the bf16/q8 backends take seeded random init,
-and the container backend packs a serve-q8 container in process first,
-so the streaming load still runs.  Runs on the card unless
-``--device cpu``; on the card the session replays CUDA graphs of its
-steps.
+``--arch`` takes every ported id (``configs.ARCH_IDS``;
+deepseek-v3-671b's 671 G parameters do not fit one card, so it serves
+with ``--smoke`` there); a model that takes embeddings (musicgen-medium,
+qwen2-vl-7b) exits with a message: it runs through ``prefill`` /
+``decode_step`` with ``embeds=``, not a session. ``--backend``: ``bf16``
+(full-precision weights), ``q8`` (int8 matmul weights), ``container``
+(stream the DCBC blob; serve-q8 records stay int8). Without ``--ckpt``
+the bf16/q8 backends take seeded random init, and the container backend
+packs a serve-q8 container in process first, so the streaming load still
+runs. Runs on the card unless ``--device cpu``; on the card the session
+replays CUDA graphs of its steps.
 Prints the generated tokens, the decode ms/step (host clock per tick
 after the first two, which hold the prefills and the decode graph's
 capture), the launch count of every
@@ -31,7 +37,7 @@ import numpy as np
 from .. import configs, kernels
 from ..models.transformer import init_params
 from ..serve.backends import available_backends
-from ..serve.session import ServeConfig, ServeSession
+from ..serve.session import ServeConfig, ServeSession, require_token_input
 
 
 def main(argv=None):
@@ -52,6 +58,10 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     cfg = configs.get(args.arch, smoke=args.smoke)
+    try:
+        require_token_input(cfg)
+    except ValueError as e:
+        raise SystemExit(str(e)) from None
     if args.ckpt:
         with open(args.ckpt, "rb") as f:
             weights = f.read()

@@ -1,5 +1,6 @@
 """Shared layer primitives (port of ``repro.models.layers``): the q8
-projection, RMSNorm, activations, SwiGLU MLP and RoPE."""
+projection, RMSNorm and layernorm, activations, SwiGLU MLP, RoPE and
+M-RoPE."""
 
 from __future__ import annotations
 
@@ -29,6 +30,25 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float
             ).to(dtype)
 
 
+def layer_norm(x: torch.Tensor, p: dict, eps: float) -> torch.Tensor:
+    """Layernorm with ``{"scale", "bias"}``: f32 mean and (biased)
+    variance, ``rsqrt(var + eps)``, then scale and bias, back in x's type
+    (the reference's ``transformer._norm``)."""
+    xf = x.to(torch.float32)
+    mean = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.var(xf, dim=-1, keepdim=True, correction=0)
+    y = (xf - mean) * torch.rsqrt(var + eps)
+    return (y * p["scale"] + p["bias"]).to(x.dtype)
+
+
+def norm(x: torch.Tensor, p, cfg) -> torch.Tensor:
+    """The model's norm, as ``cfg.norm`` names it: ``"layernorm"`` takes a
+    ``{"scale", "bias"}`` dict, ``"rmsnorm"`` a scale vector."""
+    if cfg.norm == "layernorm":
+        return layer_norm(x, p, cfg.norm_eps)
+    return rms_norm(x, p, cfg.norm_eps)
+
+
 def activation(x: torch.Tensor, kind: str) -> torch.Tensor:
     if kind == "silu":
         return F.silu(x)
@@ -54,6 +74,25 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     halves of D (not interleaved pairs), as the reference does."""
     freqs = rope_freqs(x.shape[-1], theta, x.device)
     ang = positions[..., None].to(torch.float32) * freqs    # (..., S, D/2)
+    cos = torch.cos(ang)[..., None, :]
+    sin = torch.sin(ang)[..., None, :]
+    x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def apply_m_rope(x: torch.Tensor, positions_3d: torch.Tensor, theta: float,
+                 sections: tuple[int, int, int]) -> torch.Tensor:
+    """Qwen2-VL multimodal RoPE.  x (B, S, H, D), positions_3d (3, B, S).
+    The D/2 rotation frequencies are split into (t, h, w) sections: the
+    first ``sections[0]`` rotate by the temporal stream, the next
+    ``sections[1]`` by the height stream, the rest by the width stream."""
+    half = x.shape[-1] // 2
+    freqs = rope_freqs(x.shape[-1], theta, x.device)
+    ang_all = positions_3d[..., None].to(torch.float32) * freqs  # (3,B,S,D/2)
+    s0, s1 = sections[0], sections[0] + sections[1]
+    ang = torch.cat([ang_all[0, ..., :s0], ang_all[1, ..., s0:s1],
+                     ang_all[2, ..., s1:half]], dim=-1)            # (B,S,D/2)
     cos = torch.cos(ang)[..., None, :]
     sin = torch.sin(ang)[..., None, :]
     x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)

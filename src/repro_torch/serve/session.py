@@ -10,6 +10,11 @@ real position — then runs one decode step over every slot with per-slot
 ragged positions, then evicts requests that hit EOS or their length.
 Sampling is the reference's host numpy code, so greedy and temperature
 tokens match it.  The paged KV cache (``kv_page_size``) is not ported.
+The session serves token models, as the reference's does: a model that
+takes embeddings (``embed_input=False``) is refused, and runs through
+``prefill`` / ``decode_step`` with ``embeds=``.  The slot caches are the
+GQA cache's (L, B, Smax, G, D) tensors or MLA's (L, B, Smax, R) latents:
+axis 1 is the slot axis in both.
 
 On the card, prefill and decode replay CUDA graphs (``serve.graphs``), as
 the reference runs them through ``jax.jit``: one decode graph (decode
@@ -47,6 +52,16 @@ from ..models.config import ModelConfig
 from ..models.transformer import decode_step, init_cache, prefill
 from .backends import resolve_backend
 from .graphs import StepGraphs, eager_steps  # noqa: F401
+
+
+def require_token_input(cfg: ModelConfig) -> None:
+    """Raise ValueError for a model without a token embedding: the session
+    feeds tokens, and such a model takes embeddings."""
+    if not cfg.embed_input:
+        raise ValueError(
+            f"{cfg.name} takes embeddings (embed_input=False), and the "
+            "serving session feeds tokens: run it through "
+            "models.transformer.prefill / decode_step with embeds=")
 
 
 @dataclass(frozen=True)
@@ -114,6 +129,7 @@ class ServeSession:
                 f"slots={serve_cfg.slots}, max_len={serve_cfg.max_len}")
         if serve_cfg.kv_page_size is not None:
             raise NotImplementedError("paged KV cache: not yet ported")
+        require_token_input(cfg)
         if serve_cfg.kv_cache_delta is not None:
             cfg = cfg.replace(kv_cache_delta=serve_cfg.kv_cache_delta)
         if serve_cfg.prefill_buckets and cfg.family != "dense":
@@ -329,7 +345,7 @@ class ServeSession:
     def _place(self, caches_g: dict, slots_idx: torch.Tensor) -> None:
         """Copy a batch-k prefill's caches into slots ``slots_idx`` ((k,)
         int64 on the device): axis 1 of every cache leaf is the slot axis,
-        in a flat {"k", "v"} tree or a MoE model's nested
+        in a flat {"k", "v"} or {"ckv", "kr"} tree or a MoE model's nested
         {"dense": ..., "main": ...} one."""
         part = flatten_tree(caches_g)
         for name, full in flatten_tree(self._caches).items():

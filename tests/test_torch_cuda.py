@@ -192,14 +192,19 @@ def test_dequant_matmul_rejects_what_the_kernel_does_not_take():
                                      (2, 130, 300, 257), (4, 17, 256, 160),
                                      (64, 32, 2048, 1408),
                                      (64, 64, 1408, 2048), (2, 33, 132, 48),
-                                     (3, 64, 1030, 130)])
+                                     (3, 64, 1030, 130),
+                                     (256, 32, 7168, 256),
+                                     (256, 32, 2048, 896)])
 def test_dequant_matmul_grouped_kernel_matches_plain(e, m, k, n, scale_form):
     """Both x types on the tensor cores (a f32 x by the bf16x3 split, on
     mma.sync up to 32 rows and on wgmma above): 16-byte copies at aligned
     shapes (K a multiple of 8 for a bf16 x, of 4 for a f32 x: (2, 33, 132,
     48) takes them for f32 only), element-wise loads at (3, 5, 70, 33),
     (2, 130, 300, 257) and (3, 64, 1030, 130); the 32-row M tile, which
-    also takes M <= 16, the 64-row one, and several M tiles (M = 130)."""
+    also takes M <= 16, the 64-row one, and several M tiles (M = 130);
+    deepseek-v3-671b's 256 experts at its bank's K (7168 and 2048) and a
+    reduced N (the plain version on the CPU would take 15 GB of f32 at
+    the full N)."""
     _needs_card()
     g = torch.Generator(device="cuda").manual_seed(e + m + k + n)
     wq = torch.randint(-127, 128, (e, k, n), generator=g, device="cuda",
@@ -297,12 +302,14 @@ def test_grouped_f32_instance_takes_operands_off_a_16_byte_boundary(
     assert _rel(got, dequant_matmul_grouped_ref(x, wq, sc)) <= 1e-4
 
 
-@pytest.mark.parametrize("h,g", [(32, 8), (16, 16), (4, 1)])
+@pytest.mark.parametrize("h,g", [(32, 8), (16, 16), (4, 1), (24, 24),
+                                 (28, 4)])
 @pytest.mark.parametrize("s", [1, 100, 128, 257])
-@pytest.mark.parametrize("d", [32, 128])
+@pytest.mark.parametrize("d", [32, 64, 128])
 def test_flash_tc_instance_matches_plain(d, s, h, g):
-    """The bf16 (tensor-core) instance at both head dims, ragged S and
-    every main-path group size."""
+    """The bf16 (tensor-core) instance at every head dim it is built for,
+    ragged S and every main-path group size (musicgen-medium's (24, 24),
+    qwen2-vl-7b's rep-7 (28, 4))."""
     _needs_card()
     gen = torch.Generator(device="cuda").manual_seed(s * 7 + d + h + g)
     q, k, v = (torch.randn(shape, generator=gen, device="cuda").to(
@@ -318,12 +325,14 @@ def test_flash_tc_instance_matches_plain(d, s, h, g):
     assert _rel(got, want) <= TOL_FLASH_BF16
 
 
-@pytest.mark.parametrize("h,g", [(32, 8), (16, 16), (4, 1)])
+@pytest.mark.parametrize("h,g", [(32, 8), (16, 16), (4, 1), (24, 24),
+                                 (28, 4)])
 @pytest.mark.parametrize("s", [1, 100, 128, 257])
-@pytest.mark.parametrize("d", [32, 128])
+@pytest.mark.parametrize("d", [32, 64, 128])
 def test_flash_f32_instance_matches_plain(d, s, h, g):
-    """The f32 (3xTF32 tensor-core) instance at both head dims, ragged S
-    and every main-path group size, to 1e-4 of max|plain|."""
+    """The f32 (3xTF32 tensor-core) instance at every head dim it is built
+    for, ragged S and every main-path group size, to 1e-4 of
+    max|plain|."""
     _needs_card()
     gen = torch.Generator(device="cuda").manual_seed(s * 5 + d + h + g)
     q, k, v = (torch.randn(shape, generator=gen, device="cuda")
@@ -450,9 +459,9 @@ def test_tc_instances_raise_and_never_take_the_plain_version(monkeypatch):
     q = torch.zeros((1, 8, 4, 128), device="cuda", dtype=torch.bfloat16)
     kv = torch.zeros((1, 8, 2, 128), device="cuda", dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="head dim"):
-        fops.flash_attention(q[..., :64].contiguous(),
-                             kv[..., :64].contiguous(),
-                             kv[..., :64].contiguous())
+        fops.flash_attention(q[..., :80].contiguous(),
+                             kv[..., :80].contiguous(),
+                             kv[..., :80].contiguous())
     with pytest.raises(TypeError, match="dtype"):
         fops.flash_attention(q, kv.float(), kv)
     with pytest.raises(ValueError, match="divide"):
@@ -519,9 +528,11 @@ def test_flash_kernel_matches_plain(s, d, h, g):
 
 
 def test_flash_kernel_raises_on_a_head_dim_it_was_not_built_for():
+    """80 (zamba2-2.7b's, not built): the wrapper raises, the router does
+    not fall back."""
     _needs_card()
-    q = torch.zeros((1, 8, 2, 64), device="cuda")
-    kv = torch.zeros((1, 8, 1, 64), device="cuda")
+    q = torch.zeros((1, 8, 2, 80), device="cuda")
+    kv = torch.zeros((1, 8, 1, 80), device="cuda")
     with pytest.raises(ValueError, match="head dim"):
         fops.flash_attention(q, kv, kv)
     qpos = torch.arange(8, device="cuda")[None]
@@ -759,21 +770,31 @@ def _serve_modes(arch, dtype, requests=7):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("arch", ["llama3-8b", "deepseek-moe-16b"])
+@pytest.mark.parametrize("arch", ["llama3-8b", "deepseek-moe-16b",
+                                  "qwen3-8b", "deepseek-v3-671b"])
 def test_graph_session_equals_the_eager_session(arch, dtype):
     """Bit for bit: a replay runs the eager step's kernels on the same
     inputs, so every logit and every token is the same; launch counts too
-    (each replay credits its capture's), and the report stays empty."""
+    (each replay credits its capture's), and the report stays empty but
+    for MLA's prefills, whose d != dv takes the scan (recorded, as the
+    reference records it)."""
     _needs_card()
     out = _serve_modes(arch, dtype)
     eager, graph = out["eager"], out["graph"]
     assert graph[0] == eager[0]
     assert graph[1] == eager[1]
     assert graph[1]["dequant_matmul"] > 0
-    assert graph[1]["flash_attention"] > 0
-    if arch == "deepseek-moe-16b":
+    if arch == "deepseek-v3-671b":
+        assert graph[1]["flash_attention"] == 0
+        for rec in eager[2] + graph[2]:
+            assert (rec["op"], rec["kind"], rec["reason"]) == (
+                "flash_attention", "fallback", "d != dv (48 != 32)")
+        assert eager[2] and graph[2]
+    else:
+        assert graph[1]["flash_attention"] > 0
+        assert eager[2] == graph[2] == []
+    if arch.startswith("deepseek"):
         assert graph[1]["dequant_matmul_grouped"] > 0
-    assert eager[2] == graph[2] == []
     assert eager[3] == {"eager": 0, "captures": 0, "replays": 0}
     assert graph[3]["captures"] >= 2 and graph[3]["replays"] >= 10
 
@@ -1019,3 +1040,61 @@ def test_swap_under_graph_replay_equals_eager_and_cpu(tmp_path):
         assert torch.equal(graph[1][k], v), k
         if k.endswith(("/q8", "/q8s")):
             assert torch.equal(cpu[1][k], v), k
+
+
+# ---------------------------------------------------------------------------
+# the other dense variants and MLA
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_mla_block_on_the_card_matches_the_cpu(dtype):
+    """deepseek-v3-671b's smoke MLA block (q8 projections, int8 latent
+    cache): prefill, then a ragged decode step, on the card and on the
+    CPU from the same tensors.  Both take the scan at prefill (d != dv)
+    and the naive path at decode; the projections go through
+    dequant_matmul on the card.  f32 to 1e-4 of max|cpu|; bf16 to
+    TOL_FLASH_BF16 (bf16 activations rounded in other places)."""
+    _needs_card()
+    from repro_torch import configs
+    from repro_torch.compression.tree import flatten_tree, unflatten
+    from repro_torch.models.attention import mla_attention
+    from repro_torch.models.transformer import _layer_slice, init_params
+    from repro_torch.serve.quantized import quantize_tree_q8
+    dt = getattr(torch, dtype)
+    cfg = configs.get("deepseek-v3-671b", smoke=True).replace(
+        q8_cache=True, param_dtype=dtype, compute_dtype=dtype)
+    p_cpu = _layer_slice(quantize_tree_q8(init_params(cfg, 0, device="cpu"))
+                         ["layers"]["attn"], 0)
+    p_gpu = unflatten({k: v.cuda() for k, v in
+                       flatten_tree(p_cpu).items()})
+    g = torch.Generator().manual_seed(3)
+    b, s, max_len = 3, 9, 16
+    x = torch.randn((b, s, cfg.d_model), generator=g).to(dt)
+    x1 = torch.randn((b, 1, cfg.d_model), generator=g).to(dt)
+    cp = torch.tensor([9, 4, 7])
+    out = {}
+    for dev, p in (("cpu", p_cpu), ("cuda", p_gpu)):
+        cache = {"ckv": torch.zeros((b, max_len, cfg.kv_lora_rank),
+                                    dtype=torch.int8, device=dev),
+                 "kr": torch.zeros((b, max_len, cfg.qk_rope_head_dim),
+                                   dtype=torch.int8, device=dev)}
+        pos = torch.arange(s, device=dev).expand(b, s)
+        kernels.reset_launch_counts()
+        y, cache = mla_attention(x.to(dev), p, cfg, pos, cache=cache,
+                                 qpos_canonical=True)
+        y1, cache = mla_attention(x1.to(dev), p, cfg,
+                                  cp.to(dev)[:, None], cache=cache,
+                                  cache_pos=cp.to(dev))
+        out[dev] = (y.cpu(), y1.cpu(), {k: v.cpu() for k, v in
+                                        cache.items()},
+                    kernels.launch_counts())
+    tol = 1e-4 if dtype == "float32" else TOL_FLASH_BF16
+    for i in (0, 1):
+        assert torch.isfinite(out["cuda"][i].float()).all()
+        assert _rel(out["cuda"][i], out["cpu"][i]) <= tol
+    for name in ("ckv", "kr"):               # int8 levels: at most one step
+        d = (out["cuda"][2][name].int() - out["cpu"][2][name].int()).abs()
+        assert int(d.max()) <= 1
+    # 7 projections a call, w_dq .. wo; attention never reaches the kernel
+    assert out["cuda"][3]["dequant_matmul"] == 14
+    assert out["cuda"][3]["flash_attention"] == 0

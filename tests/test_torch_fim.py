@@ -92,8 +92,13 @@ def test_make_batch_equals_reference(arch):
         np.testing.assert_array_equal(g["labels"], w["labels"])
     dev = pipeline.to_device(got, "cpu")
     assert all(t.dtype == torch.int64 for t in dev.values())
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        pipeline.to_device({**got, "embeds": np.zeros(1)}, "cpu")
+    extra = pipeline.to_device({"embeds": np.zeros((1, 2, 3), np.float32),
+                                "pos3d": np.zeros((3, 1, 2), np.int32)},
+                               "cpu")
+    assert extra["embeds"].dtype == torch.float32
+    assert extra["pos3d"].dtype == torch.int64
+    with pytest.raises(ValueError, match="batch inputs"):
+        pipeline.to_device({**got, "frames": np.zeros(1)}, "cpu")
 
 
 # ---------------------------------------------------------------------------

@@ -113,6 +113,46 @@ def test_steps_run_with_no_host_sync(arch, tree, step):
         assert torch.equal(out, logits)
 
 
+@pytest.mark.parametrize("step", ["prefill", "prefill_padded", "decode"])
+@pytest.mark.parametrize("arch", ["deepseek-v3-671b", "qwen2-vl-7b",
+                                  "musicgen-medium"])
+def test_mla_and_m_rope_steps_run_with_no_host_sync(arch, step):
+    """The MLA latent cache (q8, int8 cache), M-RoPE with its (3, B, S)
+    streams and layernorm: prefill and ragged decode capture-safe."""
+    cfg, params = _smoke(arch, "q8", q8_cache=True)
+    rng = np.random.default_rng(2)
+    b, s, max_len = 3, 24, 32
+    if cfg.embed_input:
+        inp = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                                       (b, s)))}
+        inp1 = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                                        (b,)))}
+    else:
+        inp = {"embeds": torch.randn(b, s, cfg.d_model)}
+        inp1 = {"embeds": torch.randn(b, 1, cfg.d_model)}
+        if cfg.m_rope:
+            grid = torch.arange(s) // 4                    # distinct streams
+            inp["pos3d"] = torch.stack([torch.zeros(s, dtype=torch.long),
+                                        grid, torch.arange(s) % 4]
+                                       )[:, None].expand(3, b, s)
+            inp1["pos3d"] = torch.full((3, b, 1), s)
+    last = torch.tensor([23, 9, 0])
+    pos = torch.tensor([24, 10, 1], dtype=torch.int32)
+    logits, caches = ttf.prefill(params, cfg, max_len=max_len, **inp)
+    with NoHostSync():
+        if step == "prefill":
+            out, _ = ttf.prefill(params, cfg, max_len=max_len, **inp)
+        elif step == "prefill_padded":
+            out, _ = ttf.prefill(params, cfg, max_len=max_len,
+                                 last_index=last, **inp)
+        else:
+            out, _ = ttf.decode_step(params, cfg, caches, pos, **inp1)
+    assert out.shape == (b, cfg.vocab_size)
+    assert torch.isfinite(out).all()
+    if step == "prefill":
+        assert torch.equal(out, logits)
+
+
 def test_the_mode_catches_a_host_sync():
     with pytest.raises(AssertionError, match="host-syncing"):
         with NoHostSync():

@@ -198,23 +198,31 @@ def test_library_name_hashes_the_shared_headers(tmp_path, monkeypatch):
         assert _build._lib_path(n).parent == _build.BUILD_DIR
 
 
-def test_kernel_yardsticks_needs_a_card_and_imports_no_jax():
-    """The parent-against-change timing script fails without a card, prints
+def _needs_a_card_and_imports_no_jax(module: str) -> None:
+    """A parent-against-change timing script fails without a card, prints
     no result, and imports nothing of JAX or of the JAX package."""
-    script = REPO / "kernel_yardsticks.py"
+    script = REPO / f"{module}.py"
     res = subprocess.run([sys.executable, str(script), str(REPO)], cwd=REPO,
                          capture_output=True, text=True, timeout=120,
                          env={**os.environ, "CUDA_VISIBLE_DEVICES": ""})
     assert res.returncode != 0
     assert "{" not in res.stdout
     code = ("import sys; sys.path[:0] = ['.']\n"
-            "import kernel_yardsticks\n"
+            f"import {module}\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'jaxlib', 'repro.')) or m == 'repro')\n"
             "assert not bad, bad\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stdout + res.stderr
+
+
+def test_kernel_yardsticks_needs_a_card_and_imports_no_jax():
+    _needs_a_card_and_imports_no_jax("kernel_yardsticks")
+
+
+def test_serve_yardsticks_needs_a_card_and_imports_no_jax():
+    _needs_a_card_and_imports_no_jax("serve_yardsticks")
 
 
 def test_port_imports_no_jax_and_nothing_of_repro():

@@ -65,11 +65,13 @@ def smoke():
 
 def test_config_matches_reference_field_for_field():
     import dataclasses
-    for smoke_ in (False, True):
-        want = dataclasses.asdict(jconfigs.get("llama3-8b", smoke=smoke_))
-        want.pop("kernels")
-        got = dataclasses.asdict(configs.get("llama3-8b", smoke=smoke_))
-        assert got == want
+    assert "llama3-8b" in configs.names()
+    for arch in configs.names():                 # every registered id
+        for smoke_ in (False, True):
+            want = dataclasses.asdict(jconfigs.get(arch, smoke=smoke_))
+            want.pop("kernels")
+            got = dataclasses.asdict(configs.get(arch, smoke=smoke_))
+            assert got == want, arch
     with pytest.raises(NotImplementedError, match="not yet ported"):
         configs.get("mamba2-2.7b")
     with pytest.raises(KeyError):

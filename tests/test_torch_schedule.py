@@ -1,6 +1,7 @@
 """How ``dequant_matmul`` cuts its grid (``ops.schedule``), checked on the
-CPU for every main-path shape of llama3-8b and deepseek-moe-16b at decode
-(M = 1, 4) and prefill (M = 512) on a card of 132 SMs: the K chunks cover
+CPU for every main-path shape of the registered models at decode (M = 1,
+4) and prefill (M = 512; MLA's whole-cache up-projection at M = 640) on a
+card of 132 SMs: the K chunks cover
 K exactly once, in whole steps of the instance, at most MAX_SPLITS of
 them (one thread-block cluster); a decode block stages at most
 DECODE_X_BYTES of x; and the grid fills the card.  Only the kernel's
@@ -19,9 +20,22 @@ SHAPES = {  # (K, N) of each model's dequant_matmul calls (chip_smoke.py)
     "deepseek-moe-16b": [(2048, 2048), (2048, 64), (2048, 2816),
                          (2816, 2048), (2048, 10944), (10944, 2048),
                          (2048, 102400)],
+    "qwen3-8b": [(4096, 12288), (12288, 4096), (4096, 151936)],
+    "qwen1.5-4b": [(2560, 2560), (2560, 6912), (6912, 2560),
+                   (2560, 151936)],
+    "mistral-nemo-12b": [(5120, 4096), (5120, 1024), (4096, 5120),
+                         (5120, 14336), (14336, 5120), (5120, 131072)],
+    "qwen2-vl-7b": [(3584, 3584), (3584, 512), (3584, 18944),
+                    (18944, 3584), (3584, 152064)],
+    "musicgen-medium": [(1536, 1536), (1536, 6144), (6144, 1536),
+                        (1536, 2048)],
+    "deepseek-v3-671b": [(7168, 1536), (1536, 24576), (7168, 512),
+                         (7168, 64), (16384, 7168), (7168, 18432),
+                         (18432, 7168), (7168, 256), (7168, 2048),
+                         (2048, 7168), (7168, 129280)],
 }
 CASES = [(m, k, n) for shapes in SHAPES.values() for k, n in shapes
-         for m in (1, 4, 512)]
+         for m in (1, 4, 512)] + [(640, 512, 16384), (512, 512, 16384)]
 
 
 @pytest.mark.parametrize("m,k,n", CASES)
