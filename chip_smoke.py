@@ -47,7 +47,7 @@ Phases (each fails the run on its own; nothing is caught and ignored):
              (from graphs also the replay's time by CUDA events and the
              idle share of an untraced tick), one prefill forward's ms
              and peak memory (graph pools included);
-7. deploy serve — full width cut to 2 layers: a deepcabac-rd container
+7. deploy serve — full width cut to 1 layer: a deepcabac-rd container
              (every float leaf of rank >= 2, embed and head included)
              encoded from the card, served through
              ``ServeEngine.from_compressed`` on the q8 and container
@@ -117,9 +117,29 @@ Phases (each fails the run on its own; nothing is caught and ignored):
              and qwen2-vl-7b (28 layers, M-RoPE over a patch grid and
              text) at full depth on q8: ``prefill(embeds=...)`` of 4 x 128
              and 31 decode steps fed back through a stub frontend table;
-             then each at 2 layers in f32, card tokens equal to the CPU's.
+             then each at 2 layers in f32, card tokens equal to the CPU's;
+19. tune (after 17) — the autotuner (``kernels.autotune``) on the card,
+             into its own cache file: dequant_matmul at every distinct
+             (M, K, N) of the MLA cut's decode step (its 42 calls, recorded
+             at the op) and at llama3-8b's decode and prefill projections,
+             rd_quant at the full llama3-8b tree's n buckets; every
+             candidate checked against the plain version (rd_quant:
+             levels equal); a table of default and tuned tiles and times
+             beside the bound;
+20. serve_mla_tuned — the MLA cut from graphs with the tuned cache:
+             tokens and launches equal to 17's, decode ms/step and the
+             dequant_matmul calls' device ms beside 17's;
+21. pins    — impl pins on the card: the llama3-8b smoke model with
+             dequant_matmul pinned to ref (no launch of it, tokens equal
+             to the default's), a strict flash_attention=cuda pin with a
+             ragged kv_len raises KernelDispatchError and the same call
+             unpinned records its fallback; the launcher's
+             --kernel-impl and --strict-kernels likewise.
 
-13 runs at 1 layer (RD_SWEEP_LAYERS), so that 15-18 fit the time limit.
+Every phase but 20 runs under the default kernel policy with an empty
+tuning cache (``REPRO_TORCH_KERNEL_TUNE_CACHE`` points at a fresh file
+under ``build/``), so a stale cache on the machine changes nothing.
+13 runs at 1 layer (RD_SWEEP_LAYERS), so that 15-21 fit the time limit.
 
 The line before the last is the card's name and power limit; one line
 before it is the ``{"kernels": [...]}`` summary; the last line is
@@ -234,7 +254,11 @@ RD_OPS_CAND = 30             # per candidate, f32: add, 2 clips, step*k, w-,
 # Integer operations run on 64 lanes per SM, so this rate keeps the bound
 # a lower bound.
 ISSUE_OPS_PER_S = F32_FLOPS / 2
-DEPLOY_LAYERS = 2            # depth of the full-width container served
+DEPLOY_LAYERS = 2            # depth of the 2-layer full-width cuts
+DEPLOY_SERVE_LAYERS = 1      # depth of the deepcabac-rd container served
+#                              (cut from 2 in PR 21 for time: its host
+#                              CABAC encode and three decodes go with the
+#                              embed and head, 1.05 G of its 1.27 G values)
 # deepseek-moe-16b in f32 at full width, DEPLOY_LAYERS deep: new tokens per
 # request (11 ticks in all: the first holds the prefill, the second
 # captures the decode graph, ticks 4-7 are traced as in the other serves,
@@ -285,6 +309,16 @@ SWAP_NEW_TOKENS = 32
 SWAP_TICKS = 8
 SWAP_LATE_TOKENS = 8
 SWAP_DISK_BYTES = 20 * 2**30
+# the kernel tuning cache: every phase serves with an empty one (a stale
+# file of the machine's cannot change a phase), except serve_mla_tuned,
+# which reads what the tune phase wrote; tune's rd_quant sizes are the full
+# llama3-8b tree's leaves (wk/wv, wq/wo/embed/head, the MLP: one n bucket
+# each), bf16, its levels checked against the plain version on a prefix
+TUNE_DIR = ROOT / "build" / "chip_smoke_tune"
+EMPTY_TUNE_CACHE = TUNE_DIR / "empty.json"
+TUNED_CACHE = TUNE_DIR / "tuned.json"
+RD_TUNE_N = (32 * 4096 * 1024, 32 * 4096 * 4096, 32 * 4096 * 14336)
+RD_TUNE_PREFIX = 1 << 24
 
 
 def log(msg: str) -> None:
@@ -1291,9 +1325,9 @@ def phase_deploy_rd(params, policy):
 
 
 def phase_deploy_serve(device):
-    """Full width cut to DEPLOY_LAYERS layers: deepcabac-rd container from
-    the card, served from the blob on q8 and container, against sessions
-    on the in-memory tree with the same policy applied."""
+    """Full width cut to DEPLOY_SERVE_LAYERS layers: deepcabac-rd container
+    from the card, served from the blob on q8 and container, against
+    sessions on the in-memory tree with the same policy applied."""
     import numpy as np
     import torch
     from repro_torch import compression, configs
@@ -1304,7 +1338,8 @@ def phase_deploy_serve(device):
     from repro_torch.serve import ServeEngine
     from repro_torch.serve.backends import get_backend
 
-    cfg = configs.get("llama3-8b").replace(num_layers=DEPLOY_LAYERS)
+    cfg = configs.get("llama3-8b").replace(
+        num_layers=DEPLOY_SERVE_LAYERS)
     params = init_params(cfg, 0, device=device)
     leaves = covered_leaves(params)
     policy = rd_policy_rules(leaves)
@@ -1331,7 +1366,7 @@ def phase_deploy_serve(device):
     for hdr, payload in ContainerReader(blob):
         decode_record(hdr, payload, dequantize=False)
     dec_s = time.perf_counter() - t0
-    log(f"[deploy] llama3-8b full width, {DEPLOY_LAYERS} layers: "
+    log(f"[deploy] llama3-8b full width, {DEPLOY_SERVE_LAYERS} layers: "
         f"{n_params / 1e9:.3f} G params, {n_coded / 1e9:.3f} G RD-coded "
         f"({len(leaves)} leaves, embed and head included); RD on the card "
         f"{rd_s:.2f} s ({launches} rd_quant launches); host CABAC encode "
@@ -1348,7 +1383,8 @@ def phase_deploy_serve(device):
     prompts = rng.integers(0, cfg.vocab_size, (4, 128)).astype(np.int32)
     new_tokens = 32
     per_fwd = per_forward_launches(cfg)["dequant_matmul"]
-    out = {"layers": DEPLOY_LAYERS, "params": n_params, "rd_coded": n_coded,
+    out = {"layers": DEPLOY_SERVE_LAYERS, "params": n_params,
+           "rd_coded": n_coded,
            "leaves": len(leaves), "rd_quant_launches": launches,
            "rd_s": rd_s, "encode_s": enc_s, "decode_s": dec_s,
            "encode_values_per_s": n_coded / enc_s,
@@ -2252,29 +2288,30 @@ def init_q8_leafwise(cfg, device) -> dict:
     return unflatten(flat)
 
 
-def phase_serve_mla(device, cpu="cpu"):
+def mla_cut(device):
     """deepseek-v3-671b at its published widths cut to SERVE_MLA_LAYERS
     layers (the 3 leading dense layers, d_ff 18432, and one MoE layer of
-    256 experts top-8), bf16, built on q8 leaf by leaf and served as
-    ``_serve_modes`` does (4 x 128 + 32 greedy, eagerly and from graphs):
-    tokens and launches equal in both modes, dequant_matmul and
-    dequant_matmul_grouped launched as ``per_forward_launches`` predicts,
-    no flash launch, and only the d != dv (192 != 128) records.  Then one
-    full-width MLA block in f32 on q8 (prefill of 2 x 64, a ragged decode
-    step) on the card against the CPU."""
-    import numpy as np
-    import torch
+    256 experts top-8), bf16, built on q8 leaf by leaf: (cfg, tree), served
+    by ``serve_mla`` and, after ``tune``, by ``serve_mla_tuned``."""
     from repro_torch import configs
-
     cfg = configs.get("deepseek-v3-671b").replace(
         num_layers=SERVE_MLA_LAYERS)
-    tree = init_q8_leafwise(cfg, device)
-    gc.collect()
-    torch.cuda.empty_cache()
+    return cfg, init_q8_leafwise(cfg, device)
+
+
+def phase_serve_mla(cfg, tree, device, cpu="cpu"):
+    """The MLA cut (``mla_cut``) served as ``_serve_modes`` does (4 x 128 +
+    32 greedy, eagerly and from graphs, under the default policy and an
+    empty tuning cache): tokens and launches equal in both modes,
+    dequant_matmul and dequant_matmul_grouped launched as
+    ``per_forward_launches`` predicts, no flash launch, and only the d !=
+    dv (192 != 128) records.  Then one full-width MLA block in f32 on q8
+    (prefill of 2 x 64, a ragged decode step) on the card against the
+    CPU."""
+    import numpy as np
     rng = np.random.default_rng(7)
     prompts = rng.integers(0, cfg.vocab_size, (4, 128)).astype(np.int32)
     r = _serve_modes(cfg, tree, "q8", device, prompts, 32)
-    del r["tokens"], r["logits"]
     fwd = 1 + r["decode_steps"]
     e = r["eager"]
     what = f"deepseek-v3-671b {cfg.num_layers} layers q8"
@@ -2297,10 +2334,8 @@ def phase_serve_mla(device, cpu="cpu"):
         f"{_fmt(r['device_idle_share'])} traced, "
         f"{_fmt(r['untraced_idle_share'])} untraced; launches "
         f"{r['launches']}; peak {r['max_memory_allocated'] / 2**30:.2f} GiB")
-    del tree
-    gc.collect()
-    torch.cuda.empty_cache()
     r["layers"] = cfg.num_layers
+    r["prompts_seed"] = 7
     r["block_f32"] = _mla_block_f32(device, cpu)
     return r
 
@@ -2358,6 +2393,305 @@ def _mla_block_f32(device, cpu="cpu"):
     for name, d in dist.items():
         check(d <= TOL_F32, f"MLA block f32 {name}: card vs cpu rel {d:.3g}")
     return dist
+
+
+def use_tuning_cache(path) -> None:
+    """Point the port's tuning cache at ``path`` (the registry loads the
+    file on its next plan)."""
+    import os
+    from repro_torch.kernels import tune
+    os.environ[tune.ENV_VAR] = str(path)
+
+
+def mla_decode_shapes(cfg, tree, device) -> list:
+    """(M, K, N, x dtype) of every dequant_matmul call of one decode step of
+    the MLA cut (4 slots after a 4 x 128 prefill, the cache 160 long), in
+    call order, recorded at the op's ``cuda`` impl for that one step."""
+    import dataclasses
+
+    import torch
+    from repro_torch import kernels
+    from repro_torch.models.transformer import decode_step, prefill
+
+    spec = kernels.spec("dequant_matmul")
+    impl = spec.impls["cuda"]
+    calls = []
+
+    def record(x, w_q, scale, **tiles):
+        calls.append((math.prod(x.shape[:-1]), x.shape[-1], w_q.shape[1],
+                      str(x.dtype)[6:]))
+        return impl.fn(x, w_q, scale, **tiles)
+
+    gen = torch.Generator(device=device).manual_seed(7)
+    toks = torch.randint(0, cfg.vocab_size, (4, 128), generator=gen,
+                         device=device)
+    logits, caches = prefill(tree, cfg, tokens=toks, max_len=160)
+    spec.impls["cuda"] = dataclasses.replace(impl, fn=record)
+    try:
+        decode_step(tree, cfg, caches, 128, tokens=logits.argmax(-1))
+    finally:
+        spec.impls["cuda"] = impl
+    torch.cuda.synchronize()
+    want = per_forward_launches(cfg)["dequant_matmul"]
+    check(len(calls) == want, f"MLA decode step: {len(calls)} "
+          f"dequant_matmul calls recorded, want {want}")
+    return calls
+
+
+def phase_tune(device, mla_shapes, cache_path):
+    """``autotune`` on the card, written to ``cache_path`` (not the cache
+    the serving phases read): dequant_matmul at every distinct (M, K, N)
+    of the MLA cut's decode step (``mla_shapes``: its 42 calls, w_kr,
+    w_dkv, w_dq and the M = 640 up-projections among them) and at
+    llama3-8b's decode (M = 4, the head's x in f32) and prefill (M = 512)
+    projections; rd_quant at the n buckets of the full llama3-8b tree's
+    encode (bf16 leaves).  Every candidate is checked before it is timed:
+    dequant_matmul's within TOL_F32 of the plain version, rd_quant's levels
+    equal to the first candidate's, and those equal to the plain version's
+    on the first RD_TUNE_PREFIX values (a level depends on its element and
+    the one before it only).  Prints, per shape, the default tiles and
+    time, the tuned tiles and time, the bound and the candidates."""
+    import torch
+    from repro_torch.kernels import tune
+    from repro_torch.kernels.dequant_matmul.ref import dequant_matmul_ref
+    from repro_torch.kernels.rd_quant.ops import rd_quant_plain
+
+    cache = tune.TuningCache(cache_path)
+    plain = {}
+
+    def check_dm(shape, tiles, out):
+        if shape not in plain:
+            (x, wq, sc), _ = tune_inputs("dequant_matmul", shape)
+            plain[shape] = dequant_matmul_ref(x, wq, sc)
+        _, rel = rel_err(out, plain[shape])
+        check(rel <= TOL_F32, f"tune dequant_matmul {shape} {tiles}: rel "
+              f"err {rel:.3g} > {TOL_F32}")
+
+    def check_rd(shape, tiles, out):
+        first = plain.get(shape)
+        if first is None:
+            (w, f, probs), kw = tune_inputs("rd_quant", shape)
+            want = rd_quant_plain(w[:RD_TUNE_PREFIX], f, probs, **kw)
+            mism = int((out[:RD_TUNE_PREFIX] != want).sum().item())
+            check(mism == 0, f"tune rd_quant {shape} {tiles}: {mism} levels "
+                  "differ from the plain version")
+            plain[shape] = out.clone()
+            return
+        mism = int((out != first).sum().item())
+        check(mism == 0, f"tune rd_quant {shape} {tiles}: {mism} levels "
+              "differ from the first candidate's")
+
+    dm_shapes = sorted(set(mla_shapes)) + [
+        (4, k, n, "float32" if names == "head" else "bfloat16")
+        for (k, n), _, names in DM_SHAPES["llama3-8b"]] + [
+        (DM_PREFILL_M, k, n, "bfloat16")
+        for (k, n), _, names in DM_SHAPES["llama3-8b"] if names != "head"]
+    rows = []
+    t0 = time.perf_counter()
+    res = tune.autotune("dequant_matmul", dm_shapes, cache=cache,
+                        force=True, verify=check_dm, save=False)
+    for r in res.values():
+        m, k, n, xdt = r["shape"]
+        bound, _ = _dm_bound(m, k, n, 2 if xdt == "bfloat16" else 4)
+        rows.append({"op": "dequant_matmul", **r, "bound_us": 1e3 * bound,
+                     "mla": tuple(r["shape"]) in set(mla_shapes)})
+    dm_s = time.perf_counter() - t0
+    plain.clear()
+    rd_shapes = [(n, "bfloat16") for n in RD_TUNE_N]
+    res = tune.autotune("rd_quant", rd_shapes, cache=cache, force=True,
+                        verify=check_rd, save=False)
+    plain.clear()
+    for r in res.values():
+        bound, *_ = _rd_bound(r["shape"][0], 2, 2)
+        rows.append({"op": "rd_quant", **r, "bound_us": 1e3 * bound})
+    cache.save()
+    torch.cuda.empty_cache()
+    for r in rows:
+        gain = r["default_time_us"] / r["time_us"]
+        log(f"[tune] {r['op']} {str(tuple(r['shape'])):32s} default "
+            f"{r['default_tiles']} {r['default_time_us']:.2f} us, tuned "
+            f"{r['tiles']} {r['time_us']:.2f} us ({gain:.2f}x), bound "
+            f"{r['bound_us']:.2f} us, {r['configs']} candidates")
+    log(f"[tune] {len(rows)} shapes ({len(dm_shapes)} dequant_matmul in "
+        f"{dm_s:.1f} s); winners in {cache_path}, every candidate checked")
+    return {"rows": rows, "cache": str(cache_path),
+            "dequant_matmul_s": dm_s}
+
+
+def tune_inputs(op, shape):
+    """The example inputs ``autotune`` made for ``shape`` (seeded)."""
+    from repro_torch import kernels
+    return kernels.spec(op).example_inputs(shape, "cuda")
+
+
+def phase_serve_mla_tuned(cfg, tree, device, serve_mla, tune_res):
+    """The MLA cut served with the tuned cache, eagerly and from graphs
+    (``_serve_modes``: 4 x 128 + 32 greedy, the prompts of ``serve_mla``):
+    every dequant_matmul plan of the decode step hits the cache; both
+    modes give the same tokens and launches (the graphs froze the tuned
+    plans the eager steps ran), the launches equal ``serve_mla``'s, the
+    report holds only the d != dv records, and the prefill logits (their
+    head at M = 4 takes a tuned tile) are within TOL_F32 of
+    ``serve_mla``'s.  A tuned K split sums dequant_matmul's f32 partial
+    sums in another order, and this bf16 model rounds each output to
+    bf16, so decode tokens may part from ``serve_mla``'s after a near
+    tie: the first differing decode step of each row is reported.  Decode
+    ms/step and the dequant_matmul calls' device ms per step beside
+    ``serve_mla``'s."""
+    import numpy as np
+    import torch
+    from repro_torch import kernels
+
+    use_tuning_cache(tune_res["cache"])
+    try:
+        for shape in {tuple(r["shape"][:3]) for r in tune_res["rows"]
+                      if r.get("mla")}:
+            m, k, n = shape
+            plan = kernels.get("dequant_matmul").plan(
+                torch.empty((m, k), device=device),
+                torch.empty((k, n), dtype=torch.int8, device=device),
+                torch.empty(n, device=device))
+            check(plan.cache_hit, f"serve_mla_tuned: {shape} missed the "
+                  f"tuned cache: {plan}")
+        rng = np.random.default_rng(serve_mla["prompts_seed"])
+        prompts = rng.integers(0, cfg.vocab_size, (4, 128)).astype(np.int32)
+        r = _serve_modes(cfg, tree, "q8", device, prompts, 32)
+    finally:
+        use_tuning_cache(EMPTY_TUNE_CACHE)
+    what = "deepseek-v3-671b tuned"
+    check(r["launches"] == serve_mla["launches"],
+          f"{what}: launches {r['launches']}, serve_mla "
+          f"{serve_mla['launches']}")
+    _, rel = rel_err(torch.from_numpy(r["logits"]),
+                     torch.from_numpy(serve_mla["logits"]))
+    check(rel <= TOL_F32, f"{what}: prefill logits rel {rel:.3g} from "
+          f"serve_mla's > {TOL_F32}")
+    tok, tok0 = r["tokens"], np.asarray(serve_mla["tokens"])
+    differ = tok != tok0
+    first = [int(np.argmax(row)) if row.any() else None for row in differ]
+    dm, dm0 = (x["device_split_ms_per_step"]["dequant_matmul"]
+               for x in (r, serve_mla))
+    log(f"[serve] {what}: graphs: decode {r['decode_ms_per_step_median']:.2f}"
+        f" ms/step (serve_mla {serve_mla['decode_ms_per_step_median']:.2f}),"
+        f" {per_forward_launches(cfg)['dequant_matmul']} dequant_matmul "
+        f"calls {dm:.3f} ms per step ({dm0:.3f}), device busy "
+        f"{_fmt(r['device_busy_ms_per_step'])} "
+        f"({_fmt(serve_mla['device_busy_ms_per_step'])}), replay "
+        f"{_fmt(r['decode_replay_ms'])} "
+        f"({_fmt(serve_mla['decode_replay_ms'])}) ms; eager "
+        f"{r['eager']['decode_ms_per_step_median']:.2f} "
+        f"({serve_mla['eager']['decode_ms_per_step_median']:.2f}); tokens "
+        f"and launches equal in both modes, launches equal to serve_mla's; "
+        f"prefill logits rel {rel:.3g} from serve_mla's; "
+        f"{int(differ.sum())} of {differ.size} tokens differ from "
+        f"serve_mla's, first per row at {first}")
+    r["prefill_logits_rel_vs_serve_mla"] = rel
+    r["tokens_differ_vs_serve_mla"] = int(differ.sum())
+    r["first_differing_token"] = first
+    del r["tokens"], r["logits"]
+    return r
+
+
+def phase_pins(device):
+    """Impl pins on the card.  The llama3-8b smoke model (f32, q8) served
+    with dequant_matmul pinned to ``ref``: the plain version on the card,
+    no dequant_matmul launch, tokens equal to the default policy's run.
+    flash_attention pinned to ``cuda`` under a strict policy with a ragged
+    kv_len raises KernelDispatchError; unpinned, the same call falls back
+    to the scan and records it.  Then the launcher: ``--kernel-impl
+    dequant_matmul=ref`` (llama3-8b --smoke) launches no dequant_matmul,
+    and ``--strict-kernels --kernel-impl flash_attention=cuda`` on
+    deepseek-v3-671b --smoke (d != dv) raises."""
+    import contextlib
+    import io
+
+    import numpy as np
+    import torch
+    from repro_torch import configs, kernels
+    from repro_torch.launch import serve
+    from repro_torch.models.transformer import init_params
+    from repro_torch.serve.session import ServeConfig, ServeSession
+
+    cfg = configs.get("llama3-8b", smoke=True)
+    params = init_params(cfg, 0, device=device)
+    prompts = np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (4, 16)).astype(np.int32)
+    runs = {}
+    for name, pol in (("default", kernels.KernelPolicy()),
+                      ("dequant_matmul=ref", kernels.KernelPolicy()
+                       .override("dequant_matmul", "ref"))):
+        kernels.reset_launch_counts()
+        kernels.clear_dispatch_report()
+        sess = ServeSession(cfg.replace(kernels=pol), params, backend="q8",
+                            device=device,
+                            serve_cfg=ServeConfig(slots=4, max_len=32))
+        hs = [sess.submit(p, max_new_tokens=12) for p in prompts]
+        sess.run()
+        runs[name] = (np.stack([h.result() for h in hs]),
+                      kernels.launch_counts(), kernels.dispatch_report())
+    (tok, launches, rep), (tok_r, launches_r, rep_r) = runs.values()
+    check(launches["dequant_matmul"] > 0 and
+          launches_r["dequant_matmul"] == 0,
+          f"pins: dequant_matmul launches {launches} default, "
+          f"{launches_r} pinned to ref")
+    check(not rep and not rep_r, f"pins: reports {rep}, {rep_r}")
+    check(np.array_equal(tok, tok_r), f"pins: tokens differ with "
+          f"dequant_matmul=ref:\n{tok}\n{tok_r}")
+    g = torch.Generator(device=device).manual_seed(5)
+    q = torch.randn((2, 16, 4, 32), generator=g, device=device)
+    kv = torch.randn((2, 16, 2, 32), generator=g, device=device)
+    qpos = torch.arange(16, device=device).expand(2, 16)
+    kv_len = torch.tensor([16, 9], device=device, dtype=torch.int32)
+    fa = kernels.get("flash_attention")
+    strict = kernels.KernelPolicy(strict=True).override("flash_attention",
+                                                        "cuda")
+    kernels.clear_dispatch_report()
+    try:
+        fa(q, kv, kv, qpos, kv_len=kv_len, policy=strict)
+        raised = None
+    except kernels.KernelDispatchError as e:
+        raised = str(e)
+    check(raised is not None and "ragged" in raised,
+          f"pins: strict flash_attention=cuda with a ragged kv_len: {raised}")
+    kernels.clear_dispatch_report()
+    fa(q, kv, kv, qpos, kv_len=kv_len)
+    rec = kernels.dispatch_report()
+    check([(r["requested"], r["impl"], r["kind"]) for r in rec] ==
+          [(None, "scan", "fallback")] and "ragged" in rec[0]["reason"],
+          f"pins: unpinned ragged call recorded {rec}")
+    # the launcher, in this process
+    kernels.reset_launch_counts()
+    kernels.clear_dispatch_report()
+    text = io.StringIO()
+    with contextlib.redirect_stdout(text):
+        serve.main(["--smoke", "--backend", "q8", "--steps", "8",
+                    "--kernel-impl", "dequant_matmul=ref"])
+    cli = kernels.launch_counts()
+    check(cli["dequant_matmul"] == 0 and cli["flash_attention"] > 0,
+          f"pins: launcher with dequant_matmul=ref launched {cli}")
+    check("'dequant_matmul': 0" in text.getvalue(),
+          f"pins: launcher printed {text.getvalue()}")
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            serve.main(["--arch", "deepseek-v3-671b", "--smoke", "--backend",
+                        "q8", "--steps", "4", "--strict-kernels",
+                        "--kernel-impl", "flash_attention=cuda"])
+        cli_raised = None
+    except kernels.KernelDispatchError as e:
+        cli_raised = str(e)
+    check(cli_raised is not None and "d != dv" in cli_raised,
+          f"pins: launcher strict flash_attention=cuda on MLA: {cli_raised}")
+    log(f"[pins] llama3-8b smoke on {device}: dequant_matmul=ref launched "
+        f"no dequant_matmul ({launches['dequant_matmul']} by default), "
+        f"{tok.size} tokens equal; strict flash_attention=cuda with a "
+        f"ragged kv_len raised ({raised}); unpinned it recorded "
+        f"{rec[0]['reason']!r}; launcher --kernel-impl dequant_matmul=ref "
+        f"launches {cli}; --strict-kernels flash_attention=cuda on "
+        f"deepseek-v3-671b --smoke raised ({cli_raised})")
+    return {"launches_default": launches, "launches_ref": launches_r,
+            "tokens_equal": True, "strict_raised": raised,
+            "fallback_record": rec[0], "launcher_launches": cli,
+            "launcher_strict_raised": cli_raised}
 
 
 def phase_embeds_full(device, cpu="cpu"):
@@ -3093,8 +3427,13 @@ def main() -> int:
     if not (SRC / "repro_torch").is_dir():
         _fail(f"{SRC / 'repro_torch'} not found: run from a checkout")
     sys.path.insert(0, str(SRC))
+    import shutil
+
     import torch
     device = torch.device("cuda")
+    shutil.rmtree(TUNE_DIR, ignore_errors=True)
+    TUNE_DIR.mkdir(parents=True)
+    use_tuning_cache(EMPTY_TUNE_CACHE)
     t0 = time.perf_counter()
     results = {"device": name, "card": card}
     phase_s: dict = {}
@@ -3144,13 +3483,26 @@ def main() -> int:
     run("serve_dense", phase_serve, cfg, params, device)
     del params
     free()
-    run("serve_mla", phase_serve_mla, device)
+    mla_cfg, mla_tree = mla_cut(device)
+    free()
+    run("serve_mla", phase_serve_mla, mla_cfg, mla_tree, device)
+    free()
+    shapes = mla_decode_shapes(mla_cfg, mla_tree, device)
+    run("tune", phase_tune, device, shapes, TUNED_CACHE)
+    free()
+    run("serve_mla_tuned", phase_serve_mla_tuned, mla_cfg, mla_tree, device,
+        results["serve_mla"], results["tune"])
+    del mla_tree
+    free()
+    run("pins", phase_pins, device)
     free()
     run("embeds_full", phase_embeds_full, device)
     free()
     run("fim", phase_fim, device)
     run("variational", phase_variational, device)
     run("rd_sweep", phase_rd_sweep, device)
+    for key in ("tokens", "logits"):      # serve_mla_tuned's reference
+        results["serve_mla"].pop(key)
     results["phase_seconds"] = phase_s
     log("[done] seconds by phase: " + ", ".join(
         f"{k} {v:.1f}" for k, v in phase_s.items()))

@@ -204,7 +204,7 @@ def rd_assign_levels(w: torch.Tensor, step: float, lam: float,
             levels = rd_assign(flat, fl, step, lam, table, window=window,
                                max_level=max_level, passes=passes)
         return torch.from_numpy(levels.reshape(shape))
-    from ..kernels.rd_quant import rd_quant
+    from .. import kernels
     flat = w.reshape(-1)
     nn, amax = nearest_level_f64(flat, step)
     if lam == 0.0:
@@ -215,8 +215,9 @@ def rd_assign_levels(w: torch.Tensor, step: float, lam: float,
     for _ in range(1 + max(refinements, 0)):
         probs = estimate_bin_probs_torch(levels, num_gr)
         del levels                        # one level buffer at a time
-        levels = rd_quant(flat, fl, probs, step=step, lam=lam,
-                          window=window, max_level=max_level, passes=passes)
+        levels = kernels.get("rd_quant")(
+            flat, fl, probs, step=step, lam=lam, window=window,
+            max_level=max_level, passes=passes)
     return levels.reshape(shape)
 
 

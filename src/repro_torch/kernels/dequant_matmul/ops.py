@@ -10,8 +10,17 @@ the hand-written kernel (``csrc/dequant_matmul.cu``,
 ``dequant_matmul`` runs its weight-streaming decode instance up to M = 8
 and its tensor-core instance above (or where a decode block's x would not
 fit), for either x type; :func:`schedule` picks the instance, the tile
-and how far K splits.  The grouped kernel runs on the tensor cores for
-either x type (a f32 x split into three bf16 pieces in the kernel).
+and how far K splits, unless the caller gives the launch's two knobs, kc
+and bm (the registry does: the tuning cache's or a policy's tiles).  The
+grouped kernel runs on the tensor cores for either x type (a f32 x split
+into three bf16 pieces in the kernel); its tiles are compile-time
+template instances, so it has no knob to tune.
+
+Both ops register an ``OpSpec`` (impls ``cuda``: the kernel, on the card
+only; ``ref``: the plain version on any device).  ``dequant_matmul``'s
+tile space is {"kc", "bm"}: bm <= DECODE_MAX_M picks the decode instance
+(launched with bm = M), 32 or 128 the tensor-core tile; kc gives one
+candidate per K split count of each instance.
 """
 
 from __future__ import annotations
@@ -22,7 +31,8 @@ import math
 import torch
 
 from .. import _build
-from ..registry import count_launch
+from ..registry import Impl, OpSpec, count_launch, register_op
+from ..tune import pow2_bucket
 from .ref import dequant_matmul_grouped_ref, dequant_matmul_ref
 
 _ARGTYPES = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
@@ -49,6 +59,8 @@ TC_MAX_STEPS = 128            # K steps of a TILE-row block, at most
 SMALL_BM = 32
 SMALL_N = 64
 MAX_SPLITS = 8
+MAX_GRID_ROWS = 65535
+H100_SMS = 132                # planning for the card from CPU tensors
 _SMS: dict = {}               # device index -> SM count
 
 
@@ -125,8 +137,12 @@ def _check_operands(op: str, x, w_q, scale) -> None:
 
 
 def dequant_matmul_cuda(x2: torch.Tensor, w_q: torch.Tensor,
-                        scale: torch.Tensor) -> torch.Tensor:
-    """Launch the CUDA kernel on 2-D operands; checks what it takes."""
+                        scale: torch.Tensor, *, kc: int | None = None,
+                        bm: int | None = None) -> torch.Tensor:
+    """Launch the CUDA kernel on 2-D operands; checks what it takes.
+    ``kc`` / ``bm`` are the launch's knobs (default :func:`schedule`'s);
+    bm <= DECODE_MAX_M runs the decode instance.  Knobs the launch does
+    not take raise."""
     m, k = x2.shape
     if w_q.dim() != 2 or w_q.shape[0] != k:
         raise ValueError(f"dequant_matmul: w_q {tuple(w_q.shape)} does not "
@@ -143,7 +159,10 @@ def dequant_matmul_cuda(x2: torch.Tensor, w_q: torch.Tensor,
     if k == 0:
         return out.zero_()
     stream = torch.cuda.current_stream(x2.device).cuda_stream
-    kc, _, _, bm = schedule(m, k, n, _sms(x2.device))
+    if kc is None or bm is None:
+        kc, _, _, bm = schedule(m, k, n, _sms(x2.device))
+    elif bm <= DECODE_MAX_M:
+        bm = m
     err = _launcher()(x2.data_ptr(), int(x2.dtype == torch.bfloat16),
                       w_q.data_ptr(), scale.data_ptr(), out.data_ptr(),
                       m, k, n, kc, bm, stream)
@@ -153,18 +172,20 @@ def dequant_matmul_cuda(x2: torch.Tensor, w_q: torch.Tensor,
 
 
 def dequant_matmul(x: torch.Tensor, w_q: torch.Tensor,
-                   scale: torch.Tensor) -> torch.Tensor:
+                   scale: torch.Tensor, *, kc: int | None = None,
+                   bm: int | None = None) -> torch.Tensor:
     """Serving matmul against DeepCABAC-quantized weights.
 
     x (..., K) f32|bf16, w_q (K, N) int8 levels, scale (N,) per-channel
-    Delta -> (..., N) f32."""
+    Delta -> (..., N) f32.  ``kc`` / ``bm``: the kernel's launch knobs
+    (see :func:`dequant_matmul_cuda`); the plain version has none."""
     lead = tuple(x.shape[:-1])
     k = x.shape[-1]
     m = math.prod(lead)
     n = w_q.shape[1]
     x2 = x.reshape(m, k)
     if x.is_cuda:
-        out = dequant_matmul_cuda(x2, w_q, scale)
+        out = dequant_matmul_cuda(x2, w_q, scale, kc=kc, bm=bm)
     else:
         out = dequant_matmul_ref(x2, w_q, scale)
     return out.reshape(*lead, n)
@@ -218,3 +239,123 @@ def dequant_matmul_grouped(x: torch.Tensor, w_q: torch.Tensor,
     if x.is_cuda:
         return dequant_matmul_grouped_cuda(x, w_q, scale)
     return dequant_matmul_grouped_ref(x, w_q, scale)
+
+
+# ---------------------------------------------------------------------------
+# Registry specs
+# ---------------------------------------------------------------------------
+
+def _shape_info(x, w_q, scale) -> dict:
+    """m, k, n and the SM count :func:`schedule` plans for: x's card's, or
+    H100_SMS for a CPU x (planning for ``"cuda"`` without a card)."""
+    m = math.prod(x.shape[:-1])
+    return {"m": m, "k": x.shape[-1], "n": w_q.shape[1],
+            "sms": _sms(x.device) if x.is_cuda else H100_SMS}
+
+
+def _bucket(s: dict) -> str:
+    # rows are data-dependent (decode m = live batch) -> pow2 bucket;
+    # k/n are model dims -> exact
+    return f"m{pow2_bucket(s['m'])}_k{s['k']}_n{s['n']}"
+
+
+def default_tiles(s: dict) -> dict:
+    kc, _, _, bm = schedule(max(s["m"], 1), max(s["k"], 1), s["n"],
+                            s["sms"])
+    return {"kc": kc, "bm": bm}
+
+
+def kc_candidates(s: dict) -> list[int]:
+    """One kc per K split count (1 to MAX_SPLITS) of each instance: K in
+    rounds of DECODE_ROWS rows (decode) and in steps of TC_BK (tensor
+    cores)."""
+    out = set()
+    for unit in (DECODE_ROWS, TC_BK):
+        units = max(-(-s["k"] // unit), 1)
+        out.update(-(-units // sp) * unit for sp in range(1, MAX_SPLITS + 1))
+    return sorted(out)
+
+
+def tile_ok(s: dict, t: dict) -> bool:
+    """What the launch takes (``csrc/dequant_matmul.cu``,
+    ``dequant_matmul_launch``): at most MAX_SPLITS K chunks; the decode
+    instance (bm <= DECODE_MAX_M) at M <= DECODE_MAX_M, kc a multiple of
+    DECODE_ROWS, M kc f32 x values within DECODE_X_BYTES; the tensor-core
+    one with bm in (SMALL_BM, TILE), kc a multiple of TC_BK, at most
+    MAX_GRID_ROWS row tiles."""
+    m, kc, bm = s["m"], t["kc"], t["bm"]
+    if kc <= 0 or -(-s["k"] // kc) > MAX_SPLITS:
+        return False
+    if bm <= DECODE_MAX_M:
+        return (m <= DECODE_MAX_M and kc % DECODE_ROWS == 0
+                and 4 * m * kc <= DECODE_X_BYTES)
+    return (bm in (SMALL_BM, TILE) and kc % TC_BK == 0
+            and -(-m // bm) <= MAX_GRID_ROWS)
+
+
+def _example_inputs(shape, device="cpu"):
+    """(m, k, n) or (m, k, n, x dtype name): seeded operands on
+    ``device``."""
+    m, k, n = shape[:3]
+    xdt = getattr(torch, shape[3]) if len(shape) > 3 else torch.float32
+    gen = torch.Generator(device=device)
+    gen.manual_seed(m * 31 + k * 7 + n)
+    x = torch.randn((m, k), generator=gen, device=device).to(xdt)
+    wq = torch.randint(-127, 128, (k, n), generator=gen, device=device,
+                       dtype=torch.int8)
+    sc = torch.rand(n, generator=gen, device=device) * 0.01 + 1e-4
+    return (x, wq, sc), {}
+
+
+def _run_ref(x, w_q, scale):
+    lead = tuple(x.shape[:-1])
+    out = dequant_matmul_ref(x.reshape(-1, x.shape[-1]), w_q, scale)
+    return out.reshape(*lead, w_q.shape[1])
+
+
+@register_op
+def _dequant_matmul_spec() -> OpSpec:
+    return OpSpec(
+        name="dequant_matmul",
+        impls={
+            "cuda": Impl("cuda", dequant_matmul, platforms=("cuda",)),
+            "ref": Impl("ref", _run_ref, uses_tiles=False),
+        },
+        defaults={"cuda": "cuda", "*": "ref"},
+        fallbacks=("ref",),
+        tile_space={"kc": kc_candidates, "bm": (DECODE_MAX_M, SMALL_BM,
+                                                TILE)},
+        default_tiles=default_tiles,
+        tile_ok=tile_ok,
+        shape_info=_shape_info,
+        bucket=_bucket,
+        example_inputs=_example_inputs,
+        oracle=dequant_matmul_ref,
+        tune_impls={"cuda": "cuda"},
+    )
+
+
+def _grouped_shape_info(x, w_q, scale) -> dict:
+    return {"e": x.shape[0], "m": x.shape[1], "k": x.shape[2],
+            "n": w_q.shape[2]}
+
+
+def _grouped_bucket(s: dict) -> str:
+    return f"e{s['e']}_m{pow2_bucket(s['m'])}_k{s['k']}_n{s['n']}"
+
+
+@register_op
+def _dequant_matmul_grouped_spec() -> OpSpec:
+    return OpSpec(
+        name="dequant_matmul_grouped",
+        impls={
+            "cuda": Impl("cuda", dequant_matmul_grouped, platforms=("cuda",),
+                         uses_tiles=False),
+            "ref": Impl("ref", dequant_matmul_grouped_ref, uses_tiles=False),
+        },
+        defaults={"cuda": "cuda", "*": "ref"},
+        fallbacks=("ref",),
+        shape_info=_grouped_shape_info,
+        bucket=_grouped_bucket,
+        oracle=dequant_matmul_grouped_ref,
+    )

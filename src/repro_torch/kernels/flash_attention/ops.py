@@ -1,7 +1,10 @@
 """GQA-aware attention over (B, S, H, D) and the flash kernel's wrapper.
 
-:func:`attention` is the op the model calls, with the reference registry's
-routing (``repro.kernels.flash_attention.ops``):
+The registered op ``flash_attention`` is the attention the model calls
+(``kernels.get("flash_attention")(q, k, v, qpos, ..., policy=...)``), with
+the reference registry's routing (``repro.kernels.flash_attention.ops``)
+over three impls: ``cuda`` (the kernel), ``scan`` (the online-softmax
+scan; decode through the naive path) and ``ref`` (the naive path):
 
 * decode (Sq == 1) is *routed* to :func:`~.scan.naive_attend`, by design,
   and records nothing;
@@ -15,7 +18,8 @@ routing (``repro.kernels.flash_attention.ops``):
   contract — ragged ``kv_len``, ``d != dv``, or a ``qpos`` that is not the
   right-aligned arange its causal mask hard-codes — and then
   :func:`~.scan.online_softmax_scan` runs and the fallback is recorded in
-  ``dispatch_report()``.  A head dim the kernel was not built for raises;
+  ``dispatch_report()`` (a ``cuda`` pin raises there under a strict
+  policy).  A head dim the kernel was not built for raises;
 * on the CPU the scan is the platform default, as in the reference.
 
 The kernel masks its own ragged edges, so the TPU kernel's "a power-of-two
@@ -34,7 +38,8 @@ import ctypes
 import torch
 
 from .. import _build
-from ..registry import count_launch, platform_of, record_event
+from ..registry import Impl, OpSpec, count_launch, register_op
+from ..tune import pow2_bucket
 from .ref import flash_attention_ref
 from .scan import naive_attend, online_softmax_scan
 
@@ -127,17 +132,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# Op-level routing (the model-level contract):
+# Registry spec.  Op signature (the model-level contract):
 #     (q (B,Sq,H,D), k (B,Skv,G,D), v (B,Skv,G,DV), qpos (B,Sq),
-#      *, kv_len=None, kv_block=1024)
+#      *, kv_len=None, kv_block=1024, qpos_canonical=None)
 # ---------------------------------------------------------------------------
 
 def _qpos_canonical(qpos, sq: int, skv: int) -> bool:
     """The kernel hard-codes qpos == arange(sq) + (skv - sq).  Comparing
     on the host syncs with the card, so a step under CUDA-graph capture
     must say what its qpos is (``qpos_canonical``): it raises here."""
-    if qpos is None:
-        return True
     if torch.cuda.is_available() and torch.cuda.is_current_stream_capturing():
         raise RuntimeError(
             "flash_attention: qpos must be checked on the host, which a "
@@ -146,18 +149,54 @@ def _qpos_canonical(qpos, sq: int, skv: int) -> bool:
     return bool(torch.equal(qpos, want[None, :].expand_as(qpos)))
 
 
-def _kernel_constraint(q, k, v, qpos, kv_len, qpos_canonical) -> str | None:
-    sq, skv, d, dv = q.shape[1], k.shape[1], q.shape[-1], v.shape[-1]
-    if kv_len is not None:
-        return "ragged kv_len masking is not implemented in the kernel"
-    if d != dv:
-        return f"d != dv ({d} != {dv})"
+def _shape_info(q, k, v, qpos=None, *, kv_len=None, kv_block=1024,
+                qpos_canonical=None) -> dict:
+    """The call's shapes.  ``qpos_canonical`` is the caller's word (a
+    caller that built qpos from an arange says so, sparing a
+    device-to-host comparison per layer), else True without a qpos, else
+    compared here only where it decides the route: a prefill call the
+    kernel could take otherwise.  Anywhere else it stays None (unknown)."""
+    b, sq, h, d = q.shape
+    skv, dv = k.shape[1], v.shape[-1]
+    grad = _wants_grad(q, k, v)
     if qpos_canonical is None:
-        qpos_canonical = _qpos_canonical(qpos, sq, skv)
-    if not qpos_canonical:
+        if qpos is None:
+            qpos_canonical = True
+        elif sq > 1 and kv_len is None and d == dv and not grad:
+            qpos_canonical = _qpos_canonical(qpos, sq, skv)
+    return {"b": b, "sq": sq, "skv": skv, "h": h, "g": k.shape[2], "d": d,
+            "dv": dv, "ragged": kv_len is not None, "grad": grad,
+            "qpos_canonical": qpos_canonical}
+
+
+def _bucket(s: dict) -> str:
+    return (f"bh{pow2_bucket(s['b'] * s['h'])}_sq{pow2_bucket(s['sq'])}"
+            f"_skv{pow2_bucket(s['skv'])}_d{s['d']}")
+
+
+def _kernel_constraint(s: dict) -> str | None:
+    """What the kernel cannot take.  A head dim it was not built for is no
+    constraint: the kernel raises on it."""
+    if s["sq"] <= 1:
+        return "decode (Sq == 1): one query row per head underfills a tile"
+    if s["grad"]:
+        return "an input requires grad and the kernel has no backward"
+    if s["ragged"]:
+        return "ragged kv_len masking is not implemented in the kernel"
+    if s["d"] != s["dv"]:
+        return f"d != dv ({s['d']} != {s['dv']})"
+    if s["qpos_canonical"] is False:
         return ("qpos is not the canonical right-aligned arange the "
                 "kernel's causal mask hard-codes")
     return None
+
+
+def _route(s: dict, platform: str) -> str | None:
+    """Designed routes, recorded nowhere: decode takes the naive path
+    inside the scan impl, and a call autograd differentiates takes the
+    scan on every platform (the kernel has no backward, nor has the
+    reference's)."""
+    return "scan" if s["sq"] <= 1 or s["grad"] else None
 
 
 def _as_q5(q, k):
@@ -166,7 +205,14 @@ def _as_q5(q, k):
     return q.reshape(b, sq, g, h // g, d)
 
 
-def _run_scan(q, k, v, qpos, kv_len, kv_block):
+def _run_cuda(q, k, v, qpos, *, kv_len=None, kv_block=1024,
+              qpos_canonical=None):
+    del qpos, kv_len, kv_block, qpos_canonical
+    return flash_attention(q, k, v)
+
+
+def _run_scan(q, k, v, qpos, *, kv_len=None, kv_block=1024,
+              qpos_canonical=None):
     b, sq, h, _ = q.shape
     q5 = _as_q5(q, k)
     if sq > 1:
@@ -176,17 +222,27 @@ def _run_scan(q, k, v, qpos, kv_len, kv_block):
     return out.reshape(b, sq, h, v.shape[-1])
 
 
-def attention(q, k, v, qpos, *, kv_len=None, kv_block: int = 1024,
-              qpos_canonical: bool | None = None):
-    """Route one attention call (see the module docstring).
-    ``qpos_canonical`` lets a caller that built ``qpos`` from an arange
-    say so, sparing a device-to-host comparison per layer."""
-    platform = platform_of(q)
-    if q.shape[1] <= 1 or platform == "cpu" or _wants_grad(q, k, v):
-        return _run_scan(q, k, v, qpos, kv_len, kv_block)
-    reason = _kernel_constraint(q, k, v, qpos, kv_len, qpos_canonical)
-    if reason is not None:
-        record_event(op="flash_attention", platform=platform, impl="scan",
-                     reason=reason, kind="fallback")
-        return _run_scan(q, k, v, qpos, kv_len, kv_block)
-    return flash_attention(q, k, v)
+def _run_ref(q, k, v, qpos, *, kv_len=None, kv_block=1024,
+             qpos_canonical=None):
+    b, sq, h, _ = q.shape
+    out = naive_attend(_as_q5(q, k), k, v, qpos, kv_len)
+    return out.reshape(b, sq, h, v.shape[-1])
+
+
+@register_op
+def _flash_attention_spec() -> OpSpec:
+    return OpSpec(
+        name="flash_attention",
+        impls={
+            "cuda": Impl("cuda", _run_cuda, platforms=("cuda",),
+                         constraint=_kernel_constraint, uses_tiles=False),
+            "scan": Impl("scan", _run_scan, uses_tiles=False),
+            "ref": Impl("ref", _run_ref, uses_tiles=False),
+        },
+        defaults={"cuda": "cuda", "*": "scan"},
+        route=_route,
+        fallbacks=("scan", "ref"),
+        shape_info=_shape_info,
+        bucket=_bucket,
+        oracle=flash_attention_ref,
+    )

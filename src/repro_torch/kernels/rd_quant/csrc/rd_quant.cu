@@ -132,15 +132,20 @@ rd_quant_pass(const WT* __restrict__ w, const float* __restrict__ fisher,
 // One assignment pass.  w: n f32 (w_is_bf16 = 0) or bf16 values; fisher:
 // n f32 or null (F = 1); prev: n int32 levels of the previous pass or null
 // (pass 1); out: n int32.  scalars (8) and mag (n_classes) are host arrays,
-// passed to the kernel by value.  Returns the cudaError_t of the launch.
+// passed to the kernel by value.  The grid is at most blocks_per_sm blocks
+// per SM (the threads stride over the rest); each element's level depends
+// on its own inputs only, so the levels do not depend on it.  Returns the
+// cudaError_t of the launch.
 extern "C" int rd_quant_launch(const void* w, int w_is_bf16,
                                const void* fisher, const void* prev,
                                void* out, int64_t n, float step, float lam,
                                int window, float max_level, int num_gr,
                                const float* scalars, const float* mag,
-                               int n_classes, void* stream) {
+                               int n_classes, int blocks_per_sm,
+                               void* stream) {
   if (n <= 0) return 0;
-  if (n_classes > MAX_CLASSES || n_classes < 1 || window < 0)
+  if (n_classes > MAX_CLASSES || n_classes < 1 || window < 0 ||
+      blocks_per_sm < 1)
     return (int)cudaErrorInvalidValue;
   RateCoeffs c;
   for (int j = 0; j < 8; ++j) c.sc[j] = scalars[j];
@@ -149,7 +154,7 @@ extern "C" int rd_quant_launch(const void* w, int w_is_bf16,
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   const int64_t need = (n + THREADS - 1) / THREADS;
-  const int64_t cap = (int64_t)sms * 16;
+  const int64_t cap = (int64_t)sms * blocks_per_sm;
   const int blocks = (int)(need < cap ? need : cap);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* f = static_cast<const float*>(fisher);

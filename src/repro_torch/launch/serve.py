@@ -19,7 +19,12 @@ qwen2-vl-7b) exits with a message: it runs through ``prefill`` /
 the bf16/q8 backends take seeded random init, and the container backend
 packs a serve-q8 container in process first, so the streaming load still
 runs. Runs on the card unless ``--device cpu``; on the card the session
-replays CUDA graphs of its steps.
+replays CUDA graphs of its steps.  ``--kernel-impl OP=IMPL`` (repeatable)
+pins an op's impl in the model's ``KernelPolicy`` (e.g.
+``dequant_matmul=ref`` runs the plain version on the card, and counts no
+launch of the kernel), ``--strict-kernels`` makes a pinned impl that
+cannot run raise ``KernelDispatchError``, and ``--no-tuning-cache``
+ignores the persistent tuning cache (``kernels.tune``).
 Prints the generated tokens, the decode ms/step (host clock per tick
 after the first two, which hold the prefills and the decode graph's
 capture), the launch count of every
@@ -30,6 +35,7 @@ dequant)."""
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 
 import numpy as np
@@ -55,9 +61,31 @@ def main(argv=None):
     ap.add_argument("--steps", type=int, default=32)
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--kernel-impl", action="append", default=[],
+                    metavar="OP=IMPL",
+                    help="pin a kernel impl (repeatable), e.g. "
+                         "flash_attention=scan dequant_matmul=ref")
+    ap.add_argument("--strict-kernels", action="store_true",
+                    help="a pinned impl that cannot run raises instead of "
+                         "falling back (see kernels.dispatch_report)")
+    ap.add_argument("--no-tuning-cache", action="store_true",
+                    help="ignore the persistent kernel tuning cache")
     args = ap.parse_args(argv)
 
     cfg = configs.get(args.arch, smoke=args.smoke)
+    pol = cfg.kernels
+    for pin in args.kernel_impl:
+        op, _, impl = pin.partition("=")
+        if op not in kernels.available_ops():
+            ap.error(f"--kernel-impl: unknown op {op!r}; "
+                     f"available: {kernels.available_ops()}")
+        if impl not in kernels.spec(op).impls:
+            ap.error(f"--kernel-impl: unknown impl {impl!r} for {op}; "
+                     f"available: {sorted(kernels.spec(op).impls)}")
+        pol = pol.override(op, impl)
+    pol = dataclasses.replace(pol, strict=args.strict_kernels,
+                              use_tuning_cache=not args.no_tuning_cache)
+    cfg = cfg.replace(kernels=pol)
     try:
         require_token_input(cfg)
     except ValueError as e:

@@ -3,17 +3,19 @@
 
 The caches are updated **in place**: where the reference returns a new
 cache array, the port writes this step's K/V (MLA: its latents) into the
-preallocated cache tensor it was given and returns that same tensor.  The
-attention math is routed by ``kernels.flash_attention.attention`` (prefill
-on the card -> the hand-written kernel; decode -> the naive path; MLA's
-d != dv -> the scan, recorded, as in the reference).  The paged KV path is
-not ported yet and raises."""
+preallocated cache tensor it was given and returns that same tensor.  Every
+projection and the attention math go through the kernel registry with
+``cfg.kernels`` (``kernels.get("dequant_matmul")`` for q8 weights,
+``kernels.get("flash_attention")``: prefill on the card -> the
+hand-written kernel; decode -> the naive path; MLA's d != dv -> the scan,
+recorded, as in the reference).  The paged KV path is not ported yet and
+raises."""
 
 from __future__ import annotations
 
 import torch
 
-from ..kernels.flash_attention import attention as attend
+from .. import kernels as _kernels
 from ..serve.quantized import dequant_cache_value, quantize_cache_value
 from .layers import apply_m_rope, apply_rope, q8_einsum, rms_norm
 
@@ -89,9 +91,9 @@ def gqa_attention(x, p, cfg, positions, *, cache=None, cache_pos=None,
         raise NotImplementedError("paged KV decode: not yet ported")
     b, s, _ = x.shape
     h, g, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    q = q8_einsum(x, p["wq"])
-    k = q8_einsum(x, p["wk"])
-    v = q8_einsum(x, p["wv"])
+    q = q8_einsum(x, p["wq"], policy=cfg.kernels)
+    k = q8_einsum(x, p["wk"], policy=cfg.kernels)
+    v = q8_einsum(x, p["wv"], policy=cfg.kernels)
     if cfg.qkv_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
     q = q.reshape(b, s, h, dh)
@@ -124,9 +126,11 @@ def gqa_attention(x, p, cfg, positions, *, cache=None, cache_pos=None,
         cache["v"][:, :s] = _cache_store(v, cache["v"], delta)
         new_cache = cache
 
-    out = attend(q, k, v, positions, kv_block=cfg.attn_kv_block,
-                 kv_len=kv_len, qpos_canonical=qpos_canonical)
-    out = q8_einsum(out.reshape(b, s, h * dh), p["wo"])
+    out = _kernels.get("flash_attention")(
+        q, k, v, positions, kv_block=cfg.attn_kv_block, kv_len=kv_len,
+        qpos_canonical=qpos_canonical, policy=cfg.kernels)
+    out = q8_einsum(out.reshape(b, s, h * dh), p["wo"],
+                    policy=cfg.kernels)
     return out, new_cache
 
 
@@ -150,17 +154,20 @@ def mla_attention(x, p, cfg, positions, *, cache=None, cache_pos=None,
     dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
 
     if cfg.q_lora_rank:
-        ql = rms_norm(q8_einsum(x, p["w_dq"]), p["q_norm"], cfg.norm_eps)
-        q = q8_einsum(ql, p["w_uq"])
+        ql = rms_norm(q8_einsum(x, p["w_dq"], policy=cfg.kernels),
+                      p["q_norm"], cfg.norm_eps)
+        q = q8_einsum(ql, p["w_uq"], policy=cfg.kernels)
     else:
-        q = q8_einsum(x, p["w_uq"])
+        q = q8_einsum(x, p["w_uq"], policy=cfg.kernels)
     q = q.reshape(b, s, h, dn + dr)
     q_nope, q_rope = q[..., :dn], q[..., dn:]
     q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
 
-    ckv = rms_norm(q8_einsum(x, p["w_dkv"]), p["kv_norm"], cfg.norm_eps)
-    kr = apply_rope(q8_einsum(x, p["w_kr"])[:, :, None, :], positions,
-                    cfg.rope_theta)[:, :, 0, :]
+    ckv = rms_norm(q8_einsum(x, p["w_dkv"], policy=cfg.kernels),
+                   p["kv_norm"], cfg.norm_eps)
+    kr = apply_rope(
+        q8_einsum(x, p["w_kr"], policy=cfg.kernels)[:, :, None, :],
+        positions, cfg.rope_theta)[:, :, 0, :]
 
     new_cache = None
     kv_len = None
@@ -178,12 +185,15 @@ def mla_attention(x, p, cfg, positions, *, cache=None, cache_pos=None,
         new_cache = cache
 
     # up-project the latents (the recompute path)
-    k_nope = q8_einsum(ckv, p["w_uk"]).reshape(b, -1, h, dn)
-    vv = q8_einsum(ckv, p["w_uv"]).reshape(b, -1, h, dv)
+    k_nope = q8_einsum(ckv, p["w_uk"],
+                       policy=cfg.kernels).reshape(b, -1, h, dn)
+    vv = q8_einsum(ckv, p["w_uv"], policy=cfg.kernels).reshape(b, -1, h, dv)
     k_full = torch.cat([k_nope, kr[:, :, None, :].expand(
         *kr.shape[:2], h, dr)], dim=-1)
     q_full = torch.cat([q_nope, q_rope], dim=-1)
-    out = attend(q_full, k_full, vv, positions, kv_block=cfg.attn_kv_block,
-                 kv_len=kv_len, qpos_canonical=qpos_canonical)
-    out = q8_einsum(out.reshape(b, s, h * dv), p["wo"])
+    out = _kernels.get("flash_attention")(
+        q_full, k_full, vv, positions, kv_block=cfg.attn_kv_block,
+        kv_len=kv_len, qpos_canonical=qpos_canonical, policy=cfg.kernels)
+    out = q8_einsum(out.reshape(b, s, h * dv), p["wo"],
+                    policy=cfg.kernels)
     return out, new_cache

@@ -1,12 +1,12 @@
-"""Model configuration (the port's own copy of ``repro.models.config``).
-
-Field for field the JAX ``ModelConfig`` minus ``kernels``: the JAX
-registry's ``KernelPolicy`` has no counterpart here yet."""
+"""Model configuration (the port's own copy of ``repro.models.config``),
+field for field the JAX ``ModelConfig``."""
 
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
+
+from ..kernels.registry import KernelPolicy
 
 
 @dataclass(frozen=True)
@@ -68,6 +68,11 @@ class ModelConfig:
     compute_dtype: str = "float32"
     q8_cache: bool = False         # int8 KV cache (fixed-point serving)
     kv_cache_delta: float = 1.0 / 16.0   # int8 KV grid step
+
+    # kernel selection: one policy for every registered op (platform
+    # dispatch, per-op impl pins, tile pins, tuning cache) — see
+    # repro_torch.kernels.registry
+    kernels: KernelPolicy = KernelPolicy()
 
     # distribution / performance knobs (kept for parity with the reference)
     remat: str = "block"           # none | block | dots

@@ -7,17 +7,19 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from ..kernels.dequant_matmul import dequant_matmul
-from ..kernels.embed_lookup import is_q8_leaf
+from .. import kernels as _kernels
 
 
-def q8_einsum(x: torch.Tensor, w) -> torch.Tensor:
+def q8_einsum(x: torch.Tensor, w, *, policy=None) -> torch.Tensor:
     """x (..., K) @ w -> (..., N) in ``x.dtype``.  A q8 leaf
-    {"q8": (K, N) int8, "q8s": (N,) f32} goes through ``dequant_matmul``
-    (f32 result cast back to x's dtype); a dense (K, N) weight is a plain
-    product."""
-    if is_q8_leaf(w):
-        return dequant_matmul(x, w["q8"], w["q8s"]).to(x.dtype)
+    {"q8": (K, N) int8, "q8s": (N,) f32} goes through
+    ``kernels.get("dequant_matmul")`` (impl and tiles per ``policy``,
+    normally ``cfg.kernels``; f32 result cast back to x's dtype); a dense
+    (K, N) weight is a plain product."""
+    if _kernels.is_q8_leaf(w):
+        out = _kernels.get("dequant_matmul")(x, w["q8"], w["q8s"],
+                                             policy=policy)
+        return out.to(x.dtype)
     return torch.einsum("...k,kn->...n", x, w)
 
 
@@ -57,10 +59,11 @@ def activation(x: torch.Tensor, kind: str) -> torch.Tensor:
     raise ValueError(kind)
 
 
-def swiglu_mlp(x: torch.Tensor, p: dict, act: str) -> torch.Tensor:
-    gate = activation(q8_einsum(x, p["w_gate"]), act)
-    up = q8_einsum(x, p["w_up"])
-    return q8_einsum(gate * up, p["w_down"])
+def swiglu_mlp(x: torch.Tensor, p: dict, act: str,
+               policy=None) -> torch.Tensor:
+    gate = activation(q8_einsum(x, p["w_gate"], policy=policy), act)
+    up = q8_einsum(x, p["w_up"], policy=policy)
+    return q8_einsum(gate * up, p["w_down"], policy=policy)
 
 
 def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:

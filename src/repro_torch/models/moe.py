@@ -8,20 +8,21 @@ past an expert's per-row capacity are dropped: their contribution is
 zeroed.  The routing takes a few whole-tensor ops and no host sync (no
 one-hot, no accumulating scatter, nothing sized on the host), so a CUDA
 graph can capture it.  The buffer stays dense (empty experts and padding
-rows are computed), and the routed experts' products go through the
-``dequant_matmul_grouped`` kernel when the expert bank is q8.
+rows are computed), and the routed experts' products go through
+``kernels.get("dequant_matmul_grouped")`` with ``cfg.kernels`` when the
+expert bank is q8 (the router and shared experts through
+``dequant_matmul``).
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..kernels.dequant_matmul import dequant_matmul_grouped
-from ..kernels.embed_lookup import is_q8_leaf
+from .. import kernels as _kernels
 from .layers import activation, q8_einsum
 
 
-def _expert_einsum(buf: torch.Tensor, w) -> torch.Tensor:
+def _expert_einsum(buf: torch.Tensor, w, *, policy=None) -> torch.Tensor:
     """Per-expert matmul buf (G, E, C, K) @ w (E, K, N) -> (G, E, C, N).
 
     ``w`` is the dense expert bank (a plain einsum) or a q8 leaf
@@ -29,11 +30,13 @@ def _expert_einsum(buf: torch.Tensor, w) -> torch.Tensor:
     capacity dims flatten to the grouped kernel's per-expert M, (E, G*C,
     K), a view of a buffer stored expert-major (as :func:`dispatch` stores
     it, and as the result comes back), and its f32 result is cast back to
-    the buffer's dtype."""
-    if is_q8_leaf(w):
+    the buffer's dtype.  The q8 product goes through
+    ``kernels.get("dequant_matmul_grouped")`` under ``policy``."""
+    if _kernels.is_q8_leaf(w):
         g, e, c, k = buf.shape
         xg = buf.transpose(0, 1).reshape(e, g * c, k)
-        out = dequant_matmul_grouped(xg, w["q8"], w["q8s"])
+        out = _kernels.get("dequant_matmul_grouped")(
+            xg, w["q8"], w["q8s"], policy=policy)
         return out.reshape(e, g, c, -1).transpose(0, 1).to(buf.dtype)
     return torch.einsum("gecd,edf->gecf", buf, w)
 
@@ -96,8 +99,9 @@ def moe_block(x: torch.Tensor, p: dict, cfg, *, with_aux: bool = True):
     g, s, d = x.shape
     e, k = cfg.num_experts, cfg.top_k
 
-    if is_q8_leaf(p["router"]):
-        logits = q8_einsum(x.to(torch.float32), p["router"])
+    if _kernels.is_q8_leaf(p["router"]):
+        logits = q8_einsum(x.to(torch.float32), p["router"],
+                           policy=cfg.kernels)
     else:
         logits = torch.einsum("gsd,de->gse", x.to(torch.float32),
                               p["router"].to(torch.float32))
@@ -110,9 +114,10 @@ def moe_block(x: torch.Tensor, p: dict, cfg, *, with_aux: bool = True):
     buf = dispatch(x, topi, pos, keep, e, cap)
 
     # routed experts: stacked SwiGLU on the capacity buffer
-    gate = activation(_expert_einsum(buf, p["w_gate"]), cfg.act)
-    up = _expert_einsum(buf, p["w_up"])
-    hbuf = _expert_einsum(gate * up, p["w_down"])
+    pol = cfg.kernels
+    gate = activation(_expert_einsum(buf, p["w_gate"], policy=pol), cfg.act)
+    up = _expert_einsum(buf, p["w_up"], policy=pol)
+    hbuf = _expert_einsum(gate * up, p["w_down"], policy=pol)
 
     # combine in the reference's order: out = 0 + w_0 v_0 + w_1 v_1 + ...
     rows = torch.arange(g, device=x.device)[:, None, None]
@@ -124,9 +129,9 @@ def moe_block(x: torch.Tensor, p: dict, cfg, *, with_aux: bool = True):
 
     # shared experts: one dense SwiGLU of width num_shared * moe_d_ff
     if cfg.num_shared_experts:
-        sg = activation(q8_einsum(x, p["sh_gate"]), cfg.act)
-        su = q8_einsum(x, p["sh_up"])
-        out = out + q8_einsum(sg * su, p["sh_down"])
+        sg = activation(q8_einsum(x, p["sh_gate"], policy=pol), cfg.act)
+        su = q8_einsum(x, p["sh_up"], policy=pol)
+        out = out + q8_einsum(sg * su, p["sh_down"], policy=pol)
 
     if not with_aux:
         return out, None

@@ -8,22 +8,22 @@ with the reference's names and layouts; a Python loop over L takes the
 place of ``lax.scan``.  Stacked
 q8 leaves are sliced per layer (``q8[l]`` / ``q8s[l]``), so each layer's
 projections read int8 levels through ``dequant_matmul`` and a MoE layer's
-expert banks through ``dequant_matmul_grouped``.  A MoE model runs its
-leading dense layers (``dense_layers``) first, then the MoE stack
-(``layers``), with nested caches ``{"dense": ..., "main": ...}``.  Caches
-are updated in place (see ``models.attention``).  A model without a token
-embedding (``embed_input=False``: musicgen, qwen2-vl) takes ``embeds``
-(B, S, d) instead of ``tokens``, and an M-RoPE model its (3, B, S)
-``pos3d`` streams.  The SSM and hybrid families are not ported yet and
-raise."""
+expert banks through ``dequant_matmul_grouped``.  Every kernel call goes
+through the registry (``kernels.get(name)(..., policy=cfg.kernels)``).
+A MoE model runs its leading dense layers (``dense_layers``) first, then
+the MoE stack (``layers``), with nested caches ``{"dense": ...,
+"main": ...}``.  Caches are updated in place (see ``models.attention``).
+A model without a token embedding (``embed_input=False``: musicgen,
+qwen2-vl) takes ``embeds`` (B, S, d) instead of ``tokens``, and an M-RoPE
+model its (3, B, S) ``pos3d`` streams.  The SSM and hybrid families are
+not ported yet and raise."""
 
 from __future__ import annotations
 
 import torch
 
 from ..compression.tree import unflatten
-from ..kernels.dequant_matmul import dequant_matmul
-from ..kernels.embed_lookup import embed_lookup_q8
+from .. import kernels as _kernels
 from ..kernels.registry import platform_of, record_event, resolve_device
 from ..serve.quantized import dequant_leaf, is_q8
 from .attention import gqa_attention, host_offset, mla_attention
@@ -255,7 +255,7 @@ def _attn_block(x, lp, cfg, positions, pos3d, cache, cache_pos,
 def _dense_block(x, lp, cfg, *attn_args, with_aux=True):
     x = _attn_block(x, lp, cfg, *attn_args)
     x = x + swiglu_mlp(norm(x, lp["mlp_norm"], cfg), lp["mlp"],
-                       cfg.act)
+                       cfg.act, policy=cfg.kernels)
     return x, None
 
 
@@ -303,7 +303,8 @@ def forward(params, cfg: ModelConfig, *, tokens=None, embeds=None,
     _require_ported(cfg)
     dt = _dtype(cfg.compute_dtype)
     if cfg.embed_input:
-        x = embed_lookup_q8(params["embed"], tokens, dt)
+        x = _kernels.get("embed_lookup_q8")(params["embed"], tokens, dt,
+                                            policy=cfg.kernels)
     else:
         x = embeds.to(dt)
     b, s = x.shape[0], x.shape[1]
@@ -348,14 +349,16 @@ def forward(params, cfg: ModelConfig, *, tokens=None, embeds=None,
 
 def _head_logits(x, params, cfg: ModelConfig):
     """Final projection.  An untied q8 head (d, V) goes through
-    ``dequant_matmul`` with x in f32; a tied q8 head transposes the
-    per-row scales onto the contraction dim, so it is dequantized in the
-    loop (recorded)."""
+    ``kernels.get("dequant_matmul")`` with x in f32 and ``cfg.kernels``; a
+    tied q8 head transposes the per-row scales onto the contraction dim,
+    which the kernel's per-output-channel scales cannot take, so it is
+    dequantized in the loop (recorded)."""
     head_leaf = params["embed"] if cfg.tie_embeddings else params["head"]
     bsz, s, d = x.shape
     if not cfg.tie_embeddings and is_q8(head_leaf):
-        out = dequant_matmul(x.reshape(bsz * s, d).to(torch.float32),
-                             head_leaf["q8"], head_leaf["q8s"])
+        out = _kernels.get("dequant_matmul")(
+            x.reshape(bsz * s, d).to(torch.float32), head_leaf["q8"],
+            head_leaf["q8s"], policy=cfg.kernels)
         return out.reshape(bsz, s, -1)
     if cfg.tie_embeddings and is_q8(head_leaf):
         _record_loop_dequant(

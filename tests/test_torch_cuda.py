@@ -537,7 +537,7 @@ def test_flash_kernel_raises_on_a_head_dim_it_was_not_built_for():
         fops.flash_attention(q, kv, kv)
     qpos = torch.arange(8, device="cuda")[None]
     with pytest.raises(ValueError, match="head dim"):
-        fops.attention(q, kv, kv, qpos)
+        kernels.get("flash_attention")(q, kv, kv, qpos)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -691,6 +691,64 @@ def test_rd_quant_kernel_rejects_what_it_does_not_take():
     with pytest.raises(ValueError, match="fisher"):
         rd_quant_cuda(w, torch.ones(1000), sc, mg, **kw)
     assert kernels.launch_counts()["rd_quant"] == before
+
+
+@pytest.mark.parametrize("n,dtype", [(70001, "bfloat16"),
+                                     (4096 * 1024 + 3, "float32")])
+def test_rd_quant_levels_do_not_depend_on_blocks_per_sm(n, dtype):
+    """The grid cap is the kernel's tunable knob: every value the tuner
+    tries gives the plain version's levels exactly."""
+    _needs_card()
+    from repro_torch.kernels.rd_quant.ops import rd_quant_cuda
+    from repro_torch.kernels.rd_quant.ref import rd_quant_ref
+    w, f, sc, mg, kw = _rd_inputs(n, getattr(torch, dtype), n, 4, False)
+    want = rd_quant_ref(w, f, sc, mg, **kw)
+    for b in kernels.spec("rd_quant").tile_space["blocks_per_sm"] + (1,):
+        assert torch.equal(rd_quant_cuda(w, f, sc, mg, blocks_per_sm=b,
+                                         **kw), want), b
+    with pytest.raises(RuntimeError, match="launch failed"):
+        rd_quant_cuda(w, f, sc, mg, blocks_per_sm=0, **kw)
+
+
+@pytest.mark.parametrize("shape", [(4, 7168, 64, "bfloat16"),
+                                   (3, 1030, 257, "float32"),
+                                   (40, 512, 384, "bfloat16")])
+def test_dequant_matmul_autotune_on_the_card(shape, tmp_path,
+                                              monkeypatch):
+    """A small sweep: every candidate (decode and tensor-core tiles, each
+    K split count) is within 1e-4 of the plain version, the winner is
+    persisted and a plan of the op reads it back."""
+    _needs_card()
+    from repro_torch.kernels import tune
+    from repro_torch.kernels.dequant_matmul import ops
+    monkeypatch.setenv(tune.ENV_VAR, str(tmp_path / "tune.json"))
+    seen = []
+
+    def verify(shp, tiles, out):
+        (x, wq, sc), _ = ops._example_inputs(shp, "cuda")
+        assert _rel(out, dequant_matmul_ref(x, wq, sc)) <= 1e-4, tiles
+        seen.append(tiles)
+
+    res = tune.autotune("dequant_matmul", [shape], repeats=2,
+                        verify=verify)
+    (r,) = res.values()
+    m, k, n = shape[:3]
+    s = {"m": m, "k": k, "n": n, "sms": ops._sms(torch.device("cuda"))}
+    assert r["configs"] == len(seen) >= 2
+    assert r["default_tiles"] == ops.default_tiles(s)
+    assert r["tiles"] in seen and all(ops.tile_ok(s, t) for t in seen)
+    assert r["time_us"] <= r["default_time_us"]
+    assert any(t["bm"] <= ops.DECODE_MAX_M for t in seen) == (m <= 8)
+    assert (tmp_path / "tune.json").exists()
+    x, wq, sc = ops._example_inputs(shape, "cuda")[0]
+    plan = kernels.get("dequant_matmul").plan(x, wq, sc)
+    assert plan.cache_hit and dict(plan.tiles) == r["tiles"]
+    # the winner through the public wrapper, and a knob the launch does
+    # not take raises (no fallback)
+    got = dequant_matmul(x, wq, sc, **r["tiles"])
+    assert _rel(got, dequant_matmul_ref(x, wq, sc)) <= 1e-4
+    with pytest.raises(RuntimeError, match="launch failed"):
+        dequant_matmul(x, wq, sc, kc=32 if m > 8 else 48, bm=128)
 
 
 def test_container_round_trip_on_card():
@@ -900,7 +958,8 @@ def test_attention_under_grad_takes_the_scan_and_matches_the_cpu():
         q, k, v = (t.to(dev).requires_grad_(True) for t in (qc, kc, vc))
         kernels.reset_launch_counts()
         kernels.clear_dispatch_report()
-        out = fops.attention(q, k, v, qpos.to(dev), kv_block=16)
+        out = kernels.get("flash_attention")(q, k, v, qpos.to(dev),
+                                             kv_block=16)
         (out * out).sum().backward()
         assert kernels.launch_counts()["flash_attention"] == 0
         assert kernels.dispatch_report() == []
@@ -909,7 +968,8 @@ def test_attention_under_grad_takes_the_scan_and_matches_the_cpu():
         assert _rel(got, want) <= 1e-4
     kernels.reset_launch_counts()
     q, k, v = (t.detach().cuda() for t in (qc, kc, vc))
-    fops.attention(q, k, v, qpos.cuda(), qpos_canonical=True)
+    kernels.get("flash_attention")(q, k, v, qpos.cuda(),
+                                   qpos_canonical=True)
     assert kernels.launch_counts()["flash_attention"] == 1
 
 

@@ -118,27 +118,37 @@ def test_scan_and_naive_match_jax(ragged, sq):
 
 def test_attention_routing_records_like_the_registry():
     """On the CPU the scan is the platform default: nothing is recorded,
-    decode included.  The kernel's contract checks name each fallback, and
-    only the three the reference has."""
+    decode included.  Planned for the card, the kernel's contract checks
+    name each fallback: the three the reference has beside its tile rules
+    (ragged kv_len, d != dv, a qpos other than the right-aligned arange);
+    decode and a call under grad are routed to the scan by design."""
     q, k, v = _qkv(2, 8, 8, 4, 2, 32, seed=5)
     qpos = _t(np.broadcast_to(np.arange(8), (2, 8)).copy())
     registry.clear_dispatch_report()
-    out = fops.attention(_t(q), _t(k), _t(v), qpos, kv_block=4,
-                         kv_len=_t(np.array([5, 8], np.int32)))
+    fa = kernels.get("flash_attention")
+    out = fa(_t(q), _t(k), _t(v), qpos, kv_block=4,
+             kv_len=_t(np.array([5, 8], np.int32)))
     assert out.shape == (2, 8, 4, 32)
     assert kernels.dispatch_report() == []
     tq, tk, tv = _t(q), _t(k), _t(v)
-    assert fops._kernel_constraint(tq, tk, tv, qpos, None, None) is None
-    assert "ragged" in fops._kernel_constraint(tq, tk, tv, qpos,
-                                               _t(np.array([5, 8])), None)
-    assert "d != dv" in fops._kernel_constraint(tq, tk, tv[..., :16], qpos,
-                                                None, None)
-    assert "canonical" in fops._kernel_constraint(tq, tk, tv, qpos + 1,
-                                                  None, None)
+    card = kernels.KernelPolicy(platform="cuda")
+
+    def plan(*args, **kw):
+        return fa.plan(*args, policy=card, **kw)
+
+    assert (plan(tq, tk, tv, qpos).impl, plan(tq, tk, tv, qpos)
+            .fallback_reason) == ("cuda", None)
+    assert "ragged" in plan(tq, tk, tv, qpos,
+                            kv_len=_t(np.array([5, 8]))).fallback_reason
+    assert "d != dv" in plan(tq, tk, tv[..., :16], qpos).fallback_reason
+    assert "canonical" in plan(tq, tk, tv, qpos + 1).fallback_reason
+    for p in (plan(tq[:, :1], tk, tv, qpos[:, :1]),
+              plan(tq.requires_grad_(True), tk, tv, qpos)):
+        assert (p.impl, p.fallback_reason) == ("scan", None)
     # a head dim the kernel was not built for is no fallback: the kernel
     # wrapper raises on it
-    assert fops._kernel_constraint(tq[..., :24], tk[..., :24], tv[..., :24],
-                                   qpos, None, None) is None
+    p = plan(tq[..., :24].detach(), tk[..., :24], tv[..., :24], qpos)
+    assert (p.impl, p.fallback_reason) == ("cuda", None)
 
 
 # ---------------------------------------------------------------------------
