@@ -86,7 +86,8 @@ Phases (each fails the run on its own; nothing is caught and ignored):
              of the seconds (assignment, statistics, encode, decode,
              proxy);
 14. delta_swap (after 7) — delta checkpoints and the live weight swap at
-             llama3-8b's published widths, 2 layers, trained in f32 on the
+             llama3-8b's published widths, 1 layer (DELTA_SWAP_LAYERS),
+             trained in f32 on the
              card: ``CheckpointManager(codec="deepcabac-delta",
              delta_every=4, sharded=True, min_quant_ndim=3)`` saves a
              keyframe over a (data 1, model 4) MeshSpec and two P-frames,
@@ -134,12 +135,29 @@ Phases (each fails the run on its own; nothing is caught and ignored):
              to the default's), a strict flash_attention=cuda pin with a
              ragged kv_len raises KernelDispatchError and the same call
              unpinned records its fallback; the launcher's
-             --kernel-impl and --strict-kernels likewise.
+             --kernel-impl and --strict-kernels likewise;
+22. parity_ssm (after 15) — the smoke mamba2-2.7b and zamba2-2.7b in f32
+             and in bf16 on q8, card against CPU: prompts of mixed lengths
+             (one of a single token) through the session, greedy tokens
+             identical on both and from graphs and eagerly on the card,
+             close prefill logits, equal q8 levels; reports hold exactly
+             the reference's loop-dequant records (LOOP_DEQUANT);
+23. serve_ssm, serve_hybrid (after 16) — mamba2-2.7b (64 layers) and
+             zamba2-2.7b (54 layers, its shared block through the D = 80
+             flash instance) at published widths and full depth, served as
+             in 6, with the decode step's byte bound (weights as stored,
+             the f32 state read and written, tails and attention cache);
+24. serve_hybrid_f32 — zamba2-2.7b at its published widths in f32, one
+             group deep (6 mixers and the shared block: the D = 80 f32
+             flash instance), on q8 eagerly and from graphs; tokens equal
+             to the same session's on the CPU, logits within
+             TOL_MOE_F32_LOGITS.
 
 Every phase but 20 runs under the default kernel policy with an empty
 tuning cache (``REPRO_TORCH_KERNEL_TUNE_CACHE`` points at a fresh file
 under ``build/``), so a stale cache on the machine changes nothing.
-13 runs at 1 layer (RD_SWEEP_LAYERS), so that 15-21 fit the time limit.
+13 runs at 1 layer (RD_SWEEP_LAYERS) and 14 at 1 (DELTA_SWAP_LAYERS), so
+that 15-24 fit the time limit.
 
 The line before the last is the card's name and power limit; one line
 before it is the ``{"kernels": [...]}`` summary; the last line is
@@ -230,6 +248,7 @@ EMBED_F32_NEW_TOKENS = 12
 # (D = 128), musicgen-medium (D = 64)
 FLASH_HEADS = ((32, 8), (16, 16))
 FLASH_D64_HEADS = (24, 24)
+FLASH_D80_HEADS = (32, 32)   # zamba2-2.7b's shared attention block
 TOL_F32 = 1e-4               # relative to max|plain|: f32 sums in other order
 TOL_FLASH_BF16 = 2e-2        # bf16 output and p rounded to bf16 before PV
 # bf16 smoke deepseek-moe-16b, card against CPU, relative to max|logit|:
@@ -255,6 +274,8 @@ RD_OPS_CAND = 30             # per candidate, f32: add, 2 clips, step*k, w-,
 # a lower bound.
 ISSUE_OPS_PER_S = F32_FLOPS / 2
 DEPLOY_LAYERS = 2            # depth of the 2-layer full-width cuts
+DELTA_SWAP_LAYERS = 1        # delta_swap's depth (cut from 2 for time:
+#                              its saves code the stacked layers)
 DEPLOY_SERVE_LAYERS = 1      # depth of the deepcabac-rd container served
 #                              (cut from 2 in PR 21 for time: its host
 #                              CABAC encode and three decodes go with the
@@ -294,7 +315,8 @@ DC_LAMBDAS = (0.0, 1e-4)
 DC_S_GRID = (16.0, 32.0, 64.0)
 DC_V1_LAMBDAS = (0.0,)
 SEARCH_TOL = 0.005
-# delta_swap: llama3-8b at full width, DEPLOY_LAYERS deep, trained in f32:
+# delta_swap: llama3-8b at full width, DELTA_SWAP_LAYERS deep, trained in
+# f32:
 # the steps saved (a keyframe and two P-frames, one AdamW step apart at
 # SWAP_LR), the keyframe cadence, the save mesh (shard math only, one
 # card), the new tokens of each of the 4 requests (the first from the
@@ -309,6 +331,19 @@ SWAP_NEW_TOKENS = 32
 SWAP_TICKS = 8
 SWAP_LATE_TOKENS = 8
 SWAP_DISK_BYTES = 20 * 2**30
+# the SSM and hybrid families: their smoke models run card against CPU (f32
+# and bf16, q8), mamba2-2.7b (64 layers) and zamba2-2.7b (54 layers) serve
+# at published widths and full depth; zamba2-2.7b also in f32 at one group
+# of its layers (HYBRID_F32_LAYERS: 6 mixers and the shared block, the
+# D = 80 f32 flash instance on a served path), card against CPU.  Under q8
+# the reference dequantizes the mixer tensors in its loop (no fused
+# consumer), and records each once: LOOP_DEQUANT, the names the reference
+# records (tests/test_torch_ssm.py holds this list to it on the CPU)
+SSM_ARCHS = ("mamba2-2.7b", "zamba2-2.7b")
+LOOP_DEQUANT = ("w_z", "w_x", "w_b", "w_c", "w_dt", "conv_x_w", "conv_b_w",
+                "conv_c_w", "out_proj")
+SSM_PROMPT_LENS = (16, 16, 1, 9, 5, 16)     # a 1-token prompt among them
+HYBRID_F32_LAYERS = 6
 # the kernel tuning cache: every phase serves with an empty one (a stale
 # file of the machine's cannot change a phase), except serve_mla_tuned,
 # which reads what the tune phase wrote; tune's rd_quant sizes are the full
@@ -564,7 +599,8 @@ def phase_kernels_flash(device):
     gen.manual_seed(1)
     b = 4
     rows = []
-    cases = [(hg, 128) for hg in FLASH_HEADS] + [(FLASH_D64_HEADS, 64)]
+    cases = [(hg, 128) for hg in FLASH_HEADS] + [(FLASH_D64_HEADS, 64),
+                                                  (FLASH_D80_HEADS, 80)]
     for (h, g), d, s in [(hg, d, s) for hg, d in cases for s in (128, 100)]:
         for dt, tol in ((torch.bfloat16, TOL_FLASH_BF16),
                         (torch.float32, TOL_F32)):
@@ -1097,23 +1133,49 @@ def phase_parity_moe_bf16(device, cpu="cpu"):
             "tokens": int(tok_d.size), "launches": launches}
 
 
-def allowed_records(cfg) -> set:
+def clear_reports() -> None:
+    """Empty the dispatch report and the model's set of loop-dequantized
+    tensors already reported (each is recorded once per process), so that
+    a phase's report does not depend on the phases before it."""
+    from repro_torch.kernels import registry
+    from repro_torch.models import transformer
+    transformer._reported_loop_dequant.clear()
+    registry.clear_dispatch_report()
+
+
+def _record_key(r) -> tuple:
+    """(op, kind, reason) of a record; a loop dequant's reason is the
+    tensor's name."""
+    reason = r["reason"]
+    if r["kind"] == "loop_dequant":
+        reason = reason.split(":", 1)[0]
+    return (r["op"], r["kind"], reason)
+
+
+def allowed_records(cfg, backend="q8") -> set:
     """The dispatch records a run of ``cfg`` may leave: MLA's attention has
     d != dv, so its prefills take the scan, recorded, as the reference's
-    do (``repro/kernels/flash_attention/ops.py``); nothing else."""
-    if cfg.attention != "mla":
-        return set()
-    d = cfg.qk_nope_head_dim + cfg.qk_rope_head_dim
-    return {("flash_attention", "fallback",
-             f"d != dv ({d} != {cfg.v_head_dim})")}
+    do (``repro/kernels/flash_attention/ops.py``); an SSM or hybrid model
+    on q8 dequantizes its mixer tensors in the loop, recorded once each
+    (LOOP_DEQUANT), as the reference's does; nothing else."""
+    out = set()
+    if cfg.attention == "mla":
+        d = cfg.qk_nope_head_dim + cfg.qk_rope_head_dim
+        out.add(("flash_attention", "fallback",
+                 f"d != dv ({d} != {cfg.v_head_dim})"))
+    if cfg.family in ("ssm", "hybrid") and backend == "q8":
+        out |= {("dequant_matmul", "loop_dequant", n) for n in LOOP_DEQUANT}
+    return out
 
 
-def report_ok(cfg, report) -> bool:
-    """Every record allowed, and the MLA records present: its prefills ran
-    the scan."""
-    allowed = allowed_records(cfg)
-    got = {(r["op"], r["kind"], r["reason"]) for r in report}
-    return got == allowed
+def report_ok(cfg, report, backend="q8") -> bool:
+    """Every record allowed, and every allowed record present (MLA's
+    prefills ran the scan, once a call; the SSM's mixers were dequantized
+    in the loop, recorded once a tensor)."""
+    got = [_record_key(r) for r in report]
+    loops = [k for k in got if k[1] == "loop_dequant"]
+    return len(loops) == len(set(loops)) and set(got) == allowed_records(
+        cfg, backend)
 
 
 def pos3d_grid(b, gh, gw, n_text, device):
@@ -1220,7 +1282,7 @@ def phase_parity_variants(device, cpu="cpu"):
         out = {}
         for dev in (device, cpu):
             tree = params_from_numpy(flat_q8, dev)
-            registry.clear_dispatch_report()
+            clear_reports()
             registry.reset_launch_counts()
             if cfg.embed_input:
                 sess = ServeSession(cfg, tree, backend="q8", device=dev,
@@ -1274,6 +1336,114 @@ def phase_parity_variants(device, cpu="cpu"):
     return res
 
 
+def _session_tokens(cfg, tree, device, prompts, new_tokens, eager=False):
+    """Greedy tokens of ``prompts`` (a list of 1-D int32 arrays) through a
+    q8 session over 4 slots on ``device`` (from CUDA graphs on the card
+    unless ``eager``), as a list per request."""
+    import contextlib
+
+    from repro_torch.serve.session import (ServeConfig, ServeSession,
+                                           eager_steps)
+    with eager_steps() if eager else contextlib.nullcontext():
+        sess = ServeSession(cfg, tree, backend="q8", device=device,
+                            serve_cfg=ServeConfig(
+                                slots=4, max_len=max(map(len, prompts))
+                                + new_tokens))
+        hs = [sess.submit(p, max_new_tokens=new_tokens) for p in prompts]
+        sess.run()
+    return [h.tokens for h in hs], sess.params
+
+
+def phase_parity_ssm(device, cpu="cpu"):
+    """The SSM and hybrid smoke models (mamba2-2.7b, zamba2-2.7b) in f32 and
+    in bf16 on q8, on ``device`` and on the CPU from the same converted
+    weights: prompts of mixed lengths (SSM_PROMPT_LENS, a 1-token prompt
+    among them) through the session, greedy tokens identical on both
+    devices and, on the card, from graphs and eagerly; prefill logits
+    within TOL_VARIANT_LOGITS of max|logit|; q8 levels and scales made on
+    the card equal to the CPU's; reports that hold exactly the reference's
+    loop-dequant records (LOOP_DEQUANT)."""
+    import numpy as np
+    import torch
+    from repro_torch import configs
+    from repro_torch.compression import flatten_tree, quantize_tree_q8
+    from repro_torch.convert import params_from_numpy, tensor_to_numpy
+    from repro_torch.kernels import registry
+    from repro_torch.models.transformer import init_params, prefill
+
+    res = {}
+    for arch in SSM_ARCHS:
+        for dtype in ("float32", "bfloat16"):
+            cfg = configs.get(arch, smoke=True).replace(param_dtype=dtype,
+                                                        compute_dtype=dtype)
+            raw = init_params(cfg, 0, device=cpu)
+            flat_q8 = {k: tensor_to_numpy(v) for k, v in
+                       flatten_tree(quantize_tree_q8(raw)).items()}
+            rng = np.random.default_rng(7)
+            prompts = [rng.integers(0, cfg.vocab_size, (n,)).astype(np.int32)
+                       for n in SSM_PROMPT_LENS]
+            batch = np.stack([p for p in prompts if len(p) == 16])
+            out = {}
+            for dev in (device, cpu):
+                tree = params_from_numpy(flat_q8, dev)
+                clear_reports()
+                registry.reset_launch_counts()
+                tokens, params = _session_tokens(cfg, tree, dev, prompts, 12)
+                launches = registry.launch_counts()
+                report = registry.dispatch_report()
+                eager, _ = _session_tokens(cfg, tree, dev, prompts, 12,
+                                           eager=True)
+                logits, _ = prefill(params, cfg,
+                                    tokens=torch.from_numpy(batch).to(dev),
+                                    max_len=28)
+                out[str(dev)] = (tokens, eager, logits.float().cpu().numpy(),
+                                 launches, report)
+            (tok_d, eag_d, lo_d, launches, report), (tok_c, _, lo_c, _,
+                                                     rep_c) = \
+                out[str(device)], out[cpu]
+            what = f"{arch} {dtype} smoke"
+            err = float(np.max(np.abs(lo_d - lo_c)) / np.max(np.abs(lo_c)))
+            differ = sum(a != b for t, u in zip(tok_d, tok_c)
+                         for a, b in zip(t, u)) + sum(
+                len(t) != len(u) for t, u in zip(tok_d, tok_c))
+            graph_differ = sum(a != b for t, u in zip(tok_d, eag_d)
+                               for a, b in zip(t, u))
+            mism = q8_mismatches(flatten_tree(raw), device)
+            names = sorted(_record_key(r)[2] for r in report)
+            log(f"[parity] {what} q8: {differ} of "
+                f"{sum(map(len, tok_c))} greedy tokens differ between "
+                f"{device} and cpu, {graph_differ} between graphs and eager; "
+                f"prefill logits rel diff {err:.2e} (tolerance "
+                f"{TOL_VARIANT_LOGITS}); card launches {launches}; q8 "
+                f"mismatches {mism}; report {names}")
+            check(np.isfinite(lo_d).all(), f"{what}: non-finite logits")
+            check(differ == 0, f"{what}: greedy tokens differ between "
+                  f"{device} and cpu:\n{tok_d}\n{tok_c}")
+            check(graph_differ == 0, f"{what}: graph tokens differ from the "
+                  f"eager ones:\n{tok_d}\n{eag_d}")
+            check(err <= TOL_VARIANT_LOGITS, f"{what}: prefill logits "
+                  f"differ: rel {err:.3g}")
+            check(mism == 0, f"{what}: {mism} q8 entries quantized on "
+                  f"{device} differ from the CPU's")
+            for rep_ in (report, rep_c):
+                check(report_ok(cfg, rep_), f"{what}: dispatch report "
+                      f"{rep_}, want only {allowed_records(cfg)}")
+            on_card = torch.device(device).type == "cuda"
+            check(not on_card or launches["dequant_matmul"] > 0 and
+                  (launches["flash_attention"] > 0) ==
+                  (cfg.family == "hybrid") and
+                  launches["dequant_matmul_grouped"] == 0,
+                  f"{what}: the card's launches {launches} are not the "
+                  "path's")
+            res[f"{arch}/{dtype}"] = {"logits_rel_diff": err,
+                                      "tokens_differ": differ,
+                                      "graph_tokens_differ": graph_differ,
+                                      "launches": launches,
+                                      "report": names,
+                                      "q8_mismatch_card_vs_cpu": mism}
+    return res
+
+
 def phase_deploy_rd(params, policy):
     """Eq. (11) assignment of every covered leaf of the full-width tree
     through the kernel (the tentpole's device route), traced."""
@@ -1303,9 +1473,9 @@ def phase_deploy_rd(params, policy):
     want = 2 * RD_PASSES * len(leaves)
     check(launches == want, f"full-tree RD assignment: {launches} rd_quant "
           f"launches, want {want}")
-    kern = sum(e.self_device_time_total for e in prof.key_averages()
-               if "rd_quant_pass" in e.key) / 1e3
-    busy, top = _device_time(prof)
+    events = prof.key_averages()
+    kern = _kernel_ms(events, "rd_quant_pass")
+    busy, top = _device_time(events)
     check(kern > 0, "the profiler saw no rd_quant_pass device time")
     # 1 + 1 refinement assignments of RD_PASSES passes each
     _, _, t_b, t_f = _rd_bound(n_total, 2, RD_PASSES)
@@ -1399,7 +1569,7 @@ def phase_deploy_serve(device):
                                           backend=backend, device=device)
         torch.cuda.synchronize()
         load_s = time.perf_counter() - t0
-        registry.clear_dispatch_report()
+        clear_reports()
         registry.reset_launch_counts()
         t0 = time.perf_counter()
         toks = eng.generate(prompts, new_tokens)
@@ -1485,20 +1655,20 @@ def _q8_leaves_equal(got: dict, want: dict) -> list:
 
 def phase_delta_swap(device):
     """Delta ("P-frame") checkpoints and the live weight swap at llama3-8b's
-    published widths, cut to DEPLOY_LAYERS layers: the f32 training state on
-    the card saved as a sharded keyframe over SWAP_MESH (shard math only)
-    and two P-frames, each one AdamW step later, by ``CheckpointManager``
-    (deepcabac-delta, min_quant_ndim=3: the stacked layer matrices are
-    CABAC-coded, embed, head and norms stay raw); a graph-replaying q8
-    session cold-started from the keyframe's manifest serves 4 x 128
-    prompt tokens, and each P-frame is swapped in with the four requests in
-    flight.  After each swap the resident leaves must equal, bit for bit,
-    those of a q8 tree built from the host chain decode
-    (``restore_levels``), every coded tensor must have changed levels, and
-    the decode graph must not be captured again; a request admitted after
-    the last swap must give that cold session's prefill logits bit for bit
-    and its greedy tokens; the path's kernel launches must be
-    ``per_forward_launches``' and the dispatch report empty."""
+    published widths, cut to DELTA_SWAP_LAYERS layers: the f32 training
+    state on the card saved as a sharded keyframe over SWAP_MESH (shard
+    math only) and two P-frames, each one AdamW step later, by
+    ``CheckpointManager`` (deepcabac-delta, min_quant_ndim=3: the stacked
+    layer matrices are CABAC-coded, embed, head and norms stay raw); a
+    graph-replaying q8 session cold-started from the keyframe's manifest
+    serves 4 x 128 prompt tokens, and each P-frame is swapped in with the
+    four requests in flight.  After each swap the resident leaves must
+    equal, bit for bit, those of a q8 tree built from the host chain
+    decode (``restore_levels``), every coded tensor must have changed
+    levels, and the decode graph must not be captured again; a request
+    admitted after the last swap must give that cold session's prefill
+    logits bit for bit and its greedy tokens; the path's kernel launches
+    must be ``per_forward_launches``' and the dispatch report empty."""
     import resource
     import shutil
 
@@ -1523,8 +1693,8 @@ def phase_delta_swap(device):
           f"under {root}, the phase writes up to "
           f"{SWAP_DISK_BYTES / 2**30:.0f} GiB")
     torch.cuda.reset_peak_memory_stats()
-    cfg_t, params = _full_cut(device, param_dtype="float32",
-                              compute_dtype="float32")
+    cfg_t, params = _full_cut(device, num_layers=DELTA_SWAP_LAYERS,
+                              param_dtype="float32", compute_dtype="float32")
     flat = flatten_tree(params)
     n_params = sum(v.numel() for v in flat.values())
     coded = sorted(k for k, v in flat.items() if v.dim() >= 3)
@@ -1586,7 +1756,8 @@ def phase_delta_swap(device):
 
         # the server: the full-width model in its serving dtype (bf16),
         # cold-started on q8 from the keyframe's manifest
-        cfg = configs.get("llama3-8b").replace(num_layers=DEPLOY_LAYERS)
+        cfg = configs.get("llama3-8b").replace(
+            num_layers=DELTA_SWAP_LAYERS)
         scfg = ServeConfig(slots=4, max_len=160)
         backend = get_backend("q8", track_levels=True)
         clock.wrap(backend, "_convert", "q8_convert")
@@ -1603,7 +1774,7 @@ def phase_delta_swap(device):
         clock.wrap(sess, "_admit", "admit")
         clock.wrap(sess.graphs, "_capture", "capture")
         gc.callbacks.append(gc_clock)
-        registry.clear_dispatch_report()
+        clear_reports()
         registry.reset_launch_counts()
         tick_ms: list = []
 
@@ -1764,9 +1935,13 @@ def _serve_full(cfg, params, backend, device, prompts, new_tokens,
     logits (``logits``, on the host), which the caller takes out.  Ticks
     ``PROF_STEPS[0]`` to ``PROF_STEPS[1] - 1`` are traced, after one tick
     that warms the tracer up; their own idle share is the headline
-    (``device_idle_share``).  In graph mode the decode graph's replays are
-    also timed by CUDA events (``decode_replay_ms``), which with the
-    untraced ticks gives a share that no tracer touches
+    (``device_idle_share``).  The tracer records device activity only
+    (kernels and the runtime calls that launch them): what is read from
+    the trace is device time, and an eager tick's CPU ops would multiply
+    the events, whose processing took most of an eager SSM serve.  In
+    graph mode the decode graph's replays are also timed by CUDA events
+    (``decode_replay_ms``), which with the untraced ticks gives a share
+    that no tracer touches
     (``untraced_idle_share``).  After the run the prompts come once more
     as one admission that ends at its first token, so the session runs
     one more prefill alone: in graph mode the shape's second use, which
@@ -1788,8 +1963,9 @@ def _serve_full(cfg, params, backend, device, prompts, new_tokens,
     trace = {}
 
     def read_trace(p):
-        trace["busy"], trace["top"] = _device_time(p)
-        trace["split"] = {name: _kernel_ms(p, key) / n_prof
+        events = p.key_averages()
+        trace["busy"], trace["top"] = _device_time(events)
+        trace["split"] = {name: _kernel_ms(events, key) / n_prof
                           for name, key in (
                               ("dequant_matmul_grouped", "dm_grouped"),
                               ("dequant_matmul", ("dm_decode", "dm_tc")),
@@ -1801,7 +1977,7 @@ def _serve_full(cfg, params, backend, device, prompts, new_tokens,
     hs = [sess.submit(p, max_new_tokens=new_tokens) for p in prompts]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    registry.clear_dispatch_report()
+    clear_reports()
     registry.reset_launch_counts()
     step_s, captured = [], []
     prof, prof_wall = None, 0.0
@@ -1815,8 +1991,7 @@ def _serve_full(cfg, params, backend, device, prompts, new_tokens,
             if i == prof_steps[0] - 1:
                 # one warm-up tick: the tracer misses device work launched
                 # just after it starts (a whole 1 ms graph replay)
-                prof = profile(activities=[ProfilerActivity.CPU,
-                                           ProfilerActivity.CUDA],
+                prof = profile(activities=[ProfilerActivity.CUDA],
                                schedule=schedule(wait=0, warmup=1,
                                                  active=n_prof, repeat=1),
                                on_trace_ready=read_trace)
@@ -1937,9 +2112,9 @@ def _serve_modes(cfg, params, backend, device, prompts, new_tokens):
             f"peak {r['max_memory_allocated'] / 2**30:.2f} GiB, split "
             f"{ {k: round(v, 3) for k, v in split.items()} }, "
             f"graphs {r['graph_stats']}")
-        check(report_ok(cfg, r["dispatch_report"]), f"{cfg.name} "
+        check(report_ok(cfg, r["dispatch_report"], backend), f"{cfg.name} "
               f"{backend} {mode}: dispatch report {r['dispatch_report']}, "
-              f"want only {allowed_records(cfg)}")
+              f"want only {allowed_records(cfg, backend)}")
     eager, graph = runs["eager"], runs["graph"]
     differ = int((eager["tokens"] != graph["tokens"]).sum())
     check(differ == 0, f"{cfg.name} {backend}: {differ} greedy tokens "
@@ -1966,14 +2141,15 @@ def _fmt(v):
     return "None" if v is None else f"{v:.3f}"
 
 
-def _device_time(prof):
-    """Total device time (ms) in a profiler window and the eight largest
-    kernels; (None, []) if the profiler saw no device time.  Only device
-    events are summed: a CPU op's self device time repeats its kernels',
-    and a user annotation (the schedule's ``ProfilerStep#n``) is drawn on
-    the device's timeline over the kernels it spans."""
+def _device_time(events):
+    """Total device time (ms) in a profiler window's ``key_averages()`` and
+    the eight largest kernels; (None, []) if the profiler saw no device
+    time.  Only device events are summed: a CPU op's self device time
+    repeats its kernels', and a user annotation (the schedule's
+    ``ProfilerStep#n``) is drawn on the device's timeline over the kernels
+    it spans."""
     rows = []
-    for evt in prof.key_averages():
+    for evt in events:
         if str(evt.device_type).endswith("CUDA") and \
                 evt.self_device_time_total > 0 and \
                 not getattr(evt, "is_user_annotation", False) and \
@@ -1985,11 +2161,12 @@ def _device_time(prof):
     return sum(t for _, t in rows), rows[:8]
 
 
-def _kernel_ms(prof, names) -> float:
+def _kernel_ms(events, names) -> float:
     """Device time (ms) of the kernels whose name holds ``names`` (a
-    string or a tuple of them) in a profiler window."""
+    string or a tuple of them) in a profiler window's
+    ``key_averages()``."""
     names = (names,) if isinstance(names, str) else names
-    return sum(e.self_device_time_total for e in prof.key_averages()
+    return sum(e.self_device_time_total for e in events
                if str(e.device_type).endswith("CUDA") and
                any(n in e.key for n in names)) / 1e3
 
@@ -2000,9 +2177,16 @@ def per_forward_launches(cfg) -> dict:
     w_dq, w_uq, w_dkv, w_kr, w_uk, w_uv, wo, 6 without a q LoRA) and 3 MLP;
     per MoE layer the attention's, the router and 3 shared-expert
     projections through dequant_matmul and 3 expert-bank products through
-    dequant_matmul_grouped; the untied head."""
+    dequant_matmul_grouped; an SSM layer none (its mixer tensors are
+    dequantized in the loop); the hybrid's shared block once per group
+    (4 + 3); the untied head."""
     n_layers = cfg.num_layers
     attn = 4 if cfg.attention != "mla" else 6 + bool(cfg.q_lora_rank)
+    if cfg.family in ("ssm", "hybrid"):
+        groups = (n_layers // cfg.shared_attn_every
+                  if cfg.family == "hybrid" else 0)
+        return {"dequant_matmul": (attn + 3) * groups + 1,
+                "dequant_matmul_grouped": 0}
     if cfg.family == "dense":
         return {"dequant_matmul": (attn + 3) * n_layers + 1,
                 "dequant_matmul_grouped": 0}
@@ -2013,8 +2197,11 @@ def per_forward_launches(cfg) -> dict:
 
 def flash_per_prefill(cfg) -> int:
     """flash_attention launches of one prefill: one per layer, none for
-    MLA (d != dv takes the scan)."""
-    return 0 if cfg.attention == "mla" else cfg.num_layers
+    MLA (d != dv takes the scan) or an SSM model, one per group of the
+    hybrid (its shared block)."""
+    if cfg.family == "hybrid":
+        return cfg.num_layers // cfg.shared_attn_every
+    return 0 if cfg.attention in ("mla", "none") else cfg.num_layers
 
 
 def init_full(device, arch, **overrides):
@@ -2031,6 +2218,41 @@ def init_full(device, arch, **overrides):
         f"{n_params / 1e9:.3f} B parameters ({cfg.param_dtype}) initialised "
         f"in {time.perf_counter() - t0:.1f} s")
     return cfg, params
+
+
+def decode_byte_bound(cfg, params, backend, slots, max_len) -> dict:
+    """The bytes one decode step over ``slots`` rows must move, and their
+    time at HBM_BYTES_PER_S: every weight once at its stored precision (on
+    q8 the leaves the serving rule quantizes as int8 levels and f32 scales;
+    the embedding's ``slots`` rows only), the f32 SSM state read and
+    written, the conv tails read and written and the attention cache read
+    (whole: the decode attention reads every position of its buffer)."""
+    from repro_torch.compression import flatten_tree
+    from repro_torch.compression.quantizers import serve_q8_policy
+    w = 0
+    for name, t in flatten_tree(params).items():
+        if name == "embed":
+            elt = 1 if backend == "q8" else t.element_size()
+            w += slots * t.shape[1] * elt
+        elif backend == "q8" and serve_q8_policy(name, t):
+            scales = t.shape[0] * t.shape[-1] if t.dim() >= 3 else t.shape[-1]
+            w += t.numel() + 4 * scales
+        else:
+            w += t.numel() * t.element_size()
+    elt = 4 if cfg.compute_dtype == "float32" else 2
+    rows = cfg.num_layers * slots
+    state = 2 * rows * cfg.ssm_nheads * cfg.ssm_headdim * cfg.ssm_state * 4
+    tails = 2 * rows * (cfg.ssm_conv - 1) * (
+        cfg.d_inner + 2 * cfg.ssm_ngroups * cfg.ssm_state) * elt
+    attn = 0
+    if cfg.family == "hybrid":
+        attn = (2 * (cfg.num_layers // cfg.shared_attn_every) * slots *
+                max_len * cfg.num_kv_heads * cfg.head_dim *
+                (1 if cfg.q8_cache else elt))
+    total = w + state + tails + attn
+    return {"weight_bytes": w, "state_bytes": state,
+            "cache_bytes": tails + attn, "bytes": total,
+            "ms": 1e3 * total / HBM_BYTES_PER_S}
 
 
 def _layer0_sample(params) -> dict:
@@ -2084,11 +2306,23 @@ def phase_serve(cfg, params, device):
         check(r["logits_finite"], f"{what}: non-finite logits")
         check(r["logits_shape"] == [4, cfg.vocab_size],
               f"{what}: logits shape {r['logits_shape']}")
-        check(not r["dispatch_report"],
-              f"{what}: dispatch report not empty: {r['dispatch_report']}")
-        check(r["launches"]["flash_attention"] == cfg.num_layers,
+        check(report_ok(cfg, r["dispatch_report"], backend),
+              f"{what}: dispatch report {r['dispatch_report']}, want only "
+              f"{allowed_records(cfg, backend)}")
+        check(r["launches"]["flash_attention"] == flash_per_prefill(cfg),
               f"{what}: {r['launches']['flash_attention']} flash launches, "
-              f"want {cfg.num_layers} (one prefill)")
+              f"want {flash_per_prefill(cfg)} (one prefill)")
+        if cfg.family in ("ssm", "hybrid"):
+            bound = decode_byte_bound(cfg, params, backend, 4,
+                                      128 + new_tokens)
+            r["decode_bound"] = bound
+            log(f"[serve] {what}: decode byte bound {bound['ms']:.3f} ms "
+                f"per step ({bound['weight_bytes'] / 1e9:.3f} GB of "
+                f"weights as stored, {bound['state_bytes'] / 1e9:.3f} GB of "
+                f"f32 state read and written, "
+                f"{bound['cache_bytes'] / 1e9:.4f} GB of conv tails and "
+                f"attention cache); graphs at "
+                f"{r['decode_ms_per_step_median'] / bound['ms']:.1f}x it")
         if backend == "q8":
             for kern, n in per_fwd.items():
                 check(r["launches"][kern] == n * fwd,
@@ -2130,7 +2364,7 @@ def phase_container_moe(device):
                                            device=device))
         torch.cuda.synchronize()
         load_s = time.perf_counter() - t0
-        registry.clear_dispatch_report()
+        clear_reports()
         registry.reset_launch_counts()
         toks = eng.generate(prompts, new_tokens)
         counts = registry.launch_counts()
@@ -2177,10 +2411,7 @@ def phase_serve_moe_f32(device, cpu="cpu"):
     share come from the profiler, as in phase_serve."""
     import numpy as np
     import torch
-    from repro_torch.compression import flatten_tree, quantize_tree_q8
-    from repro_torch.compression.tree import unflatten
-    from repro_torch.models.transformer import prefill
-    from repro_torch.serve.session import ServeConfig, ServeSession
+    from repro_torch.compression import quantize_tree_q8
 
     cfg, params = init_full(device, "deepseek-moe-16b",
                             num_layers=DEPLOY_LAYERS, param_dtype="float32",
@@ -2215,23 +2446,10 @@ def phase_serve_moe_f32(device, cpu="cpu"):
           f"{what}: the profiler saw no grouped kernel time: "
           f"{e['top_device_ms_per_step']}")
     # the same session on the CPU, from the same q8 tree
-    tree_cpu = unflatten({k: v.cpu() for k, v in flatten_tree(tree).items()})
+    tok_c, lo_c, cpu_s = _cpu_session(cfg, tree, prompts, new_tokens, cpu)
     del tree
     gc.collect()
     torch.cuda.empty_cache()
-    t0 = time.perf_counter()
-    sess = ServeSession(cfg, tree_cpu, backend="q8", device=cpu,
-                        serve_cfg=ServeConfig(slots=4,
-                                              max_len=128 + new_tokens))
-    hs = [sess.submit(p, max_new_tokens=new_tokens) for p in prompts]
-    sess.run()
-    tok_c = np.stack([h.result() for h in hs])
-    lo_c, _ = prefill(sess.params, cfg, tokens=torch.from_numpy(prompts),
-                      max_len=128 + new_tokens)
-    lo_c = lo_c.float().numpy()
-    cpu_s = time.perf_counter() - t0
-    del sess, tree_cpu
-    gc.collect()
     err = float(np.max(np.abs(lo_d - lo_c)) / np.max(np.abs(lo_c)))
     differ = int((tok_d != tok_c).sum())
     busy = r["device_busy_ms_per_step"] or e["device_busy_ms_per_step"]
@@ -2260,6 +2478,92 @@ def phase_serve_moe_f32(device, cpu="cpu"):
     r.update({"layers": cfg.num_layers, "logits_rel_diff_vs_cpu": err,
               "tokens_differ_vs_cpu": differ, "cpu_session_s": cpu_s,
               "grouped_share_of_busy": share})
+    return r
+
+
+def _cpu_session(cfg, tree, prompts, new_tokens, cpu="cpu"):
+    """The q8 session of ``tree`` copied to the CPU over ``prompts`` (4 x
+    S): greedy tokens, one prefill's logits (f32, on the host) and the
+    seconds both took."""
+    import numpy as np
+    import torch
+    from repro_torch.compression import flatten_tree
+    from repro_torch.compression.tree import unflatten
+    from repro_torch.models.transformer import prefill
+    from repro_torch.serve.session import ServeConfig, ServeSession
+
+    tree_cpu = unflatten({k: v.cpu() for k, v in flatten_tree(tree).items()})
+    max_len = prompts.shape[1] + new_tokens
+    t0 = time.perf_counter()
+    sess = ServeSession(cfg, tree_cpu, backend="q8", device=cpu,
+                        serve_cfg=ServeConfig(slots=4, max_len=max_len))
+    hs = [sess.submit(p, max_new_tokens=new_tokens) for p in prompts]
+    sess.run()
+    tok_c = np.stack([h.result() for h in hs])
+    lo_c, _ = prefill(sess.params, cfg, tokens=torch.from_numpy(prompts),
+                      max_len=max_len)
+    lo_c = lo_c.float().numpy()
+    cpu_s = time.perf_counter() - t0
+    del sess, tree_cpu
+    gc.collect()
+    return tok_c, lo_c, cpu_s
+
+
+def phase_serve_hybrid_f32(device, cpu="cpu"):
+    """zamba2-2.7b at its published widths in f32 (params and compute),
+    HYBRID_F32_LAYERS deep (one group: its mixers, then the shared block
+    through the D = 80 f32 flash instance), served on q8 eagerly and from
+    graphs (4 x 128 prompt tokens + MOE_F32_NEW_TOKENS, greedy); the same
+    q8 tree served on the CPU gives the same greedy tokens and prefill
+    logits within TOL_MOE_F32_LOGITS of max|logit|; launches of the path;
+    the report holds the loop-dequant records only."""
+    import numpy as np
+    import torch
+    from repro_torch.compression import quantize_tree_q8
+
+    cfg, params = init_full(device, "zamba2-2.7b",
+                            num_layers=HYBRID_F32_LAYERS,
+                            param_dtype="float32", compute_dtype="float32")
+    tree = quantize_tree_q8(params)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    rng = np.random.default_rng(8)
+    prompts = rng.integers(0, cfg.vocab_size, (4, 128)).astype(np.int32)
+    new_tokens = MOE_F32_NEW_TOKENS
+    r = _serve_modes(cfg, tree, "q8", device, prompts, new_tokens)
+    tok_d, lo_d = r.pop("tokens"), r.pop("logits")
+    fwd = 1 + r["decode_steps"]
+    what = f"zamba2-2.7b f32, {cfg.num_layers} layers"
+    check(r["logits_finite"] and np.isfinite(lo_d).all(),
+          f"{what}: non-finite logits")
+    check(r["launches"]["flash_attention"] == flash_per_prefill(cfg),
+          f"{what}: {r['launches']['flash_attention']} flash launches, want "
+          f"{flash_per_prefill(cfg)} (one prefill)")
+    for kern, n in per_forward_launches(cfg).items():
+        check(r["launches"][kern] == n * fwd, f"{what}: "
+              f"{r['launches'][kern]} {kern} launches, want {n} x {fwd} "
+              "passes")
+    tok_c, lo_c, cpu_s = _cpu_session(cfg, tree, prompts, new_tokens, cpu)
+    del tree
+    gc.collect()
+    torch.cuda.empty_cache()
+    err = float(np.max(np.abs(lo_d - lo_c)) / np.max(np.abs(lo_c)))
+    differ = int((tok_d != tok_c).sum())
+    e = r["eager"]
+    log(f"[serve] {what} on q8, graphs (eager in brackets): prefill forward "
+        f"{r['prefill_forward_ms']:.2f} ms ({e['prefill_forward_ms']:.2f}), "
+        f"decode {r['decode_ms_per_step_median']:.2f} ms/step median "
+        f"({e['decode_ms_per_step_median']:.2f}), launches {r['launches']}; "
+        f"against the CPU ({cpu_s:.1f} s): prefill logits rel diff "
+        f"{err:.2e} (tolerance {TOL_MOE_F32_LOGITS}), {differ} of "
+        f"{tok_d.size} greedy tokens differ")
+    check(err <= TOL_MOE_F32_LOGITS,
+          f"{what}: prefill logits differ from the CPU's: rel {err:.3g}")
+    check(differ == 0, f"{what}: {differ} greedy tokens differ between "
+          f"{device} and cpu:\n{tok_d}\n{tok_c}")
+    r.update({"layers": cfg.num_layers, "logits_rel_diff_vs_cpu": err,
+              "tokens_differ_vs_cpu": differ, "cpu_session_s": cpu_s})
     return r
 
 
@@ -2621,7 +2925,7 @@ def phase_pins(device):
                       ("dequant_matmul=ref", kernels.KernelPolicy()
                        .override("dequant_matmul", "ref"))):
         kernels.reset_launch_counts()
-        kernels.clear_dispatch_report()
+        clear_reports()
         sess = ServeSession(cfg.replace(kernels=pol), params, backend="q8",
                             device=device,
                             serve_cfg=ServeConfig(slots=4, max_len=32))
@@ -2645,7 +2949,7 @@ def phase_pins(device):
     fa = kernels.get("flash_attention")
     strict = kernels.KernelPolicy(strict=True).override("flash_attention",
                                                         "cuda")
-    kernels.clear_dispatch_report()
+    clear_reports()
     try:
         fa(q, kv, kv, qpos, kv_len=kv_len, policy=strict)
         raised = None
@@ -2653,7 +2957,7 @@ def phase_pins(device):
         raised = str(e)
     check(raised is not None and "ragged" in raised,
           f"pins: strict flash_attention=cuda with a ragged kv_len: {raised}")
-    kernels.clear_dispatch_report()
+    clear_reports()
     fa(q, kv, kv, qpos, kv_len=kv_len)
     rec = kernels.dispatch_report()
     check([(r["requested"], r["impl"], r["kind"]) for r in rec] ==
@@ -2661,7 +2965,7 @@ def phase_pins(device):
           f"pins: unpinned ragged call recorded {rec}")
     # the launcher, in this process
     kernels.reset_launch_counts()
-    kernels.clear_dispatch_report()
+    clear_reports()
     text = io.StringIO()
     with contextlib.redirect_stdout(text):
         serve.main(["--smoke", "--backend", "q8", "--steps", "8",
@@ -2716,7 +3020,7 @@ def phase_embeds_full(device, cpu="cpu"):
         tree = init_q8_leafwise(cfg, device)
         emb, p3, table = embed_inputs(cfg, 4, 128, 8, device)
         torch.cuda.reset_peak_memory_stats()
-        registry.clear_dispatch_report()
+        clear_reports()
         registry.reset_launch_counts()
         toks, lo, pre_ms, dec_ms = greedy_embeds(tree, cfg, emb, p3, table,
                                                  32)
@@ -2808,7 +3112,7 @@ def _fisher_leaves(cfg, params, what):
     on_card = next(iter(flatten_tree(params).values())).is_cuda
     if on_card:
         torch.cuda.synchronize()
-    registry.clear_dispatch_report()
+    clear_reports()
     registry.reset_launch_counts()
     t0 = time.perf_counter()
     f = flatten_tree(fisher_for(cfg, params, batches=FIM_BATCHES,
@@ -2912,7 +3216,7 @@ def phase_variational(device):
                          device) for i in range(FIM_BATCHES)]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    registry.clear_dispatch_report()
+    clear_reports()
     registry.reset_launch_counts()
     t0 = time.perf_counter()
     res = variational_fim(lambda p, b: train_loss(p, b, cfg), params,
@@ -3038,7 +3342,7 @@ def phase_rd_sweep(device):
     clock.wrap(rd_search.TaskProxy, "_log_probs", "proxy_logits")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    registry.clear_dispatch_report()
+    clear_reports()
     registry.reset_launch_counts()
     t0 = time.perf_counter()
     try:
@@ -3244,7 +3548,7 @@ def _leaves(tree):
 
 def summarize(dm_rows, fa_rows, grouped_rows, serve, serve_moe, rd_rows,
               deploy, serve_moe_f32, sweep, swap, grouped_v3, serve_dense,
-              serve_mla, embeds):
+              serve_mla, embeds, serve_ssm, serve_hybrid, hybrid_f32):
     """One entry per kernel and, for flash_attention and
     dequant_matmul_grouped, one per instance (``instance``).
     dequant_matmul: one full-width llama3-8b decode step's 225 calls at 4
@@ -3274,7 +3578,11 @@ def summarize(dm_rows, fa_rows, grouped_rows, serve, serve_moe, rd_rows,
     at deepseek-v3-671b's 256 experts (one decode step's 3 calls at M=32,
     launched by ``serve_mla``), and the launches of each serving path of
     qwen3-8b, deepseek-v3-671b, musicgen-medium and qwen2-vl-7b beside
-    the kernels they run."""
+    the kernels they run.  The SSM and hybrid families: the D = 80
+    flash instances at zamba2-2.7b's prefill (B=4, S=128, H=G=32), bf16
+    launched by ``serve_hybrid`` (54 layers, 9 per prefill), f32 by
+    ``serve_hybrid_f32`` (6 layers); dequant_matmul's launches of
+    ``serve_ssm`` (the head only) and ``serve_hybrid``."""
     def row(m, k, n, x):
         return next(r for r in dm_rows if (r["arch"], r["m"], r["k"], r["n"],
                                            r["x"]) ==
@@ -3416,7 +3724,18 @@ def summarize(dm_rows, fa_rows, grouped_rows, serve, serve_moe, rd_rows,
               for key in ("ms", "eager_ms", "plain_ms", "bound_ms",
                           "library_ms")},
            "bound_by": vstep[0][0]["bound_by"]}
-    return [dm, fa, fa32, fa64, fa64_32, gm, gm32, gv3, rd]
+    fa80 = fa_entry(FLASH_D80_HEADS[0], "bfloat16",
+                    serve_hybrid["q8"]["launches"]["flash_attention"],
+                    "one zamba2-2.7b prefill call: B=4 S=128 H=G=32 D=80 "
+                    "bf16", d=80)
+    fa80_32 = fa_entry(FLASH_D80_HEADS[0], "float32",
+                       hybrid_f32["launches"]["flash_attention"],
+                       "one zamba2-2.7b f32 prefill call: B=4 S=128 H=G=32 "
+                       "D=80 f32", d=80)
+    dm["serve_ssm_launches"] = serve_ssm["q8"]["launches"]["dequant_matmul"]
+    dm["serve_hybrid_launches"] = serve_hybrid["q8"]["launches"][
+        "dequant_matmul"]
+    return [dm, fa, fa32, fa64, fa64_32, fa80, fa80_32, gm, gm32, gv3, rd]
 
 
 def main() -> int:
@@ -3457,6 +3776,7 @@ def main() -> int:
     run("parity_moe", phase_parity_moe, device)
     run("parity_moe_bf16", phase_parity_moe_bf16, device)
     run("parity_variants", phase_parity_variants, device)
+    run("parity_ssm", phase_parity_ssm, device)
     run("search_parity", phase_search_parity, device)
     cfg, params = init_full(device, "llama3-8b")
     policy = rd_policy_rules(covered_leaves(params))
@@ -3482,6 +3802,15 @@ def main() -> int:
     cfg, params = init_full(device, "qwen3-8b")
     run("serve_dense", phase_serve, cfg, params, device)
     del params
+    free()
+    # the SSM and hybrid families at their published widths and depths
+    for key, arch in (("serve_ssm", "mamba2-2.7b"),
+                      ("serve_hybrid", "zamba2-2.7b")):
+        cfg, params = init_full(device, arch)
+        run(key, phase_serve, cfg, params, device)
+        del params
+        free()
+    run("serve_hybrid_f32", phase_serve_hybrid_f32, device)
     free()
     mla_cfg, mla_tree = mla_cut(device)
     free()
@@ -3514,7 +3843,9 @@ def main() -> int:
                         results["rd_sweep"], results["delta_swap"],
                         results["dequant_matmul_grouped_v3"],
                         results["serve_dense"], results["serve_mla"],
-                        results["embeds_full"])
+                        results["embeds_full"], results["serve_ssm"],
+                        results["serve_hybrid"],
+                        results["serve_hybrid_f32"])
     results["kernels"] = kernels
     results["seconds"] = time.perf_counter() - t0
     out_dir = ROOT / "chiprun_out"

@@ -240,15 +240,16 @@ def _moe_block_rows(cs, torch, dev, gen) -> list:
             for _ in range(MOE_CALLS):
                 moe.moe_block(x, p, cfg, **kw)
             torch.cuda.synchronize()
-        busy, top = cs._device_time(prof)
-        kernels = sum(evt.count for evt in prof.key_averages()
+        events = prof.key_averages()
+        busy, top = cs._device_time(events)
+        kernels = sum(evt.count for evt in events
                       if str(evt.device_type).endswith("CUDA") and
                       evt.self_device_time_total > 0)
         rows.append({"g": 4, "s": s, "x": "bfloat16", "aux": not kw,
                      "device_ms_per_call": busy / MOE_CALLS,
                      "device_ops_per_call": kernels / MOE_CALLS,
                      "grouped_ms_per_call": cs._kernel_ms(
-                         prof, "dm_grouped") / MOE_CALLS,
+                         events, "dm_grouped") / MOE_CALLS,
                      "top_ms_per_call": {k: v / MOE_CALLS for k, v in top}})
     del p
     return rows

@@ -1,7 +1,5 @@
-"""Architecture registry of the port: ``get(name, smoke=)``.
-
-Only the architectures whose path has been ported are registered; every
-other id the reference knows raises "not yet ported"."""
+"""Architecture registry of the port: ``get(name, smoke=)``, every
+architecture the reference registers, in its order."""
 
 from __future__ import annotations
 
@@ -9,15 +7,15 @@ import importlib
 
 from ..models.config import ModelConfig
 
-# the reference's registry order, less the SSM and hybrid architectures
+# the reference's registry order
 ARCH_IDS = [
     "llama3-8b", "qwen1.5-4b", "mistral-nemo-12b", "qwen3-8b",
-    "deepseek-v3-671b", "deepseek-moe-16b", "musicgen-medium",
-    "qwen2-vl-7b",
+    "deepseek-v3-671b", "deepseek-moe-16b", "mamba2-2.7b",
+    "musicgen-medium", "qwen2-vl-7b", "zamba2-2.7b",
 ]
 
-# the reference's other architectures, queued for a later slice
-_NOT_YET_PORTED = ["mamba2-2.7b", "zamba2-2.7b"]
+# ids the reference knows whose path is not ported yet (none)
+_NOT_YET_PORTED: list = []
 
 _MOD = {a: a.replace("-", "_").replace(".", "_") for a in ARCH_IDS}
 

@@ -16,20 +16,38 @@
 // 5.0 us, against 0.27 GFLOP (1.6 us at the 3xTF32 rate below).  At
 // musicgen-medium's prefill (B=4, S=128, H=G=24, D=64): 6.3 MB in bf16,
 // 1.9 us, against 0.20 GFLOP (0.2 us); 12.6 MB in f32, 3.8 us, against
-// 1.2 us at the 3xTF32 rate.
+// 1.2 us at the 3xTF32 rate.  At zamba2-2.7b's shared attention block
+// (B=4, S=128, H=G=32, D=80): 10.5 MB in bf16, 3.1 us, against 0.34 GFLOP
+// (0.3 us); 21.0 MB in f32, 6.3 us, against 2.0 us at the 3xTF32 rate.
 //
 // Two kernels, each built for D = 32 (the smoke models), 64 (musicgen-
-// medium) and 128 (the other full-width models).  Nothing in either
-// depends on D but the loop counts and the shared rows, and D = 64 keeps
-// the D = 128 instance's bank arithmetic: a bf16 row of D + 8 elements is
-// 144 bytes (36 words, 4 mod 32, as 272 bytes at D = 128), so the 8 rows
-// of an ldmatrix phase start at banks 0, 4, .., 28 and hit 32 distinct
-// banks; f32 Q and K rows of D + 8 words are 8 mod 32 and V rows of D + 4
-// are 4 mod 32, as at D = 128.  A row is D / 8 (bf16) or D / 4 (f32)
-// 16-byte cp.async copies, 8 or 16 at D = 64.  Q stays in registers in the
-// bf16 kernel (4 k16 fragments at D = 64, 8 at D = 128).  Shared memory
-// per block at D = 64: 45 KB in bf16 (under the 48 KB default, so no
-// attribute; 4 blocks per SM), 88 KB in f32 (2 blocks per SM).
+// medium), 80 (zamba2-2.7b) and 128 (the other full-width models).
+// Nothing in either depends on D but the loop counts and the shared rows,
+// and D = 64 keeps the D = 128 instance's bank arithmetic: a bf16 row of
+// D + 8 elements is 144 bytes (36 words, 4 mod 32, as 272 bytes at D =
+// 128), so the 8 rows of an ldmatrix phase start at banks 0, 4, .., 28 and
+// hit 32 distinct banks; f32 Q and K rows of D + 8 words are 8 mod 32 and
+// V rows of D + 4 are 4 mod 32, as at D = 128.  A row is D / 8 (bf16) or
+// D / 4 (f32) 16-byte cp.async copies, 8 or 16 at D = 64.  Q stays in
+// registers in the bf16 kernel (4 k16 fragments at D = 64, 8 at D = 128).
+// Shared memory per block at D = 64: 45 KB in bf16 (under the 48 KB
+// default, so no attribute; 4 blocks per SM), 88 KB in f32 (2 blocks per
+// SM).
+//
+// D = 80 is 5 k16 steps (bf16) or 10 k8 steps (f32) and 10 n8 blocks of
+// the output.  Q K^T takes one k16 step at a time and P V pairs n8 blocks,
+// and 10 is even; f32's P V takes its n8 blocks 5 at a time (4 at the
+// other D's), and each half of a unit finishes 5 of them.  Banks: a bf16
+// row of 88 elements is 176 bytes, 44 words, 12 mod 32, so the 8 rows of
+// an ldmatrix phase start at banks 0, 12, 24, 4, 16, 28, 8, 20 and their 4
+// words each cover 32 distinct banks (the output's 4-byte stores, rows gr
+// at word 12 gr + tg, likewise).  f32 Q and K rows of 88 words are 24 mod
+// 32: a half-warp's 8-byte loads from rows gr = 0..3 start at banks 0, 24,
+// 16, 8 and cover 8 words each, 32 distinct banks.  V rows of 84 words are
+// 20 mod 32, so rows 2 tg start at banks 0, 8, 16, 24 and column gr adds
+// 0..7: 32 distinct banks, as at D = 128.  Shared memory: (64 + 256) x 88
+// x 2 = 55 KB in bf16 (over 48 KB: the attribute is set; 4 blocks per SM),
+// (64 x 88 + 128 x 88 + 128 x 84) x 4 = 108 KB in f32 (2 blocks per SM).
 //
 // * bf16 (flash_fwd_tc, the main path): tensor cores.  The reference takes
 //   q.k^T from bf16 inputs into f32 and p.astype(bf16) @ v into f32;
@@ -169,6 +187,8 @@ flash_fwd_tc(const __nv_bfloat16* __restrict__ q,
              const __nv_bfloat16* __restrict__ v,
              __nv_bfloat16* __restrict__ out, int Sq, int Skv, int H, int G,
              float scale) {
+  static_assert(D == 32 || D == 64 || D == 80 || D == 128,
+                "flash_fwd_tc is built for D in (32, 64, 80, 128)");
   constexpr int LD = D + TC_PAD;            // shared row stride (bf16)
   constexpr int KD = D / 16;                // k16 steps of Q K^T
   constexpr int NS = TC_BKV / 8;            // n8 blocks of S
@@ -466,11 +486,15 @@ __global__ void __launch_bounds__(F_THREADS)
 flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
               const float* __restrict__ v, float* __restrict__ out, int Sq,
               int Skv, int H, int G, float scale) {
+  static_assert(D == 32 || D == 64 || D == 80 || D == 128,
+                "flash_fwd_f32 is built for D in (32, 64, 80, 128)");
   constexpr int LQ = D + F_PAD;             // Q and K row stride (f32)
   constexpr int LV = D + F_VPAD;            // V row stride
   constexpr int KD = D / 8;                 // k8 steps of Q K^T
   constexpr int NS = F_BKV / 8;             // n8 blocks of S, k8 steps of P V
   constexpr int NO = D / 8;                 // n8 blocks of O
+  constexpr int NC = NO % 4 == 0 ? 4 : NO / 2;   // n8 blocks per P V MMA run
+  static_assert(NO % 2 == 0 && NO % NC == 0, "halves and runs of n8 blocks");
   constexpr int CPR = D / 4;                // 16-byte chunks per row
   constexpr int SK = 2 * F_BKV;             // keys per stage
   extern __shared__ __align__(16) unsigned char f32_smem[];
@@ -650,14 +674,14 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
         split_tf32(s[kk][3], ab[3], as[3]);
         const float* v0 = vs + (kk * 8 + 2 * tg) * LV + gr;
 #pragma unroll
-        for (int n4 = 0; n4 < NO; n4 += 4) {  // 4 n8 blocks of O at a time
-          uint32_t bb[4][2], bs[4][2];
+        for (int n4 = 0; n4 < NO; n4 += NC) {  // NC n8 blocks of O at a time
+          uint32_t bb[NC][2], bs[NC][2];
 #pragma unroll
-          for (int j = 0; j < 4; ++j) {
+          for (int j = 0; j < NC; ++j) {
             split_tf32(v0[(n4 + j) * 8], bb[j][0], bs[j][0]);
             split_tf32(v0[LV + (n4 + j) * 8], bb[j][1], bs[j][1]);
           }
-          mma_3xtf32<4>(o + n4, ab, as, bb, bs);
+          mma_3xtf32<NC>(o + n4, ab, as, bb, bs);
         }
       }
     }
@@ -776,6 +800,10 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
     case 64:
       return is_bf16 ? launch_tc<64>(q, k, v, out, B, Sq, Skv, H, G, scale, st)
                      : launch_f32<64>(q, k, v, out, B, Sq, Skv, H, G, scale,
+                                      st);
+    case 80:
+      return is_bf16 ? launch_tc<80>(q, k, v, out, B, Sq, Skv, H, G, scale, st)
+                     : launch_f32<80>(q, k, v, out, B, Sq, Skv, H, G, scale,
                                       st);
     case 128:
       return is_bf16

@@ -43,8 +43,9 @@ from ..tune import pow2_bucket
 from .ref import flash_attention_ref
 from .scan import naive_attend, online_softmax_scan
 
-# smoke models; musicgen-medium; llama3-8b and the other GQA models
-KERNEL_HEAD_DIMS = (32, 64, 128)
+# smoke models; musicgen-medium; zamba2-2.7b; llama3-8b and the other GQA
+# models
+KERNEL_HEAD_DIMS = (32, 64, 80, 128)
 
 _ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
              ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,

@@ -8,8 +8,13 @@ backend, optionally from a DeepCABAC container.
         --arch deepseek-moe-16b --backend q8 --prompt-len 128
     PYTHONPATH=src python -m repro_torch.launch.serve \\
         --arch qwen3-8b --backend q8 --prompt-len 128
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --arch mamba2-2.7b --backend q8 --prompt-len 128
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --arch zamba2-2.7b --backend bf16 --prompt-len 128
 
-``--arch`` takes every ported id (``configs.ARCH_IDS``;
+``--arch`` takes every id of the reference's (``configs.ARCH_IDS``, the
+SSM mamba2-2.7b and the hybrid zamba2-2.7b included;
 deepseek-v3-671b's 671 G parameters do not fit one card, so it serves
 with ``--smoke`` there); a model that takes embeddings (musicgen-medium,
 qwen2-vl-7b) exits with a message: it runs through ``prefill`` /

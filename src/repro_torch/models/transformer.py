@@ -1,5 +1,6 @@
-"""Decoder-only backbone, dense and MoE families with GQA or MLA
-attention (port of ``repro.models.transformer``).
+"""Decoder-only backbone of every family: dense and MoE with GQA or MLA
+attention, the Mamba2 stack (ssm) and the Mamba2 stack with a shared
+attention block (hybrid) (port of ``repro.models.transformer``).
 
 :func:`train_loss` is the NLL the FIM differentiates: nothing in the
 forward cuts autograd's graph (attention under grad takes the scan, see
@@ -15,8 +16,14 @@ the MoE stack (``layers``), with nested caches ``{"dense": ...,
 "main": ...}``.  Caches are updated in place (see ``models.attention``).
 A model without a token embedding (``embed_input=False``: musicgen,
 qwen2-vl) takes ``embeds`` (B, S, d) instead of ``tokens``, and an M-RoPE
-model its (3, B, S) ``pos3d`` streams.  The SSM and hybrid families are
-not ported yet and raise."""
+model its (3, B, S) ``pos3d`` streams.  An SSM model runs its Mamba2
+mixers (``models.ssm``) over a state cache ``{"conv": {"x", "b", "c"},
+"state"}``; a hybrid model runs ``num_layers // shared_attn_every``
+groups, each its mixers and then the one shared attention block (the
+same weights every time, its own attention cache per group), with caches
+``{"ssm": ..., "attn": ...}``.  Under q8 the mixer tensors have no fused
+consumer, so they are dequantized in the loop and recorded, as in the
+reference."""
 
 from __future__ import annotations
 
@@ -30,6 +37,7 @@ from .attention import gqa_attention, host_offset, mla_attention
 from .config import ModelConfig
 from .layers import norm, swiglu_mlp
 from .moe import moe_block
+from .ssm import mamba2_mixer
 
 # q8 leaves the fused dequant_matmul path consumes in place; anything else
 # is dequantized in the loop body and reported once per tensor.
@@ -51,12 +59,14 @@ def _dtype(name: str) -> torch.dtype:
 
 
 def _require_ported(cfg: ModelConfig) -> None:
-    if cfg.family not in ("dense", "moe") or \
-            cfg.attention not in ("gqa", "mla") or \
+    attn = ("none",) if cfg.family == "ssm" else ("gqa", "mla")
+    if cfg.family not in ("dense", "moe", "ssm", "hybrid") or \
+            cfg.attention not in attn or \
             cfg.norm not in ("rmsnorm", "layernorm"):
         raise NotImplementedError(
             f"{cfg.family}/{cfg.attention}/{cfg.norm} model: not yet ported "
-            "(dense and MoE families, GQA or MLA attention only)")
+            "(dense, MoE and hybrid families with GQA or MLA attention, the "
+            "SSM family with none)")
 
 
 def _record_loop_dequant(name: str, reason: str, platform: str) -> None:
@@ -118,19 +128,26 @@ def _stacked(gen, shape, std, dtype, device):
 def _layout(cfg: ModelConfig) -> dict:
     """Flat name -> (shape, init, dtype) of the parameters, in draw order.
     init is ("normal", std), ("stacked", std) for (L, ...) weights drawn
-    one layer at a time, "zeros" or "ones".  Every leaf has the param dtype
-    except a MoE router, which is f32 as in the reference.  A layernorm is
-    two leaves, ``<norm>/scale`` and ``<norm>/bias``."""
+    one layer at a time, ("full", value), "zeros" or "ones".  Every leaf
+    has the param dtype except a MoE router and a mixer's ``a_log`` and
+    ``dt_bias``, which are f32 as in the reference.  A layernorm is two
+    leaves, ``<norm>/scale`` and ``<norm>/bias``.  ``n`` below is a stack's
+    layer count, or None for the hybrid's unstacked shared block."""
     _require_ported(cfg)
     pdt = _dtype(cfg.param_dtype)
     h, g, dh, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, cfg.d_model
     out: dict = {}
 
+    def lead(n):
+        return () if n is None else (n,)
+
     def add(name, shape, init, dtype=pdt):
         out[name] = (shape, init, dtype)
 
-    def mat(name, shape, dtype=pdt):      # std d_in ** -0.5, d_in = shape[-2]
-        add(name, shape, ("stacked", shape[-2] ** -0.5), dtype)
+    def mat(name, shape, dtype=pdt, std=None):   # std d_in ** -0.5
+        std = shape[-2] ** -0.5 if std is None else std
+        add(name, shape, ("stacked" if len(shape) > 2 else "normal", std),
+            dtype)
 
     def norm_leaves(name, shape):         # rmsnorm scale | layernorm
         if cfg.norm == "layernorm":
@@ -142,14 +159,14 @@ def _layout(cfg: ModelConfig) -> dict:
     def gqa(top, n):
         for name, d_in, d_out in (("wq", d, h * dh), ("wk", d, g * dh),
                                   ("wv", d, g * dh), ("wo", h * dh, d)):
-            mat(f"{top}/attn/{name}", (n, d_in, d_out))
+            mat(f"{top}/attn/{name}", (*lead(n), d_in, d_out))
         if cfg.qkv_bias:
             for name, width in (("bq", h * dh), ("bk", g * dh),
                                 ("bv", g * dh)):
-                add(f"{top}/attn/{name}", (n, width), "zeros")
+                add(f"{top}/attn/{name}", (*lead(n), width), "zeros")
         if cfg.qk_norm:
-            add(f"{top}/attn/q_norm", (n, dh), "ones")
-            add(f"{top}/attn/k_norm", (n, dh), "ones")
+            add(f"{top}/attn/q_norm", (*lead(n), dh), "ones")
+            add(f"{top}/attn/k_norm", (*lead(n), dh), "ones")
 
     def mla(top, n):
         r, rq = cfg.kv_lora_rank, cfg.q_lora_rank
@@ -158,26 +175,47 @@ def _layout(cfg: ModelConfig) -> dict:
         for name, d_in, d_out in (("w_dkv", d, r), ("w_uk", r, h * dn),
                                   ("w_uv", r, h * dv), ("w_kr", d, dr),
                                   ("wo", h * dv, d)):
-            mat(f"{top}/attn/{name}", (n, d_in, d_out))
-        add(f"{top}/attn/kv_norm", (n, r), "ones")
+            mat(f"{top}/attn/{name}", (*lead(n), d_in, d_out))
+        add(f"{top}/attn/kv_norm", (*lead(n), r), "ones")
         if rq:
-            mat(f"{top}/attn/w_dq", (n, d, rq))
-            add(f"{top}/attn/q_norm", (n, rq), "ones")
-        mat(f"{top}/attn/w_uq", (n, rq or d, h * (dn + dr)))
+            mat(f"{top}/attn/w_dq", (*lead(n), d, rq))
+            add(f"{top}/attn/q_norm", (*lead(n), rq), "ones")
+        mat(f"{top}/attn/w_uq", (*lead(n), rq or d, h * (dn + dr)))
 
     def layer_stack(top, n, d_ff):        # attention, norms, dense MLP
         (mla if cfg.attention == "mla" else gqa)(top, n)
-        norm_leaves(f"{top}/attn_norm", (n, d))
-        norm_leaves(f"{top}/mlp_norm", (n, d))
+        norm_leaves(f"{top}/attn_norm", (*lead(n), d))
+        norm_leaves(f"{top}/mlp_norm", (*lead(n), d))
         if d_ff:
             for name, d_in, d_out in (("w_gate", d, d_ff), ("w_up", d, d_ff),
                                       ("w_down", d_ff, d)):
-                mat(f"{top}/mlp/{name}", (n, d_in, d_out))
+                mat(f"{top}/mlp/{name}", (*lead(n), d_in, d_out))
+
+    def ssm_stack(n):                     # the reference's _init_ssm_layer
+        di, gn, nh, w = (cfg.d_inner, cfg.ssm_ngroups * cfg.ssm_state,
+                         cfg.ssm_nheads, cfg.ssm_conv)
+        m = "layers/mixer"
+        norm_leaves("layers/norm", (n, d))
+        for name, d_out in (("w_z", di), ("w_x", di), ("w_b", gn),
+                            ("w_c", gn), ("w_dt", nh)):
+            mat(f"{m}/{name}", (n, d, d_out))
+        for seg, ch in (("x", di), ("b", gn), ("c", gn)):
+            mat(f"{m}/conv_{seg}_w", (n, ch, w), std=w ** -0.5)
+            add(f"{m}/conv_{seg}_b", (n, ch), "zeros")
+        add(f"{m}/a_log", (n, nh), "zeros", torch.float32)     # A = -1
+        add(f"{m}/dt_bias", (n, nh), ("full", -2.0), torch.float32)
+        add(f"{m}/d_skip", (n, nh), "ones")
+        add(f"{m}/norm", (n, di), "ones")
+        mat(f"{m}/out_proj", (n, di, d))
 
     if cfg.embed_input:
         add("embed", (cfg.vocab_size, d), ("normal", 0.02))
     if cfg.family == "dense":
         layer_stack("layers", cfg.num_layers, cfg.d_ff)
+    elif cfg.family in ("ssm", "hybrid"):
+        ssm_stack(cfg.num_layers)
+        if cfg.family == "hybrid":
+            layer_stack("shared", None, cfg.d_ff)
     else:
         nd = cfg.first_dense_layers
         if nd:
@@ -220,6 +258,8 @@ def iter_params(cfg: ModelConfig, seed: int = 0, *, device="cuda"):
             yield name, torch.zeros(shape, dtype=dtype, device=dev)
         elif init == "ones":
             yield name, torch.ones(shape, dtype=dtype, device=dev)
+        elif init[0] == "full":
+            yield name, torch.full(shape, init[1], dtype=dtype, device=dev)
         elif init[0] == "stacked":
             yield name, _stacked(gen, shape, init[1], dtype, dev)
         else:
@@ -266,20 +306,52 @@ def _moe_layer_block(x, lp, cfg, *attn_args, with_aux=True):
     return x + m, aux
 
 
-_BLOCKS = {"dense": _dense_block, "moe": _moe_layer_block}
+def _ssm_block(x, lp, cfg, positions, pos3d, cache, cache_pos,
+               qpos_canonical, with_aux=True):
+    m, _ = mamba2_mixer(norm(x, lp["norm"], cfg), lp["mixer"], cfg,
+                        cache=cache)
+    return x + m, None
 
 
-def _stacks(params, cfg: ModelConfig, caches):
-    """(stacked params, layer count, block, caches) of each layer stack in
-    the order they run: a MoE model's leading dense layers, then the rest."""
+_BLOCKS = {"dense": _dense_block, "moe": _moe_layer_block,
+           "ssm": _ssm_block}
+
+
+def _layers(params, cfg: ModelConfig, caches, dt, platform):
+    """(block, layer params, layer cache) of every layer in run order: a
+    MoE model's leading dense layers, then the rest; a hybrid's
+    ``num_layers // shared_attn_every`` groups, each ``shared_attn_every``
+    mixer layers and then the shared attention block with the same weights
+    every time (2-D leaves under q8: ``shared/`` is not stacked) and group
+    g's attention cache, as the reference's ``_hybrid_scan``.  A layer's
+    cache is a view of the stacked caches, written in place."""
+    def layer(stacked, i):
+        return _fused_layer_params(_layer_slice(stacked, i), dt, platform)
+
+    def cache(stack_caches, i):
+        return None if stack_caches is None else _layer_slice(stack_caches,
+                                                              i)
+
+    if cfg.family == "hybrid":
+        per = cfg.shared_attn_every
+        shared = _fused_layer_params(params["shared"], dt, platform)
+        ssm_c, attn_c = (None, None) if caches is None else (
+            caches["ssm"], caches["attn"])
+        for grp in range(cfg.num_layers // per):
+            for i in range(grp * per, (grp + 1) * per):
+                yield _ssm_block, layer(params["layers"], i), cache(ssm_c, i)
+            yield _dense_block, shared, cache(attn_c, grp)
+        return
     nd = cfg.first_dense_layers if cfg.family == "moe" else 0
-    if not nd:
-        return [(params["layers"], cfg.num_layers, _BLOCKS[cfg.family],
-                 caches)]
-    return [(params["dense_layers"], nd, _dense_block,
-             None if caches is None else caches["dense"]),
-            (params["layers"], cfg.num_layers - nd, _moe_layer_block,
-             None if caches is None else caches["main"])]
+    stacks = ([(params["layers"], cfg.num_layers, _BLOCKS[cfg.family],
+                caches)] if not nd else
+              [(params["dense_layers"], nd, _dense_block,
+                None if caches is None else caches["dense"]),
+               (params["layers"], cfg.num_layers - nd, _moe_layer_block,
+                None if caches is None else caches["main"])])
+    for stacked, n, block, stack_caches in stacks:
+        for i in range(n):
+            yield block, layer(stacked, i), cache(stack_caches, i)
 
 
 def forward(params, cfg: ModelConfig, *, tokens=None, embeds=None,
@@ -291,8 +363,9 @@ def forward(params, cfg: ModelConfig, *, tokens=None, embeds=None,
     (B, S, d).  An M-RoPE model rotates by ``pos3d`` (3, B, S), by default
     ``positions`` three times.  ``last_only`` projects position -1 only;
     ``last_index`` (B,) gathers one position per row (padded-bucket
-    prefill).  ``caches`` (``init_cache``'s tree of (L, B, Smax, G, D)
-    tensors) is written in place and returned.  ``aux`` is the MoE
+    prefill).  ``caches`` (``init_cache``'s tree: (L, B, Smax, G, D)
+    attention tensors, an SSM model's state and conv tails) is written in
+    place and returned.  ``aux`` is the MoE
     load-balance loss summed over layers (0 for a dense model), or None
     unless ``with_aux``: :func:`prefill` and :func:`decode_step` skip it,
     as the reference's compiled serving steps drop it.
@@ -327,15 +400,11 @@ def forward(params, cfg: ModelConfig, *, tokens=None, embeds=None,
 
     aux = (torch.zeros((), dtype=torch.float32, device=dev) if with_aux
            else None)
-    for stacked, n, block, stack_caches in _stacks(params, cfg, caches):
-        for i in range(n):
-            lp = _fused_layer_params(_layer_slice(stacked, i), dt, platform)
-            cache_l = None if stack_caches is None else {
-                k: c[i] for k, c in stack_caches.items()}
-            x, a = block(x, lp, cfg, positions, pos3d, cache_l, cache_pos,
-                         qpos_canonical, with_aux=with_aux)
-            if a is not None:
-                aux = aux + a
+    for block, lp, cache_l in _layers(params, cfg, caches, dt, platform):
+        x, a = block(x, lp, cfg, positions, pos3d, cache_l, cache_pos,
+                     qpos_canonical, with_aux=with_aux)
+        if a is not None:
+            aux = aux + a
 
     x = norm(x, params["final_norm"], cfg)
     if last_index is not None:
@@ -391,7 +460,12 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
     """Preallocated decode caches, stacked on the layer axis: {"k", "v"}
     of (L, B, Smax, G, D), for MLA the latents {"ckv": (L, B, Smax,
     kv_lora_rank), "kr": (L, B, Smax, qk_rope_head_dim)}, or for a MoE
-    model with leading dense layers {"dense": {...}, "main": {...}}."""
+    model with leading dense layers {"dense": {...}, "main": {...}}.  An
+    SSM model's cache is {"conv": {"x", "b", "c": (L, B, W-1, C)} in the
+    compute dtype, "state": (L, B, H, P, N) in f32} (f32 under
+    ``q8_cache`` too: only attention caches are int8), a hybrid's
+    {"ssm": that, "attn": the attention cache of its L / shared_attn_every
+    groups}.  Axis 1 is the batch (slot) axis of every leaf."""
     _require_ported(cfg)
     dev = resolve_device(device)
     dt = torch.int8 if cfg.q8_cache else _dtype(cfg.compute_dtype)
@@ -407,6 +481,24 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
         shape = (n_layers, batch, max_len, cfg.num_kv_heads, cfg.head_dim)
         return {"k": zeros(*shape), "v": zeros(*shape)}
 
+    def ssm_cache(n_layers):
+        w1, gn = cfg.ssm_conv - 1, cfg.ssm_ngroups * cfg.ssm_state
+        cdt = _dtype(cfg.compute_dtype)     # conv tails at full precision
+
+        def tail(ch):
+            return torch.zeros((n_layers, batch, w1, ch), dtype=cdt,
+                               device=dev)
+        return {"conv": {"x": tail(cfg.d_inner), "b": tail(gn),
+                         "c": tail(gn)},
+                "state": torch.zeros((n_layers, batch, cfg.ssm_nheads,
+                                      cfg.ssm_headdim, cfg.ssm_state),
+                                     dtype=torch.float32, device=dev)}
+
+    if cfg.family == "ssm":
+        return ssm_cache(cfg.num_layers)
+    if cfg.family == "hybrid":
+        return {"ssm": ssm_cache(cfg.num_layers),
+                "attn": attn_cache(cfg.num_layers // cfg.shared_attn_every)}
     nd = cfg.first_dense_layers if cfg.family == "moe" else 0
     if nd:
         return {"dense": attn_cache(nd),

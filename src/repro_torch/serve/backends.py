@@ -17,11 +17,12 @@ checkpoint manifests).
 Blob and manifest loads keep the reference's layer-bound contract: one
 decoded record is on the host at a time, moved to the device before the
 next is decoded, and the template comes from the model's shapes and dtypes
-alone, leaf by leaf (``models.transformer.param_specs``: a MoE router stays
-f32 in a bf16 model).  A manifest source is a path: the directory of a
-sharded checkpoint step (``repro_torch.checkpoint``) or its
-``params.manifest.json``; its tensors are assembled one at a time on the
-host (``checkpoint.sharded``).  A ``serve-q8`` record of a stacked 4-D
+alone, leaf by leaf (``models.transformer.param_specs``: a MoE router and
+a Mamba2 mixer's ``a_log`` and ``dt_bias`` stay f32 in a bf16 model).
+A manifest source is a path: the directory of a sharded checkpoint step
+(``repro_torch.checkpoint``) or its ``params.manifest.json``; its
+tensors are assembled one at a time on the host
+(``checkpoint.sharded``).  A ``serve-q8`` record of a stacked 4-D
 expert bank (L, E, K, N) keeps its (L, N) scale, so each layer hands
 ``dequant_matmul_grouped`` the shared (N,) form.  ``policy_table=``
 applies a per-tensor RD policy to *tree* sources (quantize, then

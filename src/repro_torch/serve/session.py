@@ -13,8 +13,12 @@ tokens match it.  The paged KV cache (``kv_page_size``) is not ported.
 The session serves token models, as the reference's does: a model that
 takes embeddings (``embed_input=False``) is refused, and runs through
 ``prefill`` / ``decode_step`` with ``embeds=``.  The slot caches are the
-GQA cache's (L, B, Smax, G, D) tensors or MLA's (L, B, Smax, R) latents:
-axis 1 is the slot axis in both.
+GQA cache's (L, B, Smax, G, D) tensors, MLA's (L, B, Smax, R) latents,
+an SSM model's state (L, B, H, P, N) in f32 and conv tails (L, B, W-1, C)
+in the compute dtype, or a hybrid's SSM state beside the attention cache
+of its groups: axis 1 is the slot axis in every one.  A decode step runs
+over every slot, so a free slot's SSM state moves on too; an admission
+overwrites all of the slot's caches.
 
 On the card, prefill and decode replay CUDA graphs (``serve.graphs``), as
 the reference runs them through ``jax.jit``: one decode graph (decode
@@ -345,8 +349,9 @@ class ServeSession:
     def _place(self, caches_g: dict, slots_idx: torch.Tensor) -> None:
         """Copy a batch-k prefill's caches into slots ``slots_idx`` ((k,)
         int64 on the device): axis 1 of every cache leaf is the slot axis,
-        in a flat {"k", "v"} or {"ckv", "kr"} tree or a MoE model's nested
-        {"dense": ..., "main": ...} one."""
+        in a flat {"k", "v"} or {"ckv", "kr"} tree, a MoE model's nested
+        {"dense": ..., "main": ...} one, an SSM model's {"conv": {"x", "b",
+        "c"}, "state"} or a hybrid's {"ssm": ..., "attn": ...}."""
         part = flatten_tree(caches_g)
         for name, full in flatten_tree(self._caches).items():
             full.index_copy_(1, slots_idx, part[name].to(full.dtype))

@@ -459,9 +459,9 @@ def test_tc_instances_raise_and_never_take_the_plain_version(monkeypatch):
     q = torch.zeros((1, 8, 4, 128), device="cuda", dtype=torch.bfloat16)
     kv = torch.zeros((1, 8, 2, 128), device="cuda", dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="head dim"):
-        fops.flash_attention(q[..., :80].contiguous(),
-                             kv[..., :80].contiguous(),
-                             kv[..., :80].contiguous())
+        fops.flash_attention(q[..., :96].contiguous(),
+                             kv[..., :96].contiguous(),
+                             kv[..., :96].contiguous())
     with pytest.raises(TypeError, match="dtype"):
         fops.flash_attention(q, kv.float(), kv)
     with pytest.raises(ValueError, match="divide"):
@@ -511,7 +511,9 @@ def test_moe_prefill_routes_through_the_grouped_kernel():
 
 @pytest.mark.parametrize("s,d,h,g", [(128, 128, 32, 8), (100, 128, 32, 8),
                                      (128, 128, 16, 16),
-                                     (7, 32, 4, 2), (33, 32, 8, 8)])
+                                     (7, 32, 4, 2), (33, 32, 8, 8),
+                                     (128, 80, 32, 32), (100, 80, 32, 32),
+                                     (37, 80, 8, 2)])
 def test_flash_kernel_matches_plain(s, d, h, g):
     _needs_card()
     gen = torch.Generator(device="cuda").manual_seed(s + d)
@@ -528,11 +530,11 @@ def test_flash_kernel_matches_plain(s, d, h, g):
 
 
 def test_flash_kernel_raises_on_a_head_dim_it_was_not_built_for():
-    """80 (zamba2-2.7b's, not built): the wrapper raises, the router does
+    """96 (no model's, not built): the wrapper raises, the router does
     not fall back."""
     _needs_card()
-    q = torch.zeros((1, 8, 2, 80), device="cuda")
-    kv = torch.zeros((1, 8, 1, 80), device="cuda")
+    q = torch.zeros((1, 8, 2, 96), device="cuda")
+    kv = torch.zeros((1, 8, 1, 96), device="cuda")
     with pytest.raises(ValueError, match="head dim"):
         fops.flash_attention(q, kv, kv)
     qpos = torch.arange(8, device="cuda")[None]
@@ -1158,3 +1160,67 @@ def test_mla_block_on_the_card_matches_the_cpu(dtype):
     # 7 projections a call, w_dq .. wo; attention never reaches the kernel
     assert out["cuda"][3]["dequant_matmul"] == 14
     assert out["cuda"][3]["flash_attention"] == 0
+
+
+@pytest.mark.parametrize("sq,skv", [(128, 128), (50, 113), (16, 200)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_d80_instances_with_ragged_and_offset_queries(dtype, sq, skv):
+    """The D = 80 instances (zamba2-2.7b's head dim: 5 k16 steps, 10 n8
+    blocks of the output) where queries sit at the end of a longer key
+    range and neither length is a multiple of a tile."""
+    _needs_card()
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device="cuda").manual_seed(sq * skv)
+    q = torch.randn((2, sq, 8, 80), generator=g, device="cuda").to(dt)
+    k = torch.randn((2, skv, 4, 80), generator=g, device="cuda").to(dt)
+    v = torch.randn((2, skv, 4, 80), generator=g, device="cuda").to(dt)
+    got = fops.flash_attention(q, k, v)
+    want = fops.flash_attention(q.cpu(), k.cpu(), v.cpu())
+    assert got.dtype == dt and got.shape == q.shape
+    tol = 1e-4 if dtype == "float32" else TOL_FLASH_BF16
+    assert _rel(got, want) <= tol
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch", ["mamba2-2.7b", "zamba2-2.7b"])
+def test_ssm_smoke_model_on_card_matches_cpu(arch, dtype):
+    """The SSM and hybrid smoke models on q8: prefill (the chunked scan),
+    then decode steps through the recurrence, on the card and on the CPU
+    from the same tensors, both fed the CPU's greedy tokens; the head (and
+    the hybrid's shared block) through dequant_matmul, the hybrid's prefill
+    attention through the flash kernel.  Logits within 1e-3 of max|cpu| in
+    f32 and 2e-2 in bf16 (rounded at other places); the f32 argmax equal
+    (in bf16 a near tie may part)."""
+    _needs_card()
+    from repro_torch import configs
+    from repro_torch.compression.tree import flatten_tree, unflatten
+    from repro_torch.models.transformer import (decode_step, init_params,
+                                                prefill)
+    from repro_torch.serve.quantized import quantize_tree_q8
+    cfg = configs.get(arch, smoke=True).replace(param_dtype=dtype,
+                                                compute_dtype=dtype)
+    p_cpu = quantize_tree_q8(init_params(cfg, 0, device="cpu"))
+    p = unflatten({k: v.cuda() for k, v in flatten_tree(p_cpu).items()})
+    toks = torch.randint(0, cfg.vocab_size, (3, 21),
+                         generator=torch.Generator().manual_seed(1))
+    out, fed = {}, []
+    for dev, params in (("cpu", p_cpu), ("cuda", p)):
+        kernels.reset_launch_counts()
+        lo, caches = prefill(params, cfg, tokens=toks.to(dev), max_len=26)
+        los = [lo]
+        for i in range(4):
+            if dev == "cpu":
+                fed.append(lo.argmax(-1))
+            lo, caches = decode_step(params, cfg, caches, 21 + i,
+                                     tokens=fed[i].to(dev))
+            los.append(lo)
+        out[dev] = ([x.float().cpu() for x in los], kernels.launch_counts())
+    groups = (cfg.num_layers // cfg.shared_attn_every
+              if cfg.family == "hybrid" else 0)
+    assert out["cuda"][1]["dequant_matmul"] == 5 * (7 * groups + 1)
+    assert out["cuda"][1]["flash_attention"] == groups
+    for got, want in zip(*(out[d][0] for d in ("cuda", "cpu"))):
+        assert torch.isfinite(got).all()
+        assert _rel(got, want) <= (1e-3 if dtype == "float32" else 2e-2)
+        if dtype == "float32":
+            assert torch.equal(got.argmax(-1), want.argmax(-1))

@@ -2,7 +2,8 @@
 step, the MoE routing it captures, and the graph runner's bookkeeping.
 
 * Capture-safety: ``prefill`` (plain and padded) and ``decode_step`` of
-  the dense and MoE smoke models run under a dispatch mode that raises on
+  the dense, MoE, SSM and hybrid smoke models (the SSM decode writes its
+  state and conv tails in place) run under a dispatch mode that raises on
   every op that reads a device value on the host, sizes its output on the
   host or makes a tensor from host data (on the card, a copy from pageable
   memory): a CUDA graph can capture none of them.
@@ -86,7 +87,8 @@ def _smoke(arch, tree, **overrides):
 
 @pytest.mark.parametrize("step", ["prefill", "prefill_padded", "decode"])
 @pytest.mark.parametrize("tree", ["raw", "q8"])
-@pytest.mark.parametrize("arch", ARCHS + ("deepseek-moe-16b-drops",))
+@pytest.mark.parametrize("arch", ARCHS + ("deepseek-moe-16b-drops",
+                                          "mamba2-2.7b", "zamba2-2.7b"))
 def test_steps_run_with_no_host_sync(arch, tree, step):
     overrides = {}
     if arch.endswith("-drops"):            # 2 x 24 picks over 8 x cap 8

@@ -73,8 +73,9 @@ def test_config_matches_reference_field_for_field():
             # the KernelPolicy field for field (asdict recurses into it)
             assert got["kernels"] == want["kernels"], arch
             assert got == want, arch
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        configs.get("mamba2-2.7b")
+    # every id of the reference's, mamba2-2.7b and zamba2-2.7b included
+    assert configs.names() == jconfigs.names()
+    assert configs.get("mamba2-2.7b").family == "ssm"
     with pytest.raises(KeyError):
         configs.get("no-such-model")
 
@@ -241,8 +242,13 @@ def test_fused_params_and_loop_dequant_report():
 
 
 def test_unported_paths_raise(smoke):
+    # an SSM stack takes no attention (the ported ssm family has
+    # attention="none"), and a family the reference lacks has no path
     with pytest.raises(NotImplementedError):
         ttf.init_params(smoke["tcfg"].replace(family="ssm"), 0,
+                        device="cpu")
+    with pytest.raises(NotImplementedError):
+        ttf.init_params(smoke["tcfg"].replace(family="rwkv"), 0,
                         device="cpu")
     with pytest.raises(NotImplementedError):
         tattn.gqa_attention(None, None, smoke["tcfg"], None,

@@ -33,6 +33,11 @@ SHAPES = {  # (K, N) of each model's dequant_matmul calls (chip_smoke.py)
                          (7168, 64), (16384, 7168), (7168, 18432),
                          (18432, 7168), (7168, 256), (7168, 2048),
                          (2048, 7168), (7168, 129280)],
+    # the head only: the mixer tensors are dequantized in the loop
+    "mamba2-2.7b": [(2560, 50280)],
+    # the shared block (wq, wk, wv, wo; the MLP) and the head
+    "zamba2-2.7b": [(2560, 2560), (2560, 10240), (10240, 2560),
+                    (2560, 32000)],
 }
 CASES = [(m, k, n) for shapes in SHAPES.values() for k, n in shapes
          for m in (1, 4, 512)] + [(640, 512, 16384), (512, 512, 16384)]

@@ -202,11 +202,19 @@ def test_config_and_layout_match_reference(arch):
 
 
 def test_registry_keeps_the_ssm_archs_unported():
-    assert configs.names() == [a for a in jconfigs.names()
-                               if a not in ("mamba2-2.7b", "zamba2-2.7b")]
+    """Named for the slices before the SSM and hybrid families were
+    ported: the registry now holds every id of the reference's, in its
+    order, these two included, and leaves none unported; an id neither
+    package knows raises KeyError."""
+    from repro_torch.configs import _NOT_YET_PORTED
+    assert configs.names() == jconfigs.names()
+    assert _NOT_YET_PORTED == []
     for arch in ("mamba2-2.7b", "zamba2-2.7b"):
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            configs.get(arch)
+        for smoke_ in (False, True):
+            assert dataclasses.asdict(configs.get(arch, smoke=smoke_)) == \
+                dataclasses.asdict(jconfigs.get(arch, smoke=smoke_))
+    with pytest.raises(KeyError, match="unknown config"):
+        configs.get("mamba3-2.7b")
 
 
 @pytest.mark.parametrize("arch", VARIANTS)
