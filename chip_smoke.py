@@ -151,7 +151,25 @@ Phases (each fails the run on its own; nothing is caught and ignored):
              group deep (6 mixers and the shared block: the D = 80 f32
              flash instance), on q8 eagerly and from graphs; tokens equal
              to the same session's on the CPU, logits within
-             TOL_MOE_F32_LOGITS.
+             TOL_MOE_F32_LOGITS;
+25. parity_paged (after 22) — the llama3-8b smoke model (f32, q8, int8
+             cache) served paged on the card and on the CPU: a pool that
+             forces parks (restores on a worker thread), prompts sharing
+             an 8-token prefix; tokens and the page counters equal on
+             both; every kind of paged step captured and replayed;
+26. serve_paged (after 6, on its tree) — llama3-8b at full width on q8
+             with an int8 cache on the grid ``calibrate_kv_cache_delta``
+             gives, 8 requests (a 128-token system prompt and 24-38 of
+             their own) of 24 tokens over 4 slots of 192, eagerly and from
+             graphs: (a) slot mode, (b) paged in pages of 16 (tokens and
+             logits rows equal (a)'s bit for bit), (c) with prefix sharing
+             (7 hits, 56 pages, 376 prefill tokens), (d) on a pool of 3
+             slots (auto-parks, every parked page restored); a manual park
+             and resume (restored pages = parked ones); launches of the
+             path, reports empty but for (c)'s ragged-kv_len records, no
+             shape captured twice; ``kv_report`` of each run;
+27. serve_mla_paged (after 17) — the MLA cut paged against slot mode
+             (nested latent pools, the grouped kernel), partings listed.
 
 Every phase but 20 runs under the default kernel policy with an empty
 tuning cache (``REPRO_TORCH_KERNEL_TUNE_CACHE`` points at a fresh file
@@ -241,6 +259,21 @@ VARIANTS = ("qwen3-8b", "qwen1.5-4b", "mistral-nemo-12b", "qwen2-vl-7b",
             "musicgen-medium", "deepseek-v3-671b")
 TOL_VARIANT_LOGITS = 1e-4
 SERVE_MLA_LAYERS = 4
+# the paged serves: llama3-8b at full width, int8 cache on the
+# calibrated grid, pages of 16 tokens over 4 slots of 192 (12 pages each);
+# every prompt is a shared 128-token system prompt (8 pages) and tokens of
+# its own, 24 to 38 (prompts of 152 to 166: distinct lengths, so slot mode
+# prefills each alone too), 24 new tokens each
+PAGED_PAGE = 16
+PAGED_SLOTS = 4
+PAGED_MAX_LEN = 192
+PAGED_SYSTEM = 128
+PAGED_OWN = tuple(range(24, 40, 2))
+PAGED_NEW = 24
+PAGED_TIGHT_POOL = 37        # 3 full slots (3 x 12 pages) + the scratch page
+PAGED_MANUAL_PARK = (4, 8)   # the manual park's ticks: park, resume
+MLA_PAGED_LENS = (120, 122, 124, 126)
+MLA_PAGED_NEW = 16
 EMBED_TABLE_ROWS = 4096
 EMBED_F32_LAYERS = 2
 EMBED_F32_NEW_TOKENS = 12
@@ -3546,9 +3579,434 @@ def _leaves(tree):
             yield v
 
 
+# ---------------------------------------------------------------------------
+# paged KV serving
+# ---------------------------------------------------------------------------
+
+def phase_parity_paged(device, cpu="cpu"):
+    """The llama3-8b smoke model in f32 on q8 with an int8 cache, served
+    paged on the card and on the CPU from the same converted weights: a
+    pool small enough to park (restores on a worker thread) and prompts
+    that share an 8-token prefix (suffix prefills), with repeated prompt
+    shapes so that the card captures and replays every kind of paged step
+    (admission prefill, suffix prefill, compacted decode).  Tokens and
+    the scheduler's and pool's counters must be equal on both."""
+    import numpy as np
+    from repro_torch import configs
+    from repro_torch.compression import flatten_tree, quantize_tree_q8
+    from repro_torch.convert import params_from_numpy, tensor_to_numpy
+    from repro_torch.models.transformer import init_params
+    from repro_torch.serve.session import ServeConfig, ServeSession
+
+    cfg = configs.get("llama3-8b", smoke=True).replace(q8_cache=True)
+    flat_q8 = {k: tensor_to_numpy(v) for k, v in flatten_tree(
+        quantize_tree_q8(init_params(cfg, 0, device=cpu))).items()}
+    rng = np.random.default_rng(3)
+    sys_p = rng.integers(0, cfg.vocab_size, 8)
+    prompts = [np.concatenate([sys_p, rng.integers(0, cfg.vocab_size, n)])
+               .astype(np.int32) for n in (3, 3, 3, 5, 5)]
+    prompts += [rng.integers(0, cfg.vocab_size, 9).astype(np.int32)
+                for _ in range(3)]
+    scfg = ServeConfig(slots=4, max_len=48, kv_page_size=4,
+                       kv_pool_pages=24, kv_restore_workers=1)
+    out = {}
+    for dev in (device, cpu):
+        sess = ServeSession(cfg, params_from_numpy(flat_q8, dev),
+                            backend="q8", device=dev, serve_cfg=scfg)
+        hs = [sess.submit(p, max_new_tokens=16) for p in prompts]
+        sess.run()
+        kv = {k: v for k, v in sess._kv.stats.items() if k != "restore_s"}
+        out[str(dev)] = {"tokens": [h.tokens for h in hs],
+                         "sched": dict(sess.stats), "kv": kv,
+                         "graph_stats": dict(sess.graphs.stats),
+                         "graphs": sorted({k[0] for k in
+                                           sess.graphs._graphs}),
+                         "graphs_captured": len(sess.graphs._graphs)}
+        sess.close()
+    d, c = out[str(device)], out[cpu]
+    check(d["tokens"] == c["tokens"], f"parity_paged: tokens differ "
+          f"between {device} and cpu:\n{d['tokens']}\n{c['tokens']}")
+    check(d["sched"] == c["sched"] and d["kv"] == c["kv"],
+          f"parity_paged: counters differ: {d['sched']} {d['kv']} against "
+          f"{c['sched']} {c['kv']}")
+    check(c["sched"]["parks"] > 0 and c["kv"]["prefix_hits"] > 0 and
+          c["kv"]["pages_restored"] > 0, f"parity_paged: no park, "
+          f"restore or prefix hit: {c['sched']} {c['kv']}")
+    if device != cpu:
+        want = ["decode_paged", "partial_prefill", "prefill_paged"]
+        check(d["graphs"] == want and d["graph_stats"]["replays"] > 0 and
+              d["graph_stats"]["captures"] == d["graphs_captured"],
+              f"parity_paged: graphs {d['graphs']} {d['graph_stats']}, "
+              f"want each of {want} captured once and replayed")
+    log(f"[parity] smoke paged (f32 q8, int8 cache, pool 24 pages of 4): "
+        f"{sum(len(t) for t in d['tokens'])} greedy tokens identical on "
+        f"{device} and cpu; parks {c['sched']['parks']}, prefix hits "
+        f"{c['kv']['prefix_hits']}, pages restored "
+        f"{c['kv']['pages_restored']} on both; graphs {d['graph_stats']} "
+        f"of {d['graphs']}")
+    return {"tokens_identical": True, "counters": c,
+            "graph_stats": d["graph_stats"], "graphs": d["graphs"]}
+
+
+def _row_log(sess) -> tuple:
+    """Wrap ``sess._sample``: per request id, (sha1 of the logits row it
+    sampled from, that row's top-2 gap) for every token; and a one-item
+    list of the seconds the wrapper itself took, which the caller takes
+    out of its tick times."""
+    import hashlib
+    import numpy as np
+    rows: dict = {}
+    cost = [0.0]
+    sample = sess._sample
+
+    def wrapped(row, req):
+        t0 = time.perf_counter()
+        top = np.partition(row, -2)[-2:]
+        rows.setdefault(req.id, []).append(
+            (hashlib.sha1(np.ascontiguousarray(row).tobytes()).hexdigest(),
+             float(top[1] - top[0])))
+        cost[0] += time.perf_counter() - t0
+        return sample(row, req)
+    sess._sample = wrapped
+    return rows, cost
+
+
+def _partings(want, got, want_rows) -> list:
+    """Each request whose tokens part from ``want``'s: the first parting
+    step (0 = the prefill's token) and the top-2 gap of ``want``'s logits
+    row there."""
+    out = []
+    for i, (a, b) in enumerate(zip(want, got)):
+        steps = [j for j in range(min(len(a), len(b))) if a[j] != b[j]]
+        if steps:
+            j = steps[0]
+            out.append({"request": i, "step": j,
+                        "top2_gap": want_rows[i][j][1]})
+    return out
+
+
+def _drive(cfg, tree, backend, device, prompts, new_tokens, scfg, mode,
+           manual_park=None):
+    """One session over ``tree`` (``ServeSession.from_loaded``: no second
+    load) fed ``prompts`` at once, run to the end eagerly
+    (``mode="eager"``) or from CUDA graphs; launches and the dispatch
+    report are counted from 0 over the run.  Returns tokens, logits-row
+    hashes and gaps, the median of the decode-only ticks (no admission,
+    park, resume or capture in the tick), the decode graph's replay time
+    by CUDA events and the idle share of an untraced tick it gives, peak
+    memory, ``kv_report``, the graph counters and launches.  Tick times
+    leave out the seconds the logits-row log took.
+    ``manual_park`` = (t1, t2): after tick t1 request 1 is parked, after
+    t2 resumed, its pages restored at once (``_admit_paged``) and compared
+    with the parked ones byte for byte."""
+    import contextlib
+    import numpy as np
+    import torch
+    from repro_torch.kernels import registry
+    from repro_torch.serve.session import ServeSession, eager_steps
+
+    sess = ServeSession.from_loaded(cfg, tree, backend=backend,
+                                    serve_cfg=scfg, device=device)
+    rows, cost = _row_log(sess)
+    hs = [sess.submit(p, max_new_tokens=new_tokens) for p in prompts]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    clear_reports()
+    registry.reset_launch_counts()
+    paged = scfg.kv_page_size is not None
+    ticks, plain, park = [], [], {}
+    replays_at_park = None
+
+    def state():
+        return (sess.stats["prefill_tokens"], sess.stats["parks"],
+                sess.stats["resumes"], sess.graphs.stats["captures"],
+                sess.stats["decode_steps"])
+    t_all = time.perf_counter()
+    ctx = eager_steps() if mode == "eager" else contextlib.nullcontext()
+    with ctx:
+        while sess.pending or (manual_park and "resumed" not in park):
+            before = state()
+            c0 = cost[0]
+            t0 = time.perf_counter()
+            sess.step()
+            dt = time.perf_counter() - t0 - (cost[0] - c0)
+            after = state()
+            ticks.append(dt)
+            if before[:4] == after[:4] and after[4] == before[4] + 1 and \
+                    len(ticks) > 1:
+                plain.append(dt)
+            if replays_at_park is None and sess.stats["parks"]:
+                replays_at_park = sess.graphs.stats["replays"]
+            if manual_park and len(ticks) == manual_park[0]:
+                h = hs[1]
+                idx = sess._slot_of(h)
+                park["pages"] = sess._kv.gather(sess._kv.slot_ids(idx))
+                t0 = time.perf_counter()
+                sess.park(h)
+                park["park_s"] = time.perf_counter() - t0
+                rep = sess.kv_report()
+                park["host_bytes"] = rep["host_compressed_bytes"]
+                park["raw_bytes"] = sum(t.numel() for t in
+                                        park["pages"].values())
+            if manual_park and len(ticks) == manual_park[1]:
+                h = hs[1]
+                sess.resume(h)
+                t0 = time.perf_counter()
+                sess._admit_paged()
+                park["restore_s"] = time.perf_counter() - t0
+                idx = sess._slot_of(h)
+                got = sess._kv.gather(sess._kv.slot_ids(idx))
+                park["equal"] = all(torch.equal(got[k], park["pages"][k])
+                                    for k in got)
+                park["resumed"] = True
+                del park["pages"]
+    total = time.perf_counter() - t_all
+    launches = registry.launch_counts()
+    report = registry.dispatch_report()
+    decode = sorted(plain)
+    decode_ms = 1e3 * decode[len(decode) // 2]
+    key = ("decode_paged", PAGED_SLOTS) if paged else ("decode",)
+    replay_ms = None
+    if mode == "graph" and key in sess.graphs._graphs:
+        replay_ms = time_ms(lambda: sess.graphs.replay_only(key))
+    res = {"mode": mode, "tokens": [list(h.tokens) for h in hs],
+           "rows": [rows[h.id] for h in hs],
+           "decode_ms_per_step_median": decode_ms,
+           "decode_ms_per_step_mean": 1e3 * sum(decode) / len(decode),
+           "decode_ticks_timed": len(decode), "ticks": len(ticks),
+           "first_tick_ms": 1e3 * ticks[0], "total_s": total,
+           "decode_replay_ms": replay_ms,
+           "untraced_idle_share": (None if replay_ms is None
+                                   else 1.0 - replay_ms / decode_ms),
+           "max_memory_allocated": torch.cuda.max_memory_allocated(),
+           "kv_report": sess.kv_report(), "graph_stats":
+           dict(sess.graphs.stats), "graph_keys": sorted(
+               map(str, sess.graphs._graphs)),
+           "graphs_captured": len(sess.graphs._graphs),
+           "replays_after_first_park": (
+               None if replays_at_park is None else
+               sess.graphs.stats["replays"] - replays_at_park),
+           "launches": launches, "dispatch_report": report,
+           "decode_steps": sess.stats["decode_steps"],
+           "finite": all(np.isfinite(float(g)) for r in rows.values()
+                         for _, g in r)}
+    if manual_park:
+        res["manual_park"] = park
+    sess.close()
+    del sess
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def _paged_prompts(cfg):
+    import numpy as np
+    rng = np.random.default_rng(23)
+    system = rng.integers(0, cfg.vocab_size, PAGED_SYSTEM)
+    return [np.concatenate([system, rng.integers(0, cfg.vocab_size, n)])
+            .astype(np.int32) for n in PAGED_OWN]
+
+
+def phase_serve_paged(cfg, params, device):
+    """llama3-8b at full width (``serve``'s bf16 tree, one q8 load) with an
+    int8 cache on the grid ``calibrate_kv_cache_delta`` maps the first
+    prompt's cache to: 8 requests of a shared 128-token system prompt and
+    24-38 tokens of their own, 24 new tokens each, over 4 slots of 192
+    positions, each run eagerly and from graphs: (a) slot mode, (b) paged
+    in pages of 16 without pressure or sharing, (c) paged with prefix
+    sharing, (d) paged without sharing on a pool of 3 slots + the scratch
+    page (auto-parks); then a manual park and resume of a request in flight
+    (paged, graphs).  Checks: (b) gives (a)'s tokens and logits rows bit
+    for bit; (c) has 7 prefix hits, 56 reused pages, 376 prefill tokens;
+    (d) parks and restores every parked page; the manual restore equals the
+    parked pages byte for byte; graph and eager tokens and launches equal;
+    no shape captured twice, decode replays after a park; launches equal
+    225 per forward and 32 flash launches per whole-prompt prefill; the
+    dispatch report empty but for (c)'s suffix prefills' ragged-kv_len
+    records.  Partings of (c) and (d) from (a) are listed with their step
+    and top-2 gap."""
+    import numpy as np
+    from repro_torch.serve.backends import get_backend
+    from repro_torch.serve.quantized import calibrate_kv_cache_delta
+    from repro_torch.serve.session import ServeConfig
+
+    t0 = time.perf_counter()
+    backend = get_backend("q8")
+    tree = backend.load(cfg, params, device=device)
+    prompts = _paged_prompts(cfg)
+    delta = calibrate_kv_cache_delta(cfg, tree, prompts[0][None])
+    qcfg = cfg.replace(q8_cache=True, kv_cache_delta=delta)
+    log(f"[serve_paged] llama3-8b q8 loaded, kv_cache_delta calibrated on "
+        f"a {prompts[0].size}-token prefill: {delta:.6g} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    base = dict(slots=PAGED_SLOTS, max_len=PAGED_MAX_LEN)
+    paged = dict(base, kv_page_size=PAGED_PAGE)
+    configs_ = {
+        "a_slots": ServeConfig(**base),
+        "b_paged": ServeConfig(**paged, kv_prefix_sharing=False),
+        "c_shared": ServeConfig(**paged),
+        "d_tight": ServeConfig(**paged, kv_prefix_sharing=False,
+                               kv_pool_pages=PAGED_TIGHT_POOL)}
+    per_fwd = per_forward_launches(qcfg)["dequant_matmul"]
+    ragged = ("flash_attention", "fallback",
+              "ragged kv_len masking is not implemented in the kernel")
+    out = {"kv_cache_delta": delta, "prompt_lens": [p.size for p in prompts]}
+    for name, scfg in configs_.items():
+        runs = {m: _drive(qcfg, tree, backend, device, prompts, PAGED_NEW,
+                          scfg, m) for m in ("eager", "graph")}
+        e, g = runs["eager"], runs["graph"]
+        # the eager tick's idle share against the same decode's graph
+        # replay (the device work is the same kernels)
+        e["untraced_idle_share"] = 1.0 - (g["decode_replay_ms"] /
+                                          e["decode_ms_per_step_median"])
+        what = f"serve_paged {name}"
+        check(e["tokens"] == g["tokens"], f"{what}: graph and eager tokens "
+              "differ")
+        check(e["launches"] == g["launches"], f"{what}: launches differ "
+              f"between the modes: {e['launches']} {g['launches']}")
+        check(g["finite"] and e["finite"], f"{what}: non-finite logits")
+        rep = g["kv_report"]
+        hits = rep.get("stats", {}).get("prefix_hits", 0)
+        fwd = len(prompts) + g["decode_steps"]
+        check(g["launches"]["dequant_matmul"] == per_fwd * fwd,
+              f"{what}: {g['launches']['dequant_matmul']} dequant_matmul "
+              f"launches, want {per_fwd} x {fwd} forwards")
+        want_fa = flash_per_prefill(qcfg) * (len(prompts) - hits)
+        check(g["launches"]["flash_attention"] == want_fa,
+              f"{what}: {g['launches']['flash_attention']} flash launches, "
+              f"want {want_fa} ({len(prompts) - hits} whole prefills)")
+        for r in runs.values():
+            keys = [_record_key(x) for x in r["dispatch_report"]]
+            check(keys == [ragged] * (qcfg.num_layers * hits),
+                  f"{what} {r['mode']}: dispatch report {set(keys)} x "
+                  f"{len(keys)}, want {qcfg.num_layers * hits} ragged "
+                  "kv_len records")
+        check(g["graph_stats"]["captures"] == g["graphs_captured"],
+              f"{what}: a shape was captured twice: {g['graph_stats']}")
+        for r in runs.values():
+            log(f"[serve_paged] {name} {r['mode']}: decode "
+                f"{r['decode_ms_per_step_median']:.2f} ms/step median "
+                f"({r['decode_ticks_timed']} ticks), replay "
+                f"{_fmt(r['decode_replay_ms'])} ms, idle untraced "
+                f"{_fmt(r['untraced_idle_share'])}, first tick "
+                f"{r['first_tick_ms']:.1f} ms, run {r['total_s']:.2f} s, "
+                f"peak {r['max_memory_allocated'] / 2**30:.2f} GiB, "
+                f"graphs {r['graph_stats']}, launches {r['launches']}, "
+                f"report {len(r['dispatch_report'])} records")
+        log(f"[serve_paged] {name}: kv_report " + json.dumps(
+            {k: v for k, v in rep.items() if k != "scheduler"}) +
+            f" scheduler {rep['scheduler']}")
+        e.pop("rows")
+        out[name] = {**{k: v for k, v in g.items() if k != "rows"},
+                     "rows": g["rows"], "eager": e}
+    a, b = out["a_slots"], out["b_paged"]
+    check(b["tokens"] == a["tokens"], "serve_paged: (b) paged tokens differ "
+          "from (a) slot mode's: " + str(_partings(a["tokens"], b["tokens"],
+                                                   a["rows"])))
+    check([[h for h, _ in r] for r in b["rows"]] ==
+          [[h for h, _ in r] for r in a["rows"]],
+          "serve_paged: (b) logits rows differ from (a)'s bit for bit")
+    st_c = out["c_shared"]["kv_report"]
+    check((st_c["stats"]["prefix_hits"], st_c["stats"]["prefix_pages_reused"],
+           st_c["scheduler"]["prefill_tokens"]) == (
+               7, 7 * PAGED_SYSTEM // PAGED_PAGE,
+               len(prompts[0]) + sum(p.size - PAGED_SYSTEM
+                                     for p in prompts[1:])),
+          f"serve_paged (c): {st_c['stats']} {st_c['scheduler']}")
+    st_d = out["d_tight"]["kv_report"]
+    sd = st_d["stats"]
+    check(st_d["scheduler"]["parks"] >= 1 and
+          st_d["scheduler"]["resumes"] == st_d["scheduler"]["parks"] and
+          sd["pages_restored"] == sd["pages_evicted"] and
+          sd["restores"] == st_d["scheduler"]["parks"],
+          f"serve_paged (d): {st_d['scheduler']} {sd}")
+    check(out["d_tight"]["replays_after_first_park"],
+          f"serve_paged (d): no replay after a park: "
+          f"{out['d_tight']['graph_stats']}")
+    for name in ("c_shared", "d_tight"):
+        out[name]["partings_from_a"] = _partings(
+            a["tokens"], out[name]["tokens"], a["rows"])
+        log(f"[serve_paged] {name}: partings from (a) "
+            f"{out[name]['partings_from_a']}")
+    m = _drive(qcfg, tree, backend, device, prompts[:PAGED_SLOTS],
+               PAGED_NEW, configs_["b_paged"], "graph",
+               manual_park=PAGED_MANUAL_PARK)
+    mp = m["manual_park"]
+    check(mp["equal"], "serve_paged: pages restored after the manual park "
+          "differ from the parked ones")
+    m["partings_from_a"] = _partings(a["tokens"][:PAGED_SLOTS], m["tokens"],
+                                     a["rows"])
+    log(f"[serve_paged] manual park of request 1 after tick "
+        f"{PAGED_MANUAL_PARK[0]}, resume after {PAGED_MANUAL_PARK[1]}: "
+        f"{mp['raw_bytes'] / 2**20:.1f} MiB of int8 pages to "
+        f"{mp['host_bytes'] / 2**20:.2f} MiB on the host "
+        f"(ratio {mp['host_bytes'] / mp['raw_bytes']:.3f}), park "
+        f"{mp['park_s']:.3f} s, restore {mp['restore_s']:.3f} s, pages equal "
+        f"byte for byte; partings from (a) {m['partings_from_a']}; graphs "
+        f"{m['graph_stats']}")
+    m.pop("rows")
+    out["manual_park"] = m
+    for name in configs_:
+        out[name].pop("rows")
+    del tree
+    return out
+
+
+def phase_serve_mla_paged(cfg, tree, device):
+    """The MLA cut (``mla_cut``: 3 dense layers and one of 256 experts,
+    nested {"dense", "main"} latent pools) served paged in pages of 16
+    against slot mode from graphs, without pressure or sharing, over
+    prompts of distinct lengths: launches of the path, MLA's d != dv
+    records only, and the partings of the paged tokens from slot mode's
+    with their step and top-2 gap (this model's bf16 logits have parted
+    after near ties before)."""
+    import numpy as np
+    from repro_torch.serve.backends import get_backend
+    from repro_torch.serve.session import ServeConfig
+
+    rng = np.random.default_rng(7)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in MLA_PAGED_LENS]
+    max_len = max(MLA_PAGED_LENS) + MLA_PAGED_NEW
+    backend = get_backend("q8")
+    out = {}
+    for name, extra in (("slots", {}),
+                        ("paged", {"kv_page_size": PAGED_PAGE,
+                                   "kv_prefix_sharing": False})):
+        r = _drive(cfg, tree, backend, device, prompts, MLA_PAGED_NEW,
+                   ServeConfig(slots=len(prompts), max_len=max_len, **extra),
+                   "graph")
+        fwd = len(prompts) + r["decode_steps"]
+        what = f"serve_mla_paged {name}"
+        for kern, n in per_forward_launches(cfg).items():
+            check(r["launches"][kern] == n * fwd, f"{what}: "
+                  f"{r['launches'][kern]} {kern} launches, want {n} x {fwd}")
+        check(r["launches"]["flash_attention"] == 0,
+              f"{what}: flash launched")
+        check(report_ok(cfg, r["dispatch_report"]),
+              f"{what}: dispatch report {r['dispatch_report'][:3]}")
+        check(r["finite"], f"{what}: non-finite logits")
+        log(f"[serve_mla_paged] {name}: decode "
+            f"{r['decode_ms_per_step_median']:.2f} ms/step median, replay "
+            f"{_fmt(r['decode_replay_ms'])} ms, idle untraced "
+            f"{_fmt(r['untraced_idle_share'])}, peak "
+            f"{r['max_memory_allocated'] / 2**30:.2f} GiB, launches "
+            f"{r['launches']}, graphs {r['graph_stats']}, kv device bytes "
+            f"{r['kv_report']['device_bytes']}")
+        out[name] = r
+    out["paged"]["partings_from_slots"] = _partings(
+        out["slots"]["tokens"], out["paged"]["tokens"], out["slots"]["rows"])
+    log(f"[serve_mla_paged] partings of paged from slot mode: "
+        f"{out['paged']['partings_from_slots']}")
+    for r in out.values():
+        r.pop("rows")
+    return out
+
+
 def summarize(dm_rows, fa_rows, grouped_rows, serve, serve_moe, rd_rows,
               deploy, serve_moe_f32, sweep, swap, grouped_v3, serve_dense,
-              serve_mla, embeds, serve_ssm, serve_hybrid, hybrid_f32):
+              serve_mla, embeds, serve_ssm, serve_hybrid, hybrid_f32,
+              serve_paged, serve_mla_paged):
     """One entry per kernel and, for flash_attention and
     dequant_matmul_grouped, one per instance (``instance``).
     dequant_matmul: one full-width llama3-8b decode step's 225 calls at 4
@@ -3582,7 +4040,11 @@ def summarize(dm_rows, fa_rows, grouped_rows, serve, serve_moe, rd_rows,
     flash instances at zamba2-2.7b's prefill (B=4, S=128, H=G=32), bf16
     launched by ``serve_hybrid`` (54 layers, 9 per prefill), f32 by
     ``serve_hybrid_f32`` (6 layers); dequant_matmul's launches of
-    ``serve_ssm`` (the head only) and ``serve_hybrid``."""
+    ``serve_ssm`` (the head only) and ``serve_hybrid``.  The paged
+    serves: dequant_matmul's and flash_attention's launches of each run
+    of ``serve_paged`` (llama3-8b, graph run; the eager run's are checked
+    equal) and dequant_matmul's and the E = 256 grouped instance's of
+    ``serve_mla_paged``."""
     def row(m, k, n, x):
         return next(r for r in dm_rows if (r["arch"], r["m"], r["k"], r["n"],
                                            r["x"]) ==
@@ -3735,6 +4197,15 @@ def summarize(dm_rows, fa_rows, grouped_rows, serve, serve_moe, rd_rows,
     dm["serve_ssm_launches"] = serve_ssm["q8"]["launches"]["dequant_matmul"]
     dm["serve_hybrid_launches"] = serve_hybrid["q8"]["launches"][
         "dequant_matmul"]
+    runs = ("a_slots", "b_paged", "c_shared", "d_tight")
+    for entry, kern in ((dm, "dequant_matmul"), (fa, "flash_attention")):
+        entry["serve_paged_launches"] = {
+            r: serve_paged[r]["launches"][kern] for r in runs}
+    for entry, kern in ((dm, "dequant_matmul"),
+                        (gv3, "dequant_matmul_grouped")):
+        entry["serve_mla_paged_launches"] = {
+            r: serve_mla_paged[r]["launches"][kern]
+            for r in ("slots", "paged")}
     return [dm, fa, fa32, fa64, fa64_32, fa80, fa80_32, gm, gm32, gv3, rd]
 
 
@@ -3777,12 +4248,15 @@ def main() -> int:
     run("parity_moe_bf16", phase_parity_moe_bf16, device)
     run("parity_variants", phase_parity_variants, device)
     run("parity_ssm", phase_parity_ssm, device)
+    run("parity_paged", phase_parity_paged, device)
     run("search_parity", phase_search_parity, device)
     cfg, params = init_full(device, "llama3-8b")
     policy = rd_policy_rules(covered_leaves(params))
     run("rd_quant", phase_kernels_rd, params, policy)
     run("deploy_rd", phase_deploy_rd, params, policy)
     run("serve", phase_serve, cfg, params, device)
+    free()
+    run("serve_paged", phase_serve_paged, cfg, params, device)
     del params
     free()
     run("deploy", phase_deploy_serve, device)
@@ -3816,6 +4290,8 @@ def main() -> int:
     free()
     run("serve_mla", phase_serve_mla, mla_cfg, mla_tree, device)
     free()
+    run("serve_mla_paged", phase_serve_mla_paged, mla_cfg, mla_tree, device)
+    free()
     shapes = mla_decode_shapes(mla_cfg, mla_tree, device)
     run("tune", phase_tune, device, shapes, TUNED_CACHE)
     free()
@@ -3845,7 +4321,8 @@ def main() -> int:
                         results["serve_dense"], results["serve_mla"],
                         results["embeds_full"], results["serve_ssm"],
                         results["serve_hybrid"],
-                        results["serve_hybrid_f32"])
+                        results["serve_hybrid_f32"],
+                        results["serve_paged"], results["serve_mla_paged"])
     results["kernels"] = kernels
     results["seconds"] = time.perf_counter() - t0
     out_dir = ROOT / "chiprun_out"

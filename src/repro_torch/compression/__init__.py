@@ -6,10 +6,13 @@
     tree = compression.decompress(art.blob, like=params)
 
 Registered codecs: ``deepcabac-v2``, ``deepcabac-v3``, ``deepcabac-rd``,
-``deepcabac-delta``, ``ckpt-nearest``, ``serve-q8``, ``huffman``, ``raw``.
-The strategy and registry modules load lazily, so ``models`` can import
-the q8 quantizer without pulling in the codec."""
+``deepcabac-delta``, ``ckpt-nearest``, ``serve-q8``, ``huffman``, ``raw``
+and ``kv-q8-cabac`` (KV pages, ``kv_pages``).  The strategy and registry
+modules load lazily, so ``models`` can import the q8 quantizer without
+pulling in the codec."""
 
+from .q8 import (Q8_BLOCK, q8_blockable, q8_decode,  # noqa: F401
+                 q8_decode_sqrt, q8_encode, q8_encode_sqrt, q8_scale_shape)
 from .quantizers import (  # noqa: F401
     quantize_leaf, quantize_tree_q8, serve_q8_policy)
 from .tree import flatten_tree, unflatten, unflatten_like  # noqa: F401
@@ -27,6 +30,7 @@ _LAZY = {
     "CabacDeltaCoder": "coders",
     "HuffmanCoder": "coders",
     "RawLevelCoder": "coders",
+    "KVPageCodec": "kv_pages",
     "Quantizer": "quantizers",
     "RDGridQuantizer": "quantizers",
     "NearestStdQuantizer": "quantizers",

@@ -4,8 +4,8 @@
 ``get`` is the single entry point and, by default, strict: an override
 the factory does not accept raises ``TypeError`` naming the accepted
 parameters.  With ``strict=False`` unknown overrides are dropped and
-recorded in ``hyperparams["dropped_overrides"]``.  Codecs the reference
-registers whose path is not ported yet raise ``NotImplementedError``.
+recorded in ``hyperparams["dropped_overrides"]``.  Every codec the
+reference registers is registered here under the same name.
 """
 
 from __future__ import annotations
@@ -24,9 +24,6 @@ from .quantizers import (NearestStdQuantizer, PerChannelInt8Quantizer,
 
 _REGISTRY: dict[str, Callable[..., Codec]] = {}
 
-# the reference's other codecs, queued for later slices
-NOT_YET_PORTED = ("kv-q8-cabac",)
-
 
 def register(name: str, factory: Callable[..., Codec]) -> None:
     _REGISTRY[name] = factory
@@ -39,8 +36,6 @@ def available() -> list[str]:
 def get(name: str, *, strict: bool = True, **overrides) -> Codec:
     """Build a registered codec, applying keyword overrides to its factory
     (``strict=False`` drops and records unknown overrides)."""
-    if name in NOT_YET_PORTED:
-        raise NotImplementedError(f"codec {name!r}: not yet ported")
     if name not in _REGISTRY:
         raise KeyError(f"unknown codec {name!r}; available: {available()}")
     factory = _REGISTRY[name]
@@ -194,6 +189,20 @@ def _raw() -> Codec:
     return Codec("raw")
 
 
+def _kv_q8_cabac(step: float = 1.0, num_gr: int = B.DEFAULT_NUM_GR,
+                 chunk_size: int | None = None, backend: str = "auto"):
+    """KV-cache page codec (the paged serving cache's eviction format):
+    int8 cache pages CABAC-coded losslessly, float pages q8
+    block-quantized first (``compression.q8``) with raw f32 scale
+    records.  Not a tree-policy :class:`Codec` (pages are dense
+    activation tiles); it has the same ``compress``/``decompress``
+    surface.  See :mod:`repro_torch.compression.kv_pages`."""
+    from .kv_pages import KV_PAGE_CHUNK, KVPageCodec
+    return KVPageCodec(step=step, num_gr=num_gr,
+                       chunk_size=KV_PAGE_CHUNK if chunk_size is None
+                       else chunk_size, backend=backend)
+
+
 register("deepcabac-v2", _deepcabac_v2)
 register("deepcabac-delta", _deepcabac_delta)
 register("deepcabac-v3", _deepcabac_v3)
@@ -202,3 +211,4 @@ register("ckpt-nearest", _ckpt_nearest)
 register("serve-q8", _serve_q8)
 register("huffman", _huffman)
 register("raw", _raw)
+register("kv-q8-cabac", _kv_q8_cabac)

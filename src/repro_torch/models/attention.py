@@ -8,8 +8,17 @@ projection and the attention math go through the kernel registry with
 ``cfg.kernels`` (``kernels.get("dequant_matmul")`` for q8 weights,
 ``kernels.get("flash_attention")``: prefill on the card -> the
 hand-written kernel; decode -> the naive path; MLA's d != dv -> the scan,
-recorded, as in the reference).  The paged KV path is not ported yet and
-raises."""
+recorded, as in the reference).
+
+Paged decode (``cache_pages``) takes the same routes over a page pool
+(P, page, ...) per layer: the new token's K/V (MLA: latents) is written
+into ``pool[pid, pos % page]`` with ``index_put_`` on the pool the layer
+was given, the page id looked up on the device (a gather of the page
+table at ``pos // page``), and the rows read back as ``pool[cache_pages]``
+reshaped to (B, n_max * page, ...).  Nothing is read on the host and no
+pool is reallocated, so a CUDA graph captures the step and replays it
+over whatever pages the serving page table names
+(``repro_torch.serve.kv``)."""
 
 from __future__ import annotations
 
@@ -69,6 +78,38 @@ def _cache_update(cache_arr, new_vals, cache_pos, delta):
     return cache_arr
 
 
+def _paged_update_load(pool, new_vals, cache_pos, cache_pages, delta,
+                       dtype):
+    """Paged decode: write one token per row into the page pool in place,
+    read the batch's logical views back.
+
+    pool (P, page, ...) is the shared hot-page pool (one layer's slice of
+    the stacked pools); cache_pages (B, n_max) int maps each row's logical
+    page index to a pool page id.  Row ``i``'s new K/V lands in page
+    ``cache_pages[i, pos // page]`` at offset ``pos % page``; the gathered
+    view ``pool[cache_pages]`` reshapes to the row's contiguous
+    (B, n_max * page, ...) cache.  Pool page 0 is the scheduler's scratch
+    page: padding rows aim every logical page at it, so their writes
+    collide harmlessly there and never touch a live page.
+
+    Returns (pool, per-row contiguous values in ``dtype``)."""
+    b, n_max = cache_pages.shape
+    if new_vals.shape[1] != 1:
+        raise ValueError("paged cache update is decode-only (S=1)")
+    page = pool.shape[1]
+    dev = pool.device
+    off = host_offset(cache_pos)
+    cp = (torch.full((b,), off, dtype=torch.int64, device=dev)
+          if off is not None else cache_pos.to(dev, torch.int64))
+    pages = cache_pages.to(dev, torch.int64)
+    pid = torch.gather(pages, 1, (cp // page)[:, None])[:, 0]
+    pool.index_put_((pid, cp % page),
+                    _cache_store(new_vals, pool, delta)[:, 0])
+    view = pool.index_select(0, pages.reshape(-1)).reshape(
+        b, n_max * page, *pool.shape[2:])
+    return pool, _cache_load(view, dtype, delta)
+
+
 def _kv_len(cache_pos, b, s, device):
     """(B,) int32 count of valid cache rows after this decode step."""
     off = host_offset(cache_pos)
@@ -85,10 +126,11 @@ def gqa_attention(x, p, cfg, positions, *, cache=None, cache_pos=None,
     Prefill: ``cache`` is a dict of (B, Smax, G, D) tensors filled from
     position 0.  Decode: S == 1 and ``cache_pos`` is an int (whole batch at
     one offset) or a (B,) tensor of per-row offsets.  Both write the
-    cache in place.  An M-RoPE model rotates q and k by ``positions_3d``
-    (3, B, S); ``positions`` still orders the cache and the causal mask."""
-    if cache_pages is not None:
-        raise NotImplementedError("paged KV decode: not yet ported")
+    cache in place.  Paged decode: the cache leaves are page pools
+    (P, page, G, D) and ``cache_pages`` (B, n_max) maps each row's logical
+    pages to pool pages (:func:`_paged_update_load`).  An M-RoPE model
+    rotates q and k by ``positions_3d`` (3, B, S); ``positions`` still
+    orders the cache and the causal mask."""
     b, s, _ = x.shape
     h, g, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     q = q8_einsum(x, p["wq"], policy=cfg.kernels)
@@ -114,7 +156,14 @@ def gqa_attention(x, p, cfg, positions, *, cache=None, cache_pos=None,
     new_cache = None
     kv_len = None
     delta = cfg.kv_cache_delta
-    if cache is not None and cache_pos is not None:        # decode step
+    if cache is not None and cache_pages is not None:      # paged decode
+        ck, k = _paged_update_load(cache["k"], k, cache_pos, cache_pages,
+                                   delta, q.dtype)
+        cv, v = _paged_update_load(cache["v"], v, cache_pos, cache_pages,
+                                   delta, q.dtype)
+        new_cache = {"k": ck, "v": cv}
+        kv_len = _kv_len(cache_pos, b, s, x.device)
+    elif cache is not None and cache_pos is not None:      # decode step
         ck = _cache_update(cache["k"], k, cache_pos, delta)
         cv = _cache_update(cache["v"], v, cache_pos, delta)
         new_cache = {"k": ck, "v": cv}
@@ -144,11 +193,11 @@ def mla_attention(x, p, cfg, positions, *, cache=None, cache_pos=None,
     fills it from position 0, decode writes at ``cache_pos`` in place, as
     :func:`gqa_attention` does.  Keys and values are up-projected from the
     latents through ``w_uk`` / ``w_uv`` on every call, the whole cache at
-    decode (the reference's recompute path).  The head dim of q and k
-    (nope + rope) differs from v's, so prefill attention takes the scan
-    and records it, as the reference does."""
-    if cache_pages is not None:
-        raise NotImplementedError("paged KV decode: not yet ported")
+    decode (the reference's recompute path).  ``cache_pages`` selects
+    paged decode over (P, page, R) latent pools, as in
+    :func:`gqa_attention`.  The head dim of q and k (nope + rope) differs
+    from v's, so prefill attention takes the scan and records it, as the
+    reference does."""
     b, s, _ = x.shape
     h = cfg.num_heads
     dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
@@ -172,7 +221,14 @@ def mla_attention(x, p, cfg, positions, *, cache=None, cache_pos=None,
     new_cache = None
     kv_len = None
     delta = cfg.kv_cache_delta
-    if cache is not None and cache_pos is not None:        # decode
+    if cache is not None and cache_pages is not None:      # paged decode
+        ckv_all, ckv = _paged_update_load(cache["ckv"], ckv, cache_pos,
+                                          cache_pages, delta, x.dtype)
+        kr_all, kr = _paged_update_load(cache["kr"], kr, cache_pos,
+                                        cache_pages, delta, x.dtype)
+        new_cache = {"ckv": ckv_all, "kr": kr_all}
+        kv_len = _kv_len(cache_pos, b, s, x.device)
+    elif cache is not None and cache_pos is not None:      # decode
         ckv_all = _cache_update(cache["ckv"], ckv, cache_pos, delta)
         kr_all = _cache_update(cache["kr"], kr, cache_pos, delta)
         new_cache = {"ckv": ckv_all, "kr": kr_all}

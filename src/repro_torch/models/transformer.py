@@ -14,6 +14,9 @@ through the registry (``kernels.get(name)(..., policy=cfg.kernels)``).
 A MoE model runs its leading dense layers (``dense_layers``) first, then
 the MoE stack (``layers``), with nested caches ``{"dense": ...,
 "main": ...}``.  Caches are updated in place (see ``models.attention``).
+Paged decode (``cache_pages``) runs the same layers over page pools
+``init_cache(cfg, pool_pages, page)``: each layer's slice of a pool and
+the one (B, n_max) page table shared by every layer.
 A model without a token embedding (``embed_input=False``: musicgen,
 qwen2-vl) takes ``embeds`` (B, S, d) instead of ``tokens``, and an M-RoPE
 model its (3, B, S) ``pos3d`` streams.  An SSM model runs its Mamba2
@@ -279,15 +282,16 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, device="cuda") -> dict:
 # ---------------------------------------------------------------------------
 
 def _attn_block(x, lp, cfg, positions, pos3d, cache, cache_pos,
-                qpos_canonical):
+                qpos_canonical, cache_pages=None):
     h = norm(x, lp["attn_norm"], cfg)
     if cfg.attention == "mla":
         a, _ = mla_attention(h, lp["attn"], cfg, positions, cache=cache,
-                             cache_pos=cache_pos,
+                             cache_pos=cache_pos, cache_pages=cache_pages,
                              qpos_canonical=qpos_canonical)
     else:
         a, _ = gqa_attention(h, lp["attn"], cfg, positions, cache=cache,
                              cache_pos=cache_pos, positions_3d=pos3d,
+                             cache_pages=cache_pages,
                              qpos_canonical=qpos_canonical)
     return x + a
 
@@ -307,7 +311,7 @@ def _moe_layer_block(x, lp, cfg, *attn_args, with_aux=True):
 
 
 def _ssm_block(x, lp, cfg, positions, pos3d, cache, cache_pos,
-               qpos_canonical, with_aux=True):
+               qpos_canonical, cache_pages=None, with_aux=True):
     m, _ = mamba2_mixer(norm(x, lp["norm"], cfg), lp["mixer"], cfg,
                         cache=cache)
     return x + m, None
@@ -356,7 +360,8 @@ def _layers(params, cfg: ModelConfig, caches, dt, platform):
 
 def forward(params, cfg: ModelConfig, *, tokens=None, embeds=None,
             positions=None, pos3d=None, caches=None, cache_pos=None,
-            last_only: bool = False, last_index=None, with_aux: bool = True):
+            cache_pages=None, last_only: bool = False, last_index=None,
+            with_aux: bool = True):
     """Returns (logits, caches, aux).
 
     tokens (B, S) int, or for an ``embed_input=False`` model embeds
@@ -365,8 +370,12 @@ def forward(params, cfg: ModelConfig, *, tokens=None, embeds=None,
     ``last_index`` (B,) gathers one position per row (padded-bucket
     prefill).  ``caches`` (``init_cache``'s tree: (L, B, Smax, G, D)
     attention tensors, an SSM model's state and conv tails) is written in
-    place and returned.  ``aux`` is the MoE
-    load-balance loss summed over layers (0 for a dense model), or None
+    place and returned.  ``cache_pages`` (B, n_max) int switches
+    attention to *paged* decode: ``caches`` leaves are page pools
+    (L, P, page, ...), each row's K/V written and read through its
+    page-table row (``repro_torch.serve.kv``); attention families only,
+    as an SSM or hybrid state cache has no token axis to page.  ``aux`` is
+    the MoE load-balance loss summed over layers (0 for a dense model), or None
     unless ``with_aux``: :func:`prefill` and :func:`decode_step` skip it,
     as the reference's compiled serving steps drop it.
 
@@ -374,6 +383,10 @@ def forward(params, cfg: ModelConfig, *, tokens=None, embeds=None,
     capture a step: offsets are Python ints or device tensors (see
     ``models.attention.host_offset``)."""
     _require_ported(cfg)
+    if cache_pages is not None and cfg.family in ("ssm", "hybrid"):
+        raise ValueError(
+            "paged KV decode requires an attention-family cache; the "
+            f"{cfg.family!r} state cache has no token axis to page")
     dt = _dtype(cfg.compute_dtype)
     if cfg.embed_input:
         x = _kernels.get("embed_lookup_q8")(params["embed"], tokens, dt,
@@ -383,6 +396,13 @@ def forward(params, cfg: ModelConfig, *, tokens=None, embeds=None,
     b, s = x.shape[0], x.shape[1]
     dev = x.device
     platform = platform_of(x)
+    if cache_pages is not None:
+        # the page table and the positions as the int64 index tensors that
+        # every layer's page writes and gathers take: one cast a step, not
+        # one per layer and leaf
+        cache_pages = cache_pages.to(dev, torch.int64)
+        if isinstance(cache_pos, torch.Tensor) and cache_pos.dim() == 1:
+            cache_pos = cache_pos.to(dev, torch.int64)
     qpos_canonical = None
     if positions is None:
         ar = torch.arange(s, device=dev).expand(b, s)
@@ -402,7 +422,7 @@ def forward(params, cfg: ModelConfig, *, tokens=None, embeds=None,
            else None)
     for block, lp, cache_l in _layers(params, cfg, caches, dt, platform):
         x, a = block(x, lp, cfg, positions, pos3d, cache_l, cache_pos,
-                     qpos_canonical, with_aux=with_aux)
+                     qpos_canonical, cache_pages, with_aux=with_aux)
         if a is not None:
             aux = aux + a
 
@@ -465,9 +485,13 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
     compute dtype, "state": (L, B, H, P, N) in f32} (f32 under
     ``q8_cache`` too: only attention caches are int8), a hybrid's
     {"ssm": that, "attn": the attention cache of its L / shared_attn_every
-    groups}.  Axis 1 is the batch (slot) axis of every leaf."""
+    groups}.  Axis 1 is the batch (slot) axis of every leaf; a paged
+    session's pools are ``init_cache(cfg, pool_pages, page)``, axis 1 the
+    page axis.  ``device="meta"`` gives the shapes and dtypes with no
+    memory (capacity accounting)."""
     _require_ported(cfg)
-    dev = resolve_device(device)
+    dev = (torch.device("meta") if str(device) == "meta"
+           else resolve_device(device))
     dt = torch.int8 if cfg.q8_cache else _dtype(cfg.compute_dtype)
 
     def zeros(*shape):
@@ -521,14 +545,17 @@ def prefill(params, cfg: ModelConfig, *, tokens=None, embeds=None,
 
 
 def decode_step(params, cfg: ModelConfig, caches, pos, *, tokens=None,
-                embeds=None, pos3d=None):
+                embeds=None, pos3d=None, cache_pages=None):
     """One token step.  tokens (B,), or embeds (B, 1, d) (and for M-RoPE
     pos3d (3, B, 1)); pos an int (all rows at one offset) or a (B,) tensor
-    of per-row offsets (ragged continuous batching).  Returns (logits
-    (B, V), caches) with ``caches`` updated in place."""
+    of per-row offsets (ragged continuous batching).  ``cache_pages``
+    (B, n_max) int selects paged decode over page-pool caches (see
+    :func:`forward`).  Returns (logits (B, V), caches) with ``caches``
+    updated in place."""
     if tokens is not None:
         tokens = tokens[:, None]
     logits, caches, _ = forward(params, cfg, tokens=tokens, embeds=embeds,
                                 pos3d=pos3d, caches=caches, cache_pos=pos,
-                                last_only=True, with_aux=False)
+                                cache_pages=cache_pages, last_only=True,
+                                with_aux=False)
     return logits[:, 0, :], caches

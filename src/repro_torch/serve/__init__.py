@@ -11,6 +11,13 @@ _LAZY = {
     "WeightBackend": "backends",
     "get_backend": "backends",
     "available_backends": "backends",
+    "register_backend": "backends",
+    "KVColdStore": "backends",
+    "get_kv_store": "backends",
+    "register_kv_store": "backends",
+    "available_kv_stores": "backends",
+    "PagedKV": "kv",
+    "kv_cache_bytes": "kv",
 }
 
 __all__ = sorted(_LAZY)

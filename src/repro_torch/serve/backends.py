@@ -427,3 +427,193 @@ def resolve_backend(backend) -> WeightBackend:
     if isinstance(backend, WeightBackend):
         return backend
     return get_backend(backend)
+
+
+def register_backend(name: str, factory) -> None:
+    _BACKENDS[name] = factory
+
+
+# ---------------------------------------------------------------------------
+# Refcounted blob GC
+# ---------------------------------------------------------------------------
+
+class BlobGC:
+    """Refcounted key lifetimes over a drop callback.
+
+    A blob written for a consumer that later goes away (a parked KV slot
+    whose request is cancelled) leaks unless something counts its
+    holders: ``hold(key)`` takes a reference, ``release(key)`` gives one
+    back and calls ``drop(key)`` exactly when the last holder leaves.
+    Unknown keys release as no-ops, so cleanup paths may repeat."""
+
+    def __init__(self, drop):
+        self._drop = drop
+        self._refs: dict[str, int] = {}
+
+    def hold(self, key: str) -> int:
+        self._refs[key] = self._refs.get(key, 0) + 1
+        return self._refs[key]
+
+    def release(self, key: str) -> bool:
+        """Give back one reference; True when this release was the last
+        one and the key's blob was dropped."""
+        n = self._refs.get(key)
+        if n is None:
+            return False
+        if n > 1:
+            self._refs[key] = n - 1
+            return False
+        del self._refs[key]
+        self._drop(key)
+        return True
+
+    def refs(self, key: str) -> int:
+        return self._refs.get(key, 0)
+
+    def live(self) -> list[str]:
+        return sorted(self._refs)
+
+    def clear(self) -> None:
+        """Drop every held key (store teardown)."""
+        for key in list(self._refs):
+            del self._refs[key]
+            self._drop(key)
+
+
+# ---------------------------------------------------------------------------
+# KV cold stores: where the paged cache's evicted pages live
+# ---------------------------------------------------------------------------
+
+class KVColdStore:
+    """Host-side blob store for entropy-coded KV pages.
+
+    The paged serving cache (``repro_torch.serve.kv``) evicts cold pages as
+    ``kv-q8-cabac`` containers keyed by an opaque string; this registry
+    lets a deployment swap the eviction target (host memory, a spill
+    directory, ...) without touching the scheduler.  A store owns its
+    blobs: ``close()`` releases everything it holds."""
+
+    name = "base"
+
+    def put(self, key: str, blob: bytes) -> None:
+        raise NotImplementedError
+
+    def get(self, key: str) -> bytes:
+        raise NotImplementedError
+
+    def drop(self, key: str) -> None:
+        raise NotImplementedError
+
+    def __contains__(self, key: str) -> bool:
+        raise NotImplementedError
+
+    def nbytes(self) -> int:
+        """Total compressed bytes currently held (capacity accounting)."""
+        raise NotImplementedError
+
+    def close(self) -> None:
+        pass
+
+
+class HostKVStore(KVColdStore):
+    """In-process host-RAM store (the default): a dict of blobs."""
+
+    name = "host"
+
+    def __init__(self):
+        self._blobs: dict[str, bytes] = {}
+
+    def put(self, key, blob):
+        self._blobs[key] = bytes(blob)
+
+    def get(self, key):
+        return self._blobs[key]
+
+    def drop(self, key):
+        self._blobs.pop(key, None)
+
+    def __contains__(self, key):
+        return key in self._blobs
+
+    def nbytes(self):
+        return sum(len(b) for b in self._blobs.values())
+
+    def close(self):
+        self._blobs.clear()
+
+
+class DirKVStore(KVColdStore):
+    """Spill-to-directory store: one file per key under ``root`` (a
+    private temporary directory when unset, removed on ``close``)."""
+
+    name = "dir"
+
+    def __init__(self, root=None):
+        import tempfile
+        self._own = root is None
+        self._root = root or tempfile.mkdtemp(prefix="repro-torch-kv-")
+        os.makedirs(self._root, exist_ok=True)
+        self._sizes: dict[str, int] = {}
+
+    def _path(self, key: str) -> str:
+        import hashlib
+        return os.path.join(
+            self._root, hashlib.sha256(key.encode()).hexdigest() + ".dcbc")
+
+    def put(self, key, blob):
+        with open(self._path(key), "wb") as f:
+            f.write(blob)
+        self._sizes[key] = len(blob)
+
+    def get(self, key):
+        with open(self._path(key), "rb") as f:
+            return f.read()
+
+    def drop(self, key):
+        if self._sizes.pop(key, None) is not None:
+            try:
+                os.remove(self._path(key))
+            except OSError:
+                pass
+
+    def __contains__(self, key):
+        return key in self._sizes
+
+    def nbytes(self):
+        return sum(self._sizes.values())
+
+    def close(self):
+        for key in list(self._sizes):
+            self.drop(key)
+        if self._own:
+            import shutil
+            shutil.rmtree(self._root, ignore_errors=True)
+
+
+_KV_STORES: dict = {}
+
+
+def register_kv_store(name: str, factory) -> None:
+    _KV_STORES[name] = factory
+
+
+def available_kv_stores() -> list[str]:
+    return sorted(_KV_STORES)
+
+
+def get_kv_store(name: str, **overrides) -> KVColdStore:
+    if name not in _KV_STORES:
+        raise KeyError(f"unknown KV cold store {name!r}; "
+                       f"available: {available_kv_stores()}")
+    return _KV_STORES[name](**overrides)
+
+
+def resolve_kv_store(store) -> KVColdStore:
+    """Accept a registry name or an already-built store instance."""
+    if isinstance(store, KVColdStore):
+        return store
+    return get_kv_store(store)
+
+
+register_kv_store("host", HostKVStore)
+register_kv_store("dir", DirKVStore)

@@ -39,3 +39,30 @@ def dequant_cache_value(q: torch.Tensor, dtype: torch.dtype,
                         delta: float = DEFAULT_KV_CACHE_DELTA
                         ) -> torch.Tensor:
     return (q.to(torch.float32) * delta).to(dtype)
+
+
+def calibrate_kv_cache_delta(cfg, params, tokens, margin: float = 1.05
+                             ) -> float:
+    """Calibrated per-model KV-cache Delta: run a full-precision prefill
+    on ``tokens`` (B, S) on the parameters' device and map the observed
+    attention-cache absmax to level 127 (times ``margin`` headroom).  Use
+    the result as ``ServeConfig.kv_cache_delta`` /
+    ``ModelConfig.kv_cache_delta``: a fixed grid silently clips
+    activations out of its range.  The template that says which leaves
+    ``q8_cache`` stores as int8 is built on the meta device."""
+    # local imports: models.transformer imports this module at module scope
+    from ..compression.tree import flatten_tree
+    from ..models.transformer import init_cache, prefill
+
+    leaf = next(iter(flatten_tree(params).values()))
+    toks = torch.as_tensor(tokens).to(device=leaf.device, dtype=torch.int64)
+    fp_cfg = cfg.replace(q8_cache=False)
+    _, caches = prefill(params, fp_cfg, tokens=toks, max_len=toks.shape[1])
+    template = init_cache(cfg.replace(q8_cache=True), toks.shape[0],
+                          toks.shape[1], device="meta")
+    amax = 0.0
+    got_leaves = flatten_tree(caches)
+    for name, want in flatten_tree(template).items():
+        if want.dtype == torch.int8:   # the leaves q8_cache would quantize
+            amax = max(amax, float(got_leaves[name].abs().max()))
+    return max(margin * amax / 127.0, 1e-8)

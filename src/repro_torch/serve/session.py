@@ -1,35 +1,56 @@
-"""Request-level serving with continuous batching, slot mode (port of
+"""Request-level serving with continuous batching (port of
 ``repro.serve.session``).
 
 Clients ``submit(prompt, max_new_tokens, temperature)`` and get
-:class:`RequestHandle`\\ s.  The session preallocates
-``init_cache(cfg, slots, max_len)`` once.  Each tick admits queued
-requests onto free slots — the FIFO prefix that shares one (bucketed)
-prompt length prefills as one batch, padded prompts gathering their last
-real position — then runs one decode step over every slot with per-slot
-ragged positions, then evicts requests that hit EOS or their length.
+:class:`RequestHandle`\\ s.  Each tick admits queued requests, runs one
+batched decode step and evicts requests that hit EOS or their length.
 Sampling is the reference's host numpy code, so greedy and temperature
-tokens match it.  The paged KV cache (``kv_page_size``) is not ported.
-The session serves token models, as the reference's does: a model that
-takes embeddings (``embed_input=False``) is refused, and runs through
-``prefill`` / ``decode_step`` with ``embeds=``.  The slot caches are the
-GQA cache's (L, B, Smax, G, D) tensors, MLA's (L, B, Smax, R) latents,
-an SSM model's state (L, B, H, P, N) in f32 and conv tails (L, B, W-1, C)
-in the compute dtype, or a hybrid's SSM state beside the attention cache
-of its groups: axis 1 is the slot axis in every one.  A decode step runs
-over every slot, so a free slot's SSM state moves on too; an admission
-overwrites all of the slot's caches.
+tokens match it.  The session serves token models, as the reference's
+does: a model that takes embeddings (``embed_input=False``) is refused,
+and runs through ``prefill`` / ``decode_step`` with ``embeds=``.
 
-On the card, prefill and decode replay CUDA graphs (``serve.graphs``), as
-the reference runs them through ``jax.jit``: one decode graph (decode
-always runs over every slot) and one prefill graph per (rows, bucket
-length, padded) shape, each captured on the shape's second use.  A step
-writes into the session's own tensors: the slot caches (a prefill places
-its rows through a slot-index input) and one logits buffer.  These and
-the parameters are written in place, never reallocated, since the graphs
-hold their addresses; a graph keeps no output of its own, so more prompt
-lengths mean more graphs but no more device memory than the largest
-step's temporaries.  ``eager_steps()`` runs the steps eagerly.
+Two cache layouts:
+
+* **Slot mode** (default): ``init_cache(cfg, slots, max_len)`` once.  The
+  FIFO prefix of the queue that shares one (bucketed) prompt length
+  prefills as one batch, padded prompts gathering their last real
+  position, and its caches are placed into free slots; decode runs over
+  every slot with per-slot ragged positions.  The slot caches are the GQA
+  cache's (L, B, Smax, G, D) tensors, MLA's (L, B, Smax, R) latents, an
+  SSM model's state (L, B, H, P, N) in f32 and conv tails (L, B, W-1, C)
+  in the compute dtype, or a hybrid's SSM state beside the attention
+  cache of its groups: axis 1 is the slot axis in every one.  A decode
+  step runs over every slot, so a free slot's SSM state moves on too; an
+  admission overwrites all of the slot's caches.
+* **Paged mode** (``ServeConfig.kv_page_size``, attention families only):
+  the cache is a page pool and a page table per slot
+  (:mod:`repro_torch.serve.kv`).  Resumes are admitted before fresh
+  requests; each admission prefills alone (page tables are per request):
+  the whole (bucketed) prompt into a contiguous cache scattered to its
+  pages, or, on a shared-prefix hit, only the suffix over the gathered
+  prefix pages.  A fresh admission may park a victim slot to make room,
+  never while resumes wait.  Decode batches are compacted to the active
+  slots, padded to a power of two over the scratch page, so free slots
+  burn no decode rows.  Cold pages are entropy-coded (``kv-q8-cabac``)
+  to a host cold store: a slot the pool cannot grow parks itself and
+  resumes when pressure clears, and :meth:`ServeSession.park` /
+  :meth:`~ServeSession.resume` do it by hand.
+
+On the card, every step replays a CUDA graph (``serve.graphs``), as the
+reference runs it through ``jax.jit``, captured on the second use of its
+shape: in slot mode one decode graph (decode always runs over every slot)
+and one prefill graph per (rows, bucket length, padded); in paged mode
+one decode graph per compacted batch (its static inputs the tokens, the
+positions and the (bs, n_max) page table), one admission-prefill graph
+per (cache length, length, padded) with the page ids as an input, and one
+partial-prefill graph per (prefix pages, suffix length).  A step writes
+into the session's own tensors: the slot caches or page pools and one
+logits buffer.  These and the parameters are written in place, never
+reallocated, since the graphs hold their addresses: parks, resumes and
+restores copy pages into the existing pools, so nothing is recaptured.
+A graph keeps no output of its own, so more shapes mean more graphs but
+no more device memory than the largest step's temporaries.
+``eager_steps()`` runs the steps eagerly.
 
 :meth:`ServeSession.swap_weights` swaps a delta ("P-frame") checkpoint
 step into a running session between steps: each updated tensor is written
@@ -43,6 +64,7 @@ are dropped to capture again (``stats["graph_resets"]``).
 
 from __future__ import annotations
 
+import functools
 import itertools
 from collections import deque
 from dataclasses import dataclass, field
@@ -50,12 +72,13 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
-from ..compression.tree import flatten_tree
+from ..compression.tree import flatten_tree, unflatten
 from ..kernels.registry import resolve_device
 from ..models.config import ModelConfig
-from ..models.transformer import decode_step, init_cache, prefill
+from ..models.transformer import decode_step, forward, init_cache, prefill
 from .backends import resolve_backend
 from .graphs import StepGraphs, eager_steps  # noqa: F401
+from .kv import PagedKV, kv_cache_bytes
 
 
 def require_token_input(cfg: ModelConfig) -> None:
@@ -79,7 +102,16 @@ class ServeConfig:
     seed: int = 0                  # base seed for temperature sampling
     prefill_buckets: tuple = ()    # sorted prompt-length buckets: pad each
     # admission prefill up to the next bucket (dense family only)
-    kv_page_size: int | None = None   # paged KV: not yet ported
+
+    # -- paged KV cache ----------------------------------------------------
+    kv_page_size: int | None = None   # tokens per page; None = slot mode
+    kv_pool_pages: int | None = None  # hot pool size; None sizes it for
+    # every slot at max_len (no eviction pressure)
+    kv_cold_store: str = "host"       # KVColdStore registry name/instance
+    kv_evict_codec: str = "kv-q8-cabac"   # compression codec for cold pages
+    kv_prefix_sharing: bool = True    # share page-aligned prompt prefixes
+    kv_restore_workers: int = 0       # >0: entropy-decode restores on a
+    # worker pool, so the decode hides behind the admission path
 
 
 @dataclass
@@ -121,7 +153,8 @@ class _Slot:
 
 
 class ServeSession:
-    """Continuous-batching serving session over a slot KV cache."""
+    """Continuous-batching serving session over a slot or paged KV
+    cache."""
 
     def __init__(self, cfg: ModelConfig, weights, *, backend="bf16",
                  serve_cfg: ServeConfig | None = None, device="cuda",
@@ -131,8 +164,6 @@ class ServeSession:
             raise ValueError(
                 f"ServeConfig needs slots >= 1 and max_len >= 1; got "
                 f"slots={serve_cfg.slots}, max_len={serve_cfg.max_len}")
-        if serve_cfg.kv_page_size is not None:
-            raise NotImplementedError("paged KV cache: not yet ported")
         require_token_input(cfg)
         if serve_cfg.kv_cache_delta is not None:
             cfg = cfg.replace(kv_cache_delta=serve_cfg.kv_cache_delta)
@@ -157,11 +188,31 @@ class ServeSession:
         self._queue: deque[RequestHandle] = deque()
         self._ids = itertools.count()
         self._rngs: dict[int, np.random.Generator] = {}
-        self.stats = {"decode_steps": 0, "decode_rows": 0,
-                      "free_slot_rows": 0, "skipped_all_free_steps": 0,
-                      "prefill_tokens": 0, "swaps": 0, "graph_resets": 0}
-        self._caches = init_cache(cfg, serve_cfg.slots, serve_cfg.max_len,
-                                  device=self.device)
+        self.stats = {
+            "decode_steps": 0, "decode_rows": 0, "free_slot_rows": 0,
+            "padded_rows": 0, "skipped_all_free_steps": 0,
+            "prefill_tokens": 0, "prefix_reused_tokens": 0,
+            "parks": 0, "resumes": 0, "admit_stalls": 0,
+            "swaps": 0, "graph_resets": 0,
+        }
+        self._paged = serve_cfg.kv_page_size is not None
+        if self._paged:
+            self._caches = None        # no slot cache allocated
+            self._kv = PagedKV(
+                cfg, slots=serve_cfg.slots, max_len=serve_cfg.max_len,
+                page_size=serve_cfg.kv_page_size,
+                pool_pages=serve_cfg.kv_pool_pages,
+                cold_store=serve_cfg.kv_cold_store,
+                codec=serve_cfg.kv_evict_codec,
+                prefix_sharing=serve_cfg.kv_prefix_sharing,
+                restore_workers=serve_cfg.kv_restore_workers,
+                device=self.device)
+            self._resume_q: deque = deque()     # (req, parked, pos, next)
+            self._parked: dict = {}             # manual parks, by req id
+        else:
+            self._kv = None
+            self._caches = init_cache(cfg, serve_cfg.slots,
+                                      serve_cfg.max_len, device=self.device)
         # the last step's logits, rows [:k] after a k-row prefill
         self.logits = torch.empty((serve_cfg.slots, cfg.vocab_size),
                                   dtype=torch.float32, device=self.device)
@@ -215,11 +266,50 @@ class ServeSession:
         return sum(s.req is not None for s in self._slots)
 
     @property
+    def num_parked(self) -> int:
+        """Requests evicted to the compressed cold store (paged mode):
+        auto-parked ones waiting to resume, plus manual :meth:`park`\\ s."""
+        if not self._paged:
+            return 0
+        return len(self._resume_q) + len(self._parked)
+
+    @property
     def pending(self) -> bool:
-        return bool(self._queue) or self.num_active > 0
+        active = bool(self._queue) or self.num_active > 0
+        if self._paged:
+            # manual parks wait for an explicit resume(); auto-parked
+            # requests re-admit themselves, so they count
+            return active or bool(self._resume_q)
+        return active
+
+    def park(self, handle: RequestHandle) -> None:
+        """Evict ``handle``'s slot to the compressed cold store.  The
+        request keeps its sampling state and resumes token-identically
+        (int8 caches round-trip bit-exactly) after :meth:`resume`."""
+        if not self._paged:
+            raise ValueError("park() needs the paged KV cache "
+                             "(ServeConfig.kv_page_size)")
+        idx = self._slot_of(handle)
+        slot = self._slots[idx]
+        parked = self._kv.park(idx)
+        self._parked[handle.id] = (handle, parked, slot.pos,
+                                   slot.next_token)
+        slot.clear()
+        self.stats["parks"] += 1
+
+    def resume(self, handle: RequestHandle) -> None:
+        """Queue a manually parked request for re-admission; its pages
+        restore through the lane-parallel decoder on the next steps."""
+        rec = self._parked.pop(handle.id, None)
+        if rec is None:
+            raise ValueError(f"request {handle.id} is not parked")
+        self._kv.prefetch(rec[1])
+        self._resume_q.append(rec)
 
     def cancel(self, handle: RequestHandle) -> bool:
-        """Abort a queued or active request, freeing its slot.  Finished
+        """Abort a request wherever it lives (queued, active, manually
+        parked or waiting to resume), releasing its slot or pages and, for
+        a parked request, dropping its cold-store blob.  Finished
         requests are left alone (returns False)."""
         if handle.done:
             return False
@@ -227,11 +317,29 @@ class ServeSession:
             if req is handle:
                 del self._queue[i]
                 return self._finish_cancelled(handle)
-        for s in self._slots:
+        if self._paged:
+            rec = self._parked.pop(handle.id, None)
+            if rec is not None:
+                self._kv.discard(rec[1])
+                return self._finish_cancelled(handle)
+            for i, rec in enumerate(self._resume_q):
+                if rec[0] is handle:
+                    del self._resume_q[i]
+                    self._kv.discard(rec[1])
+                    return self._finish_cancelled(handle)
+        for i, s in enumerate(self._slots):
             if s.req is handle:
+                if self._paged:
+                    self._kv.release(i)
                 s.clear()
                 return self._finish_cancelled(handle)
         raise ValueError(f"request {handle.id} is not known to this session")
+
+    def _slot_of(self, handle: RequestHandle) -> int:
+        for i, s in enumerate(self._slots):
+            if s.req is handle:
+                return i
+        raise ValueError(f"request {handle.id} holds no slot")
 
     def _finish_cancelled(self, handle: RequestHandle) -> bool:
         handle.done = True
@@ -280,11 +388,44 @@ class ServeSession:
             if max_steps is not None and steps >= max_steps:
                 break
 
+    def close(self) -> None:
+        """Release the paged cache's cold store (a no-op in slot mode)."""
+        if self._paged:
+            self._kv.close()
+
+    # -- capacity accounting -------------------------------------------------
+
+    def kv_bytes_per_slot(self) -> int:
+        """Device KV bytes one request at full ``max_len`` costs, from the
+        real cache shapes on the meta device (``serve.kv.kv_cache_bytes``),
+        never recomputed by hand."""
+        return kv_cache_bytes(self.cfg, 1, self.serve_cfg.max_len)
+
+    def kv_report(self) -> dict:
+        """Total-KV accounting: device-resident bytes plus compressed
+        host bytes, the per-slot cost and the scheduler counters."""
+        if self._paged:
+            r = self._kv.report()
+        else:
+            r = {"mode": "slots",
+                 "device_bytes": int(sum(
+                     t.numel() * t.element_size()
+                     for t in flatten_tree(self._caches).values())),
+                 "host_compressed_bytes": 0}
+        r["slots"] = len(self._slots)
+        r["max_len"] = self.serve_cfg.max_len
+        r["bytes_per_slot"] = self.kv_bytes_per_slot()
+        r["scheduler"] = dict(self.stats)
+        return r
+
     # -- scheduler -----------------------------------------------------------
 
     def step(self) -> None:
-        """One tick: admit onto free slots, one batched decode step over
-        every slot, evict finished requests."""
+        """One tick: admit onto free slots, one batched decode step, evict
+        finished requests.  In slot mode the decode batch spans every
+        slot; in paged mode it is compacted to the active ones."""
+        if self._paged:
+            return self._step_paged()
         self._admit()
         if self.num_active == 0:
             self.stats["skipped_all_free_steps"] += 1
@@ -307,7 +448,7 @@ class ServeSession:
             nxt = self._sample(logits[i], slot.req)
             slot.req.tokens.append(nxt)
             slot.next_token = nxt
-            self._maybe_evict(slot)
+            self._maybe_evict(slot, i)
 
     def _admit(self) -> None:
         """Admit queued requests onto free slots; the FIFO prefix sharing
@@ -344,7 +485,7 @@ class ServeSession:
                 slot.pos = req.prompt.size
                 slot.next_token = first
                 self.stats["prefill_tokens"] += length
-                self._maybe_evict(slot)
+                self._maybe_evict(slot, slots_idx[j])
 
     def _place(self, caches_g: dict, slots_idx: torch.Tensor) -> None:
         """Copy a batch-k prefill's caches into slots ``slots_idx`` ((k,)
@@ -356,7 +497,7 @@ class ServeSession:
         for name, full in flatten_tree(self._caches).items():
             full.index_copy_(1, slots_idx, part[name].to(full.dtype))
 
-    def _maybe_evict(self, slot: _Slot) -> None:
+    def _maybe_evict(self, slot: _Slot, idx: int) -> None:
         req = slot.req
         eos = self.serve_cfg.eos_token
         if eos is not None and req.tokens[-1] == eos:
@@ -369,7 +510,140 @@ class ServeSession:
             return
         req.done = True
         self._rngs.pop(req.id, None)
+        if self._paged:
+            self._kv.release(idx)
         slot.clear()
+
+    # -- paged scheduler -----------------------------------------------------
+
+    def _step_paged(self) -> None:
+        self._admit_paged()
+        active = [i for i, s in enumerate(self._slots) if s.req is not None]
+        if not active:
+            self.stats["skipped_all_free_steps"] += 1
+            return
+        # page-boundary allocation; a slot the pool cannot grow parks
+        # itself (compressed to the host) and re-admits when pressure clears
+        still = []
+        for i in active:
+            if self._kv.ensure_writable(i, self._slots[i].pos):
+                still.append(i)
+            else:
+                self._auto_park(i)
+        active = still
+        if not active:
+            return
+        bs = min(1 << (len(active) - 1).bit_length(), len(self._slots))
+        tok = np.zeros(bs, np.int32)
+        pos = np.zeros(bs, np.int32)
+        pages = np.zeros((bs, self._kv.n_max), np.int32)   # pads -> scratch
+        for j, i in enumerate(active):
+            tok[j] = self._slots[i].next_token
+            pos[j] = self._slots[i].pos
+            pages[j] = self._kv.page_row(i)
+        self.stats["decode_steps"] += 1
+        self.stats["decode_rows"] += bs
+        self.stats["padded_rows"] += bs - len(active)
+        self.graphs.run(("decode_paged", bs), self._decode_paged,
+                        (tok, pos, pages))
+        logits = self._host(bs)
+        for j, i in enumerate(active):
+            slot = self._slots[i]
+            slot.pos += 1
+            nxt = self._sample(logits[j], slot.req)
+            slot.req.tokens.append(nxt)
+            slot.next_token = nxt
+            self._maybe_evict(slot, i)
+
+    def _admit_paged(self) -> None:
+        """Resumes first (FIFO), then fresh admissions, one batch-1
+        prefill each, since page tables are per request."""
+        while self._resume_q:
+            free = [i for i, s in enumerate(self._slots) if s.req is None]
+            if not free:
+                return
+            req, parked, pos, next_token = self._resume_q[0]
+            if not self._kv.resume(free[0], parked):
+                self.stats["admit_stalls"] += 1
+                break                      # pool pressure; retry next step
+            self._resume_q.popleft()
+            slot = self._slots[free[0]]
+            slot.req, slot.pos, slot.next_token = req, pos, next_token
+            self.stats["resumes"] += 1
+        while self._queue:
+            free = [i for i, s in enumerate(self._slots) if s.req is None]
+            if not free:
+                return
+            req = self._queue[0]
+            # fresh admissions may park a victim slot to make room, but
+            # never while resumes are waiting (no priority inversion)
+            make_room = self._park_victim if not self._resume_q else None
+            min_len = self._bucket_len(req.prompt.size)
+            ctx_len = self._kv.admit(free[0], req.prompt, min_len=min_len,
+                                     make_room=make_room)
+            if ctx_len is None:
+                self.stats["admit_stalls"] += 1
+                return
+            self._queue.popleft()
+            logits_row = self._prefill_paged(free[0], req, ctx_len)
+            self._kv.publish(free[0])
+            slot = self._slots[free[0]]
+            first = self._sample(logits_row, req)
+            req.tokens.append(first)
+            slot.req = req
+            slot.pos = req.prompt.size
+            slot.next_token = first
+            self._maybe_evict(slot, free[0])
+
+    def _prefill_paged(self, idx: int, req: RequestHandle,
+                       ctx_len: int) -> np.ndarray:
+        """Prefill into the slot's fresh page table.  On a shared-prefix
+        hit only the suffix runs (a partial prefill over the gathered
+        prefix pages); otherwise the whole (bucketed) prompt prefills into
+        a contiguous cache that is scattered to the pages."""
+        prompt = req.prompt
+        page = self._kv.page
+        ids = np.asarray(self._kv.slot_ids(idx), np.int64)
+        if ctx_len > 0:
+            n_ctx = ctx_len // page
+            suffix = np.ascontiguousarray(prompt[None, ctx_len:])
+            self.graphs.run(("partial_prefill", n_ctx, suffix.shape[1]),
+                            functools.partial(self._partial_prefill, n_ctx),
+                            (ids, suffix))
+            self.stats["prefix_reused_tokens"] += ctx_len
+            self.stats["prefill_tokens"] += prompt.size - ctx_len
+            return self._host(1)[0]
+        length = self._bucket_len(prompt.size)
+        toks = np.zeros((1, length), np.int32)
+        toks[0, :prompt.size] = prompt
+        inputs = (ids, toks)
+        if prompt.size < length:
+            inputs += (np.asarray([prompt.size - 1], np.int32),)
+        self.graphs.run(("prefill_paged", len(ids) * page, length,
+                         len(inputs) == 3), self._prefill_pages, inputs)
+        self.stats["prefill_tokens"] += length
+        return self._host(1)[0]
+
+    def _auto_park(self, idx: int) -> None:
+        slot = self._slots[idx]
+        parked = self._kv.park(idx)
+        rec = (slot.req, parked, slot.pos, slot.next_token)
+        self._kv.prefetch(parked)
+        self._resume_q.append(rec)
+        slot.clear()
+        self.stats["parks"] += 1
+
+    def _park_victim(self) -> bool:
+        """Pool-pressure callback: auto-park the active slot holding the
+        most pages (ties to the youngest request, keeping older requests
+        running).  False when no slot can be parked."""
+        cands = [(len(self._kv.slot_ids(i)), self._slots[i].req.id, i)
+                 for i, s in enumerate(self._slots) if s.req is not None]
+        if not cands:
+            return False
+        _, _, idx = max(cands)
+        self._auto_park(idx)
+        return True
 
     # -- steps (what the graphs capture) ------------------------------------
 
@@ -384,6 +658,47 @@ class ServeSession:
                                    last_index=last_index)
         self._place(caches_g, slots_idx)
         self.logits[:toks.shape[0]].copy_(logits)
+
+    def _decode_paged(self, tok, pos, pages):
+        logits, _ = decode_step(self.params, self.cfg, self._kv.pools, pos,
+                                tokens=tok, cache_pages=pages)
+        self.logits[:tok.shape[0]].copy_(logits)
+
+    def _prefill_pages(self, ids, toks, last_index=None):
+        """A whole-prompt admission: prefill into a contiguous batch-1
+        cache of ``len(ids)`` pages, then copy it into pool pages
+        ``ids``."""
+        page = self._kv.page
+        logits, caches = prefill(self.params, self.cfg, tokens=toks,
+                                 max_len=ids.shape[0] * page,
+                                 last_index=last_index)
+        part = flatten_tree(caches)
+        for name, pool in self._kv.leaves.items():
+            c = part[name]
+            pool.index_copy_(1, ids, c.reshape(
+                c.shape[0], ids.shape[0], page, *c.shape[3:]).to(pool.dtype))
+        self.logits[:1].copy_(logits)
+
+    def _partial_prefill(self, n_ctx, ids, toks):
+        """A suffix prefill over a shared prefix: gather the slot's pages
+        into a contiguous (L, 1, n * page, ...) view, run the suffix at
+        ``cache_pos = n_ctx * page`` (the S > 1 cache write with a ragged
+        ``kv_len``: the scan, recorded), and copy back only the suffix
+        pages; the shared prefix pages are read only."""
+        page = self._kv.page
+        n = ids.shape[0]
+        contig = {}
+        for name, pool in self._kv.leaves.items():
+            g = pool.index_select(1, ids)
+            contig[name] = g.reshape(g.shape[0], 1, n * page, *g.shape[3:])
+        logits, _, _ = forward(self.params, self.cfg, tokens=toks,
+                               caches=unflatten(contig),
+                               cache_pos=n_ctx * page, last_only=True,
+                               with_aux=False)
+        for name, pool in self._kv.leaves.items():
+            c = contig[name].reshape(pool.shape[0], n, page, *pool.shape[3:])
+            pool.index_copy_(1, ids[n_ctx:], c[:, n_ctx:])
+        self.logits[:1].copy_(logits[:, 0])
 
     # -- helpers -------------------------------------------------------------
 

@@ -346,14 +346,16 @@ def test_registry_strictness_and_unported_codecs():
         compression.get("deepcabac-v3", lamda=0.1)
     c = compression.get("serve-q8", strict=False, delta_rel=0.1)
     assert c.hyperparams["dropped_overrides"] == ["delta_rel"]
-    for name in ("kv-q8-cabac",):
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            compression.get(name)
+    # every codec of the reference's is registered, kv-q8-cabac included
+    assert compression.get("kv-q8-cabac", step=0.5).step == 0.5
+    with pytest.raises(TypeError, match="delta_rel"):
+        compression.get("kv-q8-cabac", delta_rel=0.1)
     with pytest.raises(ValueError, match="policy_table"):
         compression.get("deepcabac-rd")
     assert compression.available() == sorted(
         ["deepcabac-v2", "deepcabac-v3", "deepcabac-rd", "deepcabac-delta",
-         "ckpt-nearest", "serve-q8", "huffman", "raw"])
+         "ckpt-nearest", "serve-q8", "huffman", "raw", "kv-q8-cabac"])
+    assert compression.available() == jcompression.available()
 
 
 def test_size_report_matches_reference(trees):

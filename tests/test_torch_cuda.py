@@ -1224,3 +1224,47 @@ def test_ssm_smoke_model_on_card_matches_cpu(arch, dtype):
         assert _rel(got, want) <= (1e-3 if dtype == "float32" else 2e-2)
         if dtype == "float32":
             assert torch.equal(got.argmax(-1), want.argmax(-1))
+
+
+@pytest.mark.parametrize("arch", ["llama3-8b", "deepseek-moe-16b",
+                                  "deepseek-v3-671b"])
+def test_paged_session_graphs_equal_eager_and_cpu(arch):
+    """A paged q8 session with an int8 cache, a shared prefix and a pool
+    that forces parks: from graphs, eagerly and on the CPU the tokens are
+    the same; the pools keep their addresses through parks and restores,
+    and no shape is captured twice."""
+    _needs_card()
+    from repro_torch import configs
+    from repro_torch.compression import flatten_tree, quantize_tree_q8
+    from repro_torch.compression.tree import unflatten
+    from repro_torch.models.transformer import init_params
+    from repro_torch.serve.session import (ServeConfig, ServeSession,
+                                           eager_steps)
+    cfg = configs.get(arch, smoke=True).replace(q8_cache=True)
+    flat = flatten_tree(quantize_tree_q8(init_params(cfg, 0, device="cpu")))
+    rng = np.random.default_rng(2)
+    sys_p = rng.integers(0, cfg.vocab_size, 8)
+    prompts = [np.concatenate([sys_p, rng.integers(0, cfg.vocab_size, n)])
+               .astype(np.int32) for n in (3, 3, 5, 2, 3)]
+    scfg = ServeConfig(slots=3, max_len=32, kv_page_size=4,
+                       kv_pool_pages=10)
+    out = {}
+    for mode, device in (("graph", "cuda"), ("eager", "cuda"),
+                         ("cpu", "cpu")):
+        tree = unflatten({k: v.to(device) for k, v in flat.items()})
+        sess = ServeSession(cfg, tree, backend="q8", device=device,
+                            serve_cfg=scfg)
+        addrs = [t.data_ptr() for t in flatten_tree(sess._kv.pools).values()]
+        hs = [sess.submit(p, max_new_tokens=14) for p in prompts]
+        with eager_steps() if mode == "eager" else contextlib.nullcontext():
+            sess.run()
+        assert addrs == [t.data_ptr() for t in
+                         flatten_tree(sess._kv.pools).values()]
+        out[mode] = ([h.tokens for h in hs], dict(sess.stats),
+                     dict(sess.graphs.stats), len(sess.graphs._graphs))
+        sess.close()
+    graph, eager, cpu = out["graph"], out["eager"], out["cpu"]
+    assert graph[0] == eager[0] == cpu[0]
+    assert graph[1] == eager[1] == cpu[1]
+    assert cpu[1]["parks"] > 0
+    assert graph[2]["replays"] > 0 and graph[2]["captures"] == graph[3]

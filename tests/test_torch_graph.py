@@ -501,3 +501,115 @@ def test_session_on_stub_graphs_gives_the_eager_tokens(arch):
     assert out[0] == out[1]
     assert sess.graphs.stats["replays"] > 0
     assert stubs[0].captures == sum(1 for _ in sess.graphs._graphs)
+
+
+# ---------------------------------------------------------------------------
+# the paged session's steps
+# ---------------------------------------------------------------------------
+
+def _contig(pools, ids, b=1):
+    """Pool pages ``ids`` ((b, n) rows) as contiguous (L, b, n * page, ...)
+    caches, cloned."""
+    out = {}
+    for name, pool in flatten_tree(pools).items():
+        g = pool[:, ids.reshape(-1)]
+        out[name] = g.reshape(g.shape[0], b, -1, *g.shape[3:]).clone()
+    return unflatten(out)
+
+
+@pytest.mark.parametrize("arch", ARCHS + ("deepseek-v3-671b",))
+def test_paged_session_steps_run_with_no_host_sync(arch):
+    """The paged session's own steps, as a graph captures them: a
+    whole-prompt admission into pool pages 3 and 1 (plain, then padded), a
+    suffix prefill over the shared prefix page 3 into page 2, and a decode
+    of two rows through a page table (the second a padding row on the
+    scratch page).  Each writes the pools and the logits buffer in place
+    and equals the model's steps over contiguous caches."""
+    cfg, params = _smoke(arch, "q8", q8_cache=True)
+    sess = ServeSession(cfg, params, backend="q8", device="cpu",
+                        serve_cfg=ServeConfig(slots=2, max_len=16,
+                                              kv_page_size=4))
+    rng = np.random.default_rng(5)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, 7)))
+    ids = torch.tensor([3, 1])
+    want, caches = ttf.prefill(sess.params, cfg, tokens=toks, max_len=8)
+    with NoHostSync():
+        sess._prefill_pages(ids, toks)
+    assert torch.equal(sess.logits[:1], want)
+    for name, pool in flatten_tree(sess._kv.pools).items():
+        c = flatten_tree(caches)[name]
+        assert torch.equal(pool[:, 3], c[:, 0, :4])
+        assert torch.equal(pool[:, 1], c[:, 0, 4:])
+    last = torch.tensor([4], dtype=torch.int32)
+    want, _ = ttf.prefill(sess.params, cfg, tokens=toks, max_len=8,
+                          last_index=last)
+    with NoHostSync():
+        sess._prefill_pages(ids, toks, last)
+    assert torch.equal(sess.logits[:1], want)
+
+    suffix = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, 3)))
+    ids2 = torch.tensor([3, 2])
+    expect = _contig(sess._kv.pools, ids2)
+    want, _, _ = ttf.forward(sess.params, cfg, tokens=suffix, caches=expect,
+                             cache_pos=4, last_only=True, with_aux=False)
+    before = {k: v.clone() for k, v in flatten_tree(sess._kv.pools).items()}
+    with NoHostSync():
+        sess._partial_prefill(1, ids2, suffix)
+    assert torch.equal(sess.logits[:1], want[:, 0])
+    for name, pool in flatten_tree(sess._kv.pools).items():
+        e = flatten_tree(expect)[name]
+        assert torch.equal(pool[:, 2], e[:, 0, 4:])
+        assert torch.equal(pool[:, 3], before[name][:, 3])   # read only
+
+    pages = torch.tensor([[3, 2, 0, 0], [0, 0, 0, 0]], dtype=torch.int32)
+    tok = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2,)))
+    pos = torch.tensor([7, 0], dtype=torch.int32)
+    expect = _contig(sess._kv.pools, pages, b=2)
+    want, _ = ttf.decode_step(sess.params, cfg, expect, pos, tokens=tok)
+    with NoHostSync():
+        sess._decode_paged(tok, pos, pages)
+    assert torch.equal(sess.logits[:1], want[:1])
+    for name, pool in flatten_tree(sess._kv.pools).items():
+        assert torch.equal(pool[:, 2, 3], flatten_tree(expect)[name][:, 0, 7])
+
+
+def test_paged_session_on_stub_graphs_gives_the_eager_tokens():
+    """A paged session with a shared prefix, a pool small enough to park
+    and a manual park and resume, eagerly and on the stub graph backend:
+    the same tokens; decode graphs per compacted batch, admission and
+    suffix-prefill graphs replay; the pools are never reallocated and no
+    shape is captured twice."""
+    cfg, params = _smoke("llama3-8b", "q8", q8_cache=True)
+    rng = np.random.default_rng(6)
+    sys_p = rng.integers(0, cfg.vocab_size, 8).astype(np.int32)
+    prompts = [np.concatenate([sys_p, rng.integers(0, cfg.vocab_size, n)
+                               .astype(np.int32)]) for n in (3, 3, 5, 4, 3)]
+    scfg = ServeConfig(slots=3, max_len=24, kv_page_size=4,
+                       kv_pool_pages=11)
+    out = []
+    for graphs in (False, True):
+        sess = ServeSession(cfg, params, backend="q8", device="cpu",
+                            serve_cfg=scfg)
+        addrs = {k: v.data_ptr()
+                 for k, v in flatten_tree(sess._kv.pools).items()}
+        if graphs:
+            stub = StubGraphs()
+            sess.graphs = StepGraphs("cpu", backend=stub)
+        hs = [sess.submit(p, max_new_tokens=8) for p in prompts]
+        sess.step()
+        sess.step()
+        sess.park(hs[0])
+        sess.step()
+        sess.resume(hs[0])
+        sess.run()
+        out.append([h.tokens for h in hs])
+        assert {k: v.data_ptr() for k, v in
+                flatten_tree(sess._kv.pools).items()} == addrs
+        sess.close()
+    assert out[0] == out[1]
+    assert sess.stats["parks"] > 1 and sess.stats["resumes"] > 1
+    assert sess._kv.stats["prefix_hits"] > 0
+    kinds = {k[0] for k in sess.graphs._graphs}
+    assert {"decode_paged", "partial_prefill"} <= kinds
+    assert stub.captures == len(sess.graphs._graphs)
+    assert sess.graphs.stats["replays"] > 0

@@ -250,9 +250,10 @@ def test_unported_paths_raise(smoke):
     with pytest.raises(NotImplementedError):
         ttf.init_params(smoke["tcfg"].replace(family="rwkv"), 0,
                         device="cpu")
-    with pytest.raises(NotImplementedError):
-        tattn.gqa_attention(None, None, smoke["tcfg"], None,
-                            cache_pages=object())
+    # paged decode needs a token axis to page: an SSM state cache has none
+    with pytest.raises(ValueError, match="token axis"):
+        ttf.forward(None, configs.get("mamba2-2.7b", smoke=True),
+                    cache_pages=torch.zeros((1, 1), dtype=torch.int32))
     p = ttf.init_params(smoke["tcfg"], 0, device="cpu")
     assert flatten_tree(p).keys() == jflatten(smoke["raw"]).keys()
     for name, leaf in flatten_tree(p).items():

@@ -117,9 +117,6 @@ def test_engine_generate_matches_reference(weights):
 def test_unported_serving_paths_raise(weights):
     tcfg = configs.get("llama3-8b", smoke=True)
     flat = weights[2]
-    with pytest.raises(NotImplementedError, match="paged"):
-        ServeSession(tcfg, params_from_numpy(flat, "cpu"), device="cpu",
-                     serve_cfg=ServeConfig(kv_page_size=16))
     # a manifest path is a weight source now: a missing one raises
     with pytest.raises(FileNotFoundError, match="params.manifest.json"):
         ServeSession(tcfg, "ckpt/step_1", backend="q8", device="cpu")
