@@ -80,7 +80,8 @@ Phases (each fails the run on its own; nothing is caught and ignored):
 12. variational — variational_fim at the same width in f32, 4 steps:
              sigma finite and > 0, vd_sparsify runs, ms/step, peak memory;
 13. rd_sweep — rd_sweep on the 1-layer full-width llama3-8b (bf16) with
-             the bench's fast grid: rd_quant and flash_attention launch
+             the bench's fast grid at one delta (RD_SWEEP_DELTAS), both
+             lambdas: rd_quant and flash_attention launch
              the predicted counts, the report stays empty, the policy
              re-encodes to the sweep's bytes; every point and the split
              of the seconds (assignment, statistics, encode, decode,
@@ -101,14 +102,16 @@ Phases (each fails the run on its own; nothing is caught and ignored):
              path as predicted, an empty report; the seconds of the saves,
              the cold start and each swap (tc decode, q8 conversion,
              ``copy_``), the host CABAC rates and the bytes of each frame;
+             its step directories, the leaf digests of its three q8 trees
+             and the late request's logits row and tokens go on to 28;
 15. parity_variants (after 4) — the smoke qwen3-8b, qwen1.5-4b,
              mistral-nemo-12b, qwen2-vl-7b, musicgen-medium and
              deepseek-v3-671b (f32, q8; qwen2-vl-7b also bf16) on the card
              and on the CPU: identical greedy tokens, close logits, equal
              q8 levels; reports hold only MLA's d != dv records;
-16. serve_dense (after 9) — qwen3-8b at published widths and full depth
-             (36 layers), served as in 6 (the q8 check of layer 0, then
-             q8 and bf16, eager and graphs);
+16. serve_dense (after 9) — qwen3-8b at published widths cut to 12 of its
+             36 layers (SERVE_DENSE_LAYERS), served as in 6 (the q8 check
+             of layer 0, then q8 and bf16, eager and graphs);
 17. serve_mla — deepseek-v3-671b at published widths cut to 4 layers (3
              dense, 1 MoE of 256 experts top-8), built on q8 leaf by leaf
              and served as in 6; launches as predicted, no flash launch,
@@ -169,13 +172,26 @@ Phases (each fails the run on its own; nothing is caught and ignored):
              path, reports empty but for (c)'s ragged-kv_len records, no
              shape captured twice; ``kv_report`` of each run;
 27. serve_mla_paged (after 17) — the MLA cut paged against slot mode
-             (nested latent pools, the grouped kernel), partings listed.
+             (nested latent pools, the grouped kernel), partings listed;
+28. zoo (right after 14, on its chain) — ``ModelZoo`` on the card: the
+             keyframe and both P-frames registered as three models into
+             one content-addressed ShardStore (dedup >= 2, bytes equal to
+             the manifests'), served on q8 through ``ZooRouter`` under a
+             budget of 2.5 models: a cold admission, a warm one
+             (``warm_from``), a stall, an eviction and a second warm
+             admission; leaves equal 14's digests, the last model's
+             prefill logits and tokens equal 14's cold start, memory grows
+             and returns by ``model_resident_bytes`` within ZOO_MEM_TOL
+             (no ``gc.collect()``), the budget holds every step, launches
+             as counted, an empty report; ingest, admission and eviction
+             figures, decode ms/step.
 
 Every phase but 20 runs under the default kernel policy with an empty
 tuning cache (``REPRO_TORCH_KERNEL_TUNE_CACHE`` points at a fresh file
 under ``build/``), so a stale cache on the machine changes nothing.
-13 runs at 1 layer (RD_SWEEP_LAYERS) and 14 at 1 (DELTA_SWAP_LAYERS), so
-that 15-24 fit the time limit.
+13 runs at 1 layer (RD_SWEEP_LAYERS) and one delta (RD_SWEEP_DELTAS), 14
+and 28 at 1 (DELTA_SWAP_LAYERS) and 16 at 12 (SERVE_DENSE_LAYERS), so that
+the rest fit the time limit.
 
 The line before the last is the card's name and power limit; one line
 before it is the ``{"kernels": [...]}`` summary; the last line is
@@ -334,6 +350,13 @@ RD_SWEEP_LAYERS = 1          # the sweep's depth (its launches of rd_quant
 #                              go with the 7 stacked tensors, not the depth)
 SWEEP = dict(delta_rels=(1e-3, 6e-3), lambdas=(0.0, 1e-5), prompts=3,
              decode_steps=6, fim_batches=1, min_ndim=3)
+# the full-width sweep's deltas: the fast grid's 6e-3 alone (cut from both
+# for time: each grid point is a host CABAC encode and decode of the
+# covered tensors, about 27 s; a lambda = 0 and a lambda > 0 point remain)
+RD_SWEEP_DELTAS = (6e-3,)
+# qwen3-8b's serve at its published widths, cut from 36 layers for time
+# (its layers bring no kernel shape beyond llama3-8b's)
+SERVE_DENSE_LAYERS = 12
 # search parity at smoke size: the sweep's logit KL card vs CPU (a sum over
 # the vocabulary of f32 log-probability differences), the DC grids and the
 # accuracy budget on minus the eval NLL.  On the seeded smoke weights each
@@ -364,6 +387,18 @@ SWAP_NEW_TOKENS = 32
 SWAP_TICKS = 8
 SWAP_LATE_TOKENS = 8
 SWAP_DISK_BYTES = 20 * 2**30
+# the zoo on delta_swap's chain: its models (steps 1, 2, 3 in order) and the
+# limit, relative to one model's model_resident_bytes, on how far the
+# card's memory_allocated may move from the accounting at an admission or
+# an eviction (the logits buffer, graph inputs and allocator blocks are
+# not accounted)
+ZOO_MODELS = ("base", "v1", "v2")
+ZOO_MEM_TOL = 0.02
+# the new tokens of v1's second request: 4 more than the others', so when
+# base and v1's first request finish, v1 is still busy and base is the only
+# idle model: v2's admission evicts it and warms from v1 through one
+# P-frame (from base it would decode two), and v2 steps alone at its end
+ZOO_V1_SECOND_TOKENS = SWAP_LATE_TOKENS + 4
 # the SSM and hybrid families: their smoke models run card against CPU (f32
 # and bf16, q8), mamba2-2.7b (64 layers) and zamba2-2.7b (54 layers) serve
 # at published widths and full depth; zamba2-2.7b also in f32 at one group
@@ -1530,12 +1565,12 @@ def phase_deploy_rd(params, policy):
 def phase_deploy_serve(device):
     """Full width cut to DEPLOY_SERVE_LAYERS layers: deepcabac-rd container
     from the card, served from the blob on q8 and container, against
-    sessions on the in-memory tree with the same policy applied."""
+    sessions on the in-memory tree with the same policy applied.  The
+    host CABAC decode rate is the q8 load's own record decodes."""
     import numpy as np
     import torch
     from repro_torch import compression, configs
-    from repro_torch.core.codec import decode_record
-    from repro_torch.core.container import ContainerReader
+    from repro_torch.core import codec as core_codec
     from repro_torch.kernels import registry
     from repro_torch.models.transformer import init_params
     from repro_torch.serve import ServeEngine
@@ -1565,16 +1600,11 @@ def phase_deploy_serve(device):
     enc_s = time.perf_counter() - t0
     blob, bpp = art.blob, art.report["bits_per_param"]
     del entries, art                     # the host levels (int64) go
-    t0 = time.perf_counter()
-    for hdr, payload in ContainerReader(blob):
-        decode_record(hdr, payload, dequantize=False)
-    dec_s = time.perf_counter() - t0
     log(f"[deploy] llama3-8b full width, {DEPLOY_SERVE_LAYERS} layers: "
         f"{n_params / 1e9:.3f} G params, {n_coded / 1e9:.3f} G RD-coded "
         f"({len(leaves)} leaves, embed and head included); RD on the card "
         f"{rd_s:.2f} s ({launches} rd_quant launches); host CABAC encode "
-        f"{enc_s:.1f} s ({n_coded / enc_s / 1e6:.1f} M values/s), decode "
-        f"{dec_s:.1f} s ({n_coded / dec_s / 1e6:.1f} M values/s) on the card "
+        f"{enc_s:.1f} s ({n_coded / enc_s / 1e6:.1f} M values/s) on the card "
         f"machine's host; blob {len(blob) / 2**20:.1f} MiB, "
         f"{bpp:.4f} bits/param")
     # the reference invariant: the tree with the policy applied serves the
@@ -1589,19 +1619,30 @@ def phase_deploy_serve(device):
     out = {"layers": DEPLOY_SERVE_LAYERS, "params": n_params,
            "rd_coded": n_coded,
            "leaves": len(leaves), "rd_quant_launches": launches,
-           "rd_s": rd_s, "encode_s": enc_s, "decode_s": dec_s,
-           "encode_values_per_s": n_coded / enc_s,
-           "decode_values_per_s": n_coded / dec_s, "blob_bytes": len(blob),
+           "rd_s": rd_s, "encode_s": enc_s,
+           "encode_values_per_s": n_coded / enc_s, "blob_bytes": len(blob),
            "bits_per_param": bpp,
            "policy_steps": {k: r["step"] for k, r in policy["rules"].items()}}
     for backend, tree_backend in (("q8", "q8"), ("container", "bf16")):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
+        clock = _PartClock()
+        if backend == "q8":
+            clock.wrap(core_codec, "decode_record", "decode")
         t0 = time.perf_counter()
-        eng = ServeEngine.from_compressed(cfg, blob, max_len=160,
-                                          backend=backend, device=device)
-        torch.cuda.synchronize()
+        try:
+            eng = ServeEngine.from_compressed(cfg, blob, max_len=160,
+                                              backend=backend, device=device)
+            torch.cuda.synchronize()
+        finally:
+            clock.restore()
         load_s = time.perf_counter() - t0
+        if backend == "q8":
+            dec_s = clock.secs["decode"]
+            out.update(decode_s=dec_s, decode_values_per_s=n_coded / dec_s)
+            log(f"[deploy] host CABAC decode {dec_s:.1f} s ("
+                f"{n_coded / dec_s / 1e6:.1f} M values/s) of the q8 load's "
+                f"records")
         clear_reports()
         registry.reset_launch_counts()
         t0 = time.perf_counter()
@@ -1686,6 +1727,22 @@ def _q8_leaves_equal(got: dict, want: dict) -> list:
             or not torch.equal(a[k], b[k])]
 
 
+def _tree_digests(tree) -> dict:
+    """sha256 of every serving leaf's bytes (its dtype and shape first),
+    read on the host: a tree's fingerprint that outlives the tree."""
+    import hashlib
+
+    import torch
+    from repro_torch.compression.tree import flatten_tree
+    out = {}
+    for name, t in flatten_tree(tree).items():
+        h = hashlib.sha256(f"{t.dtype} {tuple(t.shape)}".encode())
+        h.update(t.detach().contiguous().reshape(-1).view(torch.uint8)
+                 .cpu().numpy().data)
+        out[name] = h.hexdigest()
+    return out
+
+
 def phase_delta_swap(device):
     """Delta ("P-frame") checkpoints and the live weight swap at llama3-8b's
     published widths, cut to DELTA_SWAP_LAYERS layers: the f32 training
@@ -1701,7 +1758,13 @@ def phase_delta_swap(device):
     levels, and the decode graph must not be captured again; a request
     admitted after the last swap must give that cold session's prefill
     logits bit for bit and its greedy tokens; the path's kernel launches
-    must be ``per_forward_launches``' and the dispatch report empty."""
+    must be ``per_forward_launches``' and the dispatch report empty.
+
+    Hands the ``zoo`` phase (``out["handover"]``) its chain: the step
+    directories (left on disk unless this phase fails), the leaf digests
+    of the three q8 trees (the keyframe's cold start, the chain's cold
+    starts of both P-frames), the prompts, and the late request's cold
+    prefill logits row and greedy tokens."""
     import resource
     import shutil
 
@@ -1753,6 +1816,7 @@ def phase_delta_swap(device):
     clock.wrap(sharded, "decode_level_chunks_batched", "intra_decode")
     clock.wrap(core_codec, "decode_delta_chunks_batched", "tc_decode")
     clock.wrap(session_mod, "_copy_into", "copy")
+    passed = False
     out = {"layers": cfg_t.num_layers, "params": n_params,
            "coded_values": n_coded, "coded_tensors": coded,
            "mesh": SWAP_MESH, "delta_every": SWAP_DELTA_EVERY, "lr": SWAP_LR}
@@ -1799,6 +1863,7 @@ def phase_delta_swap(device):
                             backend=backend, serve_cfg=scfg, device=device)
         torch.cuda.synchronize()
         out["cold_start_s"] = time.perf_counter() - t0
+        digests = {SWAP_STEPS[0]: _tree_digests(sess.params)}
         out["intra_decode_values_per_s"] = \
             n_coded / clock.secs["intra_decode"]
         rng = np.random.default_rng(0)
@@ -1844,6 +1909,7 @@ def phase_delta_swap(device):
             chain_s = time.perf_counter() - t0
             cold_tree = get_backend("q8").load_entries(cfg, ents,
                                                        device=device)
+            digests[step] = _tree_digests(cold_tree)
             bad = _q8_leaves_equal(sess.params, cold_tree)
             check(not bad, f"delta_swap: after the swap of step {step} the "
                   f"resident leaves differ from the chain's cold start: "
@@ -1895,6 +1961,11 @@ def phase_delta_swap(device):
         cold.run()
         check(late.tokens == ref.tokens, f"delta_swap: late tokens "
               f"{late.tokens} != the cold start's {ref.tokens}")
+        out["handover"] = {
+            "root": str(root), "steps": SWAP_STEPS, "digests": digests,
+            "prompts": prompts,
+            "late_logits": late_logits.cpu().numpy()[0].copy(),
+            "late_tokens": list(ref.tokens)}
         check(bool(torch.isfinite(late_logits).all()) and
               list(late_logits.shape) == [1, cfg.vocab_size],
               "delta_swap: late prefill logits not finite or misshaped")
@@ -1912,11 +1983,13 @@ def phase_delta_swap(device):
                    host_peak_rss_bytes=1024 * resource.getrusage(
                        resource.RUSAGE_SELF).ru_maxrss,
                    late_tokens=late.tokens)
+        passed = True
     finally:
         clock.restore()
         if gc_clock in gc.callbacks:
             gc.callbacks.remove(gc_clock)
-        shutil.rmtree(root, ignore_errors=True)
+        if not passed:               # else the zoo phase removes it after use
+            shutil.rmtree(root, ignore_errors=True)
     kb = out["files"]
     bits = [8 * f["payload_bytes"] / n_params for f in kb]
     log(f"[delta_swap] llama3-8b full width, {cfg_t.num_layers} layers "
@@ -1956,6 +2029,303 @@ def phase_delta_swap(device):
         f"{out['max_memory_allocated'] / 2**30:.2f} GiB on the card "
         f"(training {out['train_peak_bytes'] / 2**30:.2f}), host peak RSS "
         f"{out['host_peak_rss_bytes'] / 2**30:.2f} GiB")
+    return out
+
+
+def _rss_bytes() -> int:
+    """Resident set size of this process now (Linux ``/proc``)."""
+    import os
+    with open("/proc/self/statm") as f:
+        return int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE")
+
+
+def _storages(tree) -> dict:
+    """Address -> bytes of each distinct storage under ``tree``'s
+    leaves."""
+    from repro_torch.compression.tree import flatten_tree
+    return {t.untyped_storage().data_ptr(): t.untyped_storage().nbytes()
+            for t in flatten_tree(tree).values()}
+
+
+def phase_zoo(device, swap):
+    """The model zoo (``serve.zoo``) at llama3-8b's published widths, cut
+    to DELTA_SWAP_LAYERS layers, on delta_swap's chain (no checkpoint of
+    its own): ``base``, ``v1`` and ``v2`` registered from its steps 1, 2
+    and 3 into one ShardStore, served on q8 under a budget of 2.5
+    models' ``model_resident_bytes`` through ``ZooRouter``: ``prompts[0]``
+    to each (SWAP_LATE_TOKENS new tokens), then a second request to
+    ``v1`` (ZOO_V1_SECOND_TOKENS), all submitted at once.  ``v2`` stalls
+    while ``base`` and ``v1`` serve, then the idle ``base`` is evicted and
+    ``v2`` warms from ``v1``.
+    Checks: the store's logical and physical bytes equal the manifests'
+    (payloads plus each manifest's JSON) and dedup >= 2; every admitted
+    tree's leaves equal delta_swap's digests for its step; ``v2``'s
+    prefill logits row equals the chain's cold start bit for bit, and its
+    tokens; a cold admission grows ``memory_allocated`` by its
+    ``model_resident_bytes`` within ZOO_MEM_TOL of it, a warm one by no
+    more; an eviction (no ``gc.collect()``) returns its bytes less those
+    a resident session shares, within ZOO_MEM_TOL; the budget holds after
+    every router step; launches are ``per_forward_launches`` times the
+    forward passes and ``flash_per_prefill`` times the prefills; the
+    report is empty; each session's decode graph replays from its second
+    use.  The seconds of the ingest and of each admission's parts."""
+    import resource
+    import shutil
+
+    import numpy as np
+    import torch
+    from repro_torch import configs
+    from repro_torch.checkpoint import delta, sharded
+    from repro_torch.core import codec as core_codec
+    from repro_torch.kernels import registry
+    from repro_torch.serve import backends
+    from repro_torch.serve import session as session_mod
+    from repro_torch.serve.session import ServeConfig
+    from repro_torch.serve.zoo import (AdmissionStall, ModelZoo, ZooConfig,
+                                       ZooRouter, model_resident_bytes)
+
+    src = Path(swap["root"])
+    root = ROOT / "build" / "zoo"
+    clock = _PartClock()
+    try:
+        shutil.rmtree(root, ignore_errors=True)
+        root.mkdir(parents=True)
+        cfg = configs.get("llama3-8b").replace(num_layers=DELTA_SWAP_LAYERS)
+        scfg = ServeConfig(slots=4, max_len=160)
+        one = model_resident_bytes(cfg, scfg, backend="q8")
+        budget = 2 * one + one // 2
+        steps = dict(zip(ZOO_MODELS, swap["steps"]))
+        # the chain is linear (step s chains to s - 1), so a model at step
+        # s holds the files of steps 1..s
+        link = {}
+        for s in swap["steps"]:
+            d = src / f"step_{s:08d}"
+            link[s] = (sharded.manifest_payload_bytes(sharded.load_manifest(
+                str(d))) + (d / sharded.MANIFEST_NAME).stat().st_size)
+        logical = sum(link[t] for s in steps.values() for t in link
+                      if t <= s)
+        physical = sum(link.values())
+        free = shutil.disk_usage(root).free
+        check(free >= physical + 2**30, f"zoo: {free / 2**30:.1f} GiB free "
+              f"under {root}, the store needs {physical / 2**30:.1f} GiB "
+              "and 1 GiB to spare")
+        zoo = ModelZoo(str(root), ZooConfig(hbm_budget=budget, backend="q8",
+                                            serve=scfg), device=device)
+        t0 = time.perf_counter()
+        for m, s in steps.items():
+            zoo.register(m, cfg, str(src / f"step_{s:08d}"))
+        ingest_s = time.perf_counter() - t0
+        store = zoo.store.report()
+        check(store["logical_bytes"] == logical and
+              store["physical_bytes"] == physical,
+              f"zoo: store holds {store['logical_bytes']} logical / "
+              f"{store['physical_bytes']} physical bytes, the manifests "
+              f"give {logical} / {physical}")
+        check(store["dedup_ratio"] >= 2.0,
+              f"zoo: dedup ratio {store['dedup_ratio']} < 2")
+
+        clock.wrap(delta, "restore_levels", "restore")
+        clock.wrap(core_codec, "decode_delta_chunks_batched", "tc_decode")
+        clock.wrap(backends.Q8Backend, "_convert", "q8_convert")
+        clock.wrap(session_mod.ServeSession, "__init__", "session_build")
+        events: list = []
+        stalls: list = []
+        graphs: dict = {}          # model -> its sessions' graph counters
+        mark = [torch.cuda.memory_allocated()]
+        v2_rows: list = []
+        real_admit, real_evict = zoo.admit, zoo.evict
+
+        def admit(model_id):
+            fresh = zoo.session(model_id) is None
+            mark[0] = torch.cuda.memory_allocated()
+            part0 = dict(clock.secs)
+            try:
+                sess = real_admit(model_id)
+            except AdmissionStall:
+                stalls.append(model_id)
+                raise
+            if not fresh:
+                return sess
+            growth = torch.cuda.memory_allocated() - mark[0]
+            rep = zoo.zoo_report()["models"][model_id]
+            got = _tree_digests(sess.params)
+            want = swap["digests"][steps[model_id]]
+            bad = sorted(n for n in set(got) | set(want)
+                         if got.get(n) != want.get(n))
+            check(not bad, f"zoo: {model_id}'s {rep['last_admit']} "
+                  f"admission differs from delta_swap's step "
+                  f"{steps[model_id]} in {bad}")
+            if rep["last_admit"] == "cold":
+                check(abs(growth - one) <= ZOO_MEM_TOL * one,
+                      f"zoo: cold admission of {model_id} grew "
+                      f"memory_allocated by {growth} B, accounted {one}")
+            else:
+                check(growth <= (1 + ZOO_MEM_TOL) * one,
+                      f"zoo: warm admission of {model_id} grew "
+                      f"memory_allocated by {growth} B > {one}")
+            if model_id == "v2":
+                sample = sess._sample
+
+                def first_rows(row, req):
+                    if not req.tokens:
+                        v2_rows.append(row.copy())
+                    return sample(row, req)
+                sess._sample = first_rows
+            events.append({
+                "event": "admit", "model": model_id,
+                "kind": rep["last_admit"], "seconds": rep["admit_s"],
+                **{f"{p}_s": clock.secs.get(p, 0.0) - part0.get(p, 0.0)
+                   for p in ("restore", "tc_decode", "q8_convert",
+                             "session_build")},
+                "growth_bytes": growth, "accounted_bytes": one,
+                "rss_bytes": _rss_bytes()})
+            return sess
+
+        def evict(model_id):
+            sess = zoo.session(model_id)
+            if sess is None:
+                return real_evict(model_id)
+            others = set()
+            for m, s in zoo._resident.items():
+                if m != model_id:
+                    others |= set(_storages(s.params))
+            shared = sum(n for p, n in _storages(sess.params).items()
+                         if p in others)
+            graphs.setdefault(model_id, []).append(
+                {**sess.graphs.stats,
+                 "decode_steps": sess.stats["decode_steps"]})
+            del sess
+            before = torch.cuda.memory_allocated()
+            real_evict(model_id)
+            after = torch.cuda.memory_allocated()
+            mark[0] = after
+            returned = before - after
+            check(abs(returned - (one - shared)) <= ZOO_MEM_TOL * one,
+                  f"zoo: evicting {model_id} returned {returned} B, want "
+                  f"{one} - {shared} shared")
+            events.append({"event": "evict", "model": model_id,
+                           "returned_bytes": returned,
+                           "shared_bytes": shared, "accounted_bytes": one})
+
+        zoo.admit, zoo.evict = admit, evict
+        router = ZooRouter(zoo)
+        prompts = swap["prompts"]
+        traffic = [("base", prompts[0], SWAP_LATE_TOKENS),
+                   ("v1", prompts[0], SWAP_LATE_TOKENS),
+                   ("v2", prompts[0], SWAP_LATE_TOKENS),
+                   ("v1", prompts[1], ZOO_V1_SECOND_TOKENS)]
+        clear_reports()
+        registry.reset_launch_counts()
+        handles = [(m, router.submit(m, p, n)) for m, p, n in traffic]
+        ticks: list = []
+        while router.pending:
+            check(len(ticks) < 100, "zoo: the router did not drain")
+            before = {m: (dict(s.graphs.stats), s.stats["prefill_tokens"])
+                      for m, s in zoo._resident.items() if s.pending}
+            n_events = len(events) + len(stalls)
+            t0 = time.perf_counter()
+            router.step()
+            torch.cuda.synchronize()
+            ms = 1e3 * (time.perf_counter() - t0)
+            check(zoo.resident_bytes() <= budget, f"zoo: resident "
+                  f"{zoo.resident_bytes()} B over the budget {budget}")
+            # a decode-only replay tick of one model: it alone stepped, no
+            # admission, eviction, stall, prefill or capture in the tick
+            decode = None
+            if len(before) == 1 and len(events) + len(stalls) == n_events:
+                (m, (g0, p0)), = before.items()
+                s = zoo.session(m)
+                if (s is not None and s.stats["prefill_tokens"] == p0 and
+                        s.graphs.stats["replays"] == g0["replays"] + 1 and
+                        s.graphs.stats["captures"] == g0["captures"]):
+                    decode = m
+            ticks.append({"ms": ms, "models": sorted(before),
+                          "resident": zoo.resident(), "decode_of": decode})
+        launches = registry.launch_counts()
+        report = registry.dispatch_report()
+        for m, s in zoo._resident.items():
+            graphs.setdefault(m, []).append(
+                {**s.graphs.stats, "decode_steps": s.stats["decode_steps"]})
+        kinds = [e["kind"] for e in events if e["event"] == "admit"]
+        evicted = [e["model"] for e in events if e["event"] == "evict"]
+        check(stalls and evicted == ["base"] and
+              kinds == ["cold", "warm", "warm"],
+              f"zoo: want stalls, base evicted, a cold and two warm "
+              f"admissions; got stalls {stalls}, evictions {evicted}, "
+              f"admissions {kinds}")
+        check(all(h.done and len(h.result()) == n for (_, h), (_, _, n)
+                  in zip(handles, traffic)), "zoo: a request did not finish")
+        toks = {i: list(map(int, h.result())) for i, (_, h)
+                in enumerate(handles)}
+        check(toks[2] == swap["late_tokens"], f"zoo: v2's tokens {toks[2]} "
+              f"!= the chain's cold start {swap['late_tokens']}")
+        check(len(v2_rows) == 1 and np.array_equal(v2_rows[0],
+                                                    swap["late_logits"]),
+              "zoo: v2's prefill logits row differs from the chain's cold "
+              "start")
+        runs = [g for gs in graphs.values() for g in gs]
+        fwd = sum(g["eager"] + g["replays"] for g in runs)
+        prefills = fwd - sum(g["decode_steps"] for g in runs)
+        per_fwd = per_forward_launches(cfg)
+        check(not report, f"zoo: dispatch report not empty: {report}")
+        check(launches["dequant_matmul"] == per_fwd["dequant_matmul"] * fwd,
+              f"zoo: {launches['dequant_matmul']} dequant_matmul launches, "
+              f"want {per_fwd['dequant_matmul']} x {fwd} passes")
+        check(launches["flash_attention"] == flash_per_prefill(cfg) *
+              prefills, f"zoo: {launches['flash_attention']} flash "
+              f"launches, want {flash_per_prefill(cfg)} x {prefills} "
+              "prefills")
+        check(all(g["captures"] >= 1 and
+                  g["replays"] >= g["decode_steps"] - 1 for g in runs),
+              f"zoo: a session's decode graph did not replay: {graphs}")
+        decode_ms = {m: float(np.median([t["ms"] for t in ticks
+                                         if t["decode_of"] == m]))
+                     for m in {t["decode_of"] for t in ticks} - {None}}
+        check("v2" in decode_ms, "zoo: no decode replay tick of v2 alone")
+        report_zoo = zoo.zoo_report()
+        zoo.admit, zoo.evict = real_admit, real_evict
+        zoo.close()
+        zoo.store.close()
+        out = {"layers": cfg.num_layers, "accounted_bytes": one,
+               "hbm_budget": budget, "ingest_s": ingest_s,
+               "ingest_gb_per_s": store["stats"]["bytes_ingested"] /
+               ingest_s / 1e9, "store": store, "events": events,
+               "stalls": stalls, "ticks": ticks, "graphs": graphs,
+               "launches": launches, "dispatch_report": report,
+               "forward_passes": fwd, "prefills": prefills,
+               "decode_ms_per_step": decode_ms, "zoo_report": report_zoo,
+               "tokens": toks,
+               "host_peak_rss_bytes": 1024 * resource.getrusage(
+                   resource.RUSAGE_SELF).ru_maxrss}
+    finally:
+        clock.restore()
+        shutil.rmtree(root, ignore_errors=True)
+        shutil.rmtree(src, ignore_errors=True)
+    log(f"[zoo] llama3-8b full width, {cfg.num_layers} layer(s), q8, "
+        f"budget {budget} B = 2.5 x {one} B accounted: ingest of 3 models "
+        f"in {ingest_s:.2f} s ({out['ingest_gb_per_s']:.2f} GB/s); store "
+        f"{store['logical_bytes']} B logical, {store['physical_bytes']} B "
+        f"physical, dedup {store['dedup_ratio']}; stalls {stalls}")
+    for e in events:
+        if e["event"] == "admit":
+            log(f"[zoo] {e['kind']} admission of {e['model']}: "
+                f"{e['seconds']:.2f} s (restore {e['restore_s']:.2f}, tc "
+                f"decode {e['tc_decode_s']:.2f}, q8 conversion "
+                f"{e['q8_convert_s']:.2f}, session build "
+                f"{e['session_build_s'] * 1e3:.2f} ms); memory_allocated "
+                f"+{e['growth_bytes']} B against {e['accounted_bytes']} "
+                f"accounted; host RSS {e['rss_bytes'] / 2**30:.2f} GiB")
+        else:
+            log(f"[zoo] eviction of {e['model']}: memory_allocated "
+                f"-{e['returned_bytes']} B ({e['shared_bytes']} B shared "
+                f"with a resident session, {e['accounted_bytes']} "
+                f"accounted)")
+    log(f"[zoo] decode ms/step from graphs (one model stepping) "
+        f"{ {m: round(v, 3) for m, v in decode_ms.items()} }; launches "
+        f"{launches} over {fwd} forward passes ({prefills} prefills), "
+        f"empty report; v2's prefill logits and tokens equal the chain's "
+        f"cold start; host peak RSS {out['host_peak_rss_bytes'] / 2**30:.2f}"
+        f" GiB")
     return out
 
 
@@ -3324,7 +3694,7 @@ class _PartClock:
 
 def _sweep_search():
     from repro_torch.compression.rd_search import RDSearchConfig
-    return RDSearchConfig(**SWEEP)
+    return RDSearchConfig(**{**SWEEP, "delta_rels": RD_SWEEP_DELTAS})
 
 
 def predicted_sweep_launches(res, search, n_covered, layers) -> dict:
@@ -4006,7 +4376,7 @@ def phase_serve_mla_paged(cfg, tree, device):
 def summarize(dm_rows, fa_rows, grouped_rows, serve, serve_moe, rd_rows,
               deploy, serve_moe_f32, sweep, swap, grouped_v3, serve_dense,
               serve_mla, embeds, serve_ssm, serve_hybrid, hybrid_f32,
-              serve_paged, serve_mla_paged):
+              serve_paged, serve_mla_paged, zoo):
     """One entry per kernel and, for flash_attention and
     dequant_matmul_grouped, one per instance (``instance``).
     dequant_matmul: one full-width llama3-8b decode step's 225 calls at 4
@@ -4025,7 +4395,8 @@ def summarize(dm_rows, fa_rows, grouped_rows, serve, serve_moe, rd_rows,
     rd_quant and the bf16 flash instance: those counts are
     ``sweep_launches`` of both entries.  The live weight swap's path
     (``delta_swap``) launches dequant_matmul and the bf16 flash instance:
-    ``delta_swap_launches`` of both entries.  Launches of the other serving
+    ``delta_swap_launches`` of both entries, and the zoo's (``zoo``, on
+    the same 1-layer cut) ``zoo_launches``.  Launches of the other serving
     entries come from each model's q8 serve, its eager run (the graph
     run's are equal).  The serving kernels' ``ms`` and ``library_ms`` are
     CUDA-graph replays (``timing``), their eager loops' ``eager_ms``
@@ -4091,6 +4462,8 @@ def summarize(dm_rows, fa_rows, grouped_rows, serve, serve_moe, rd_rows,
     fa["sweep_launches"] = sweep["launches"]["flash_attention"]
     fa["delta_swap_launches"] = swap["launches"]["flash_attention"]
     dm["delta_swap_launches"] = swap["launches"]["dequant_matmul"]
+    fa["zoo_launches"] = zoo["launches"]["flash_attention"]
+    dm["zoo_launches"] = zoo["launches"]["dequant_matmul"]
     fa32 = fa_entry(16, "float32",
                     serve_moe_f32["launches"]["flash_attention"],
                     "one deepseek-moe-16b f32 prefill call: B=4 S=128 H=16 "
@@ -4263,6 +4636,8 @@ def main() -> int:
     free()
     run("delta_swap", phase_delta_swap, device)
     free()
+    run("zoo", phase_zoo, device, results["delta_swap"].pop("handover"))
+    free()
     # deepseek-moe-16b once every llama3-8b tensor is freed
     cfg, params = init_full(device, "deepseek-moe-16b")
     run("serve_moe", phase_serve, cfg, params, device)
@@ -4273,7 +4648,7 @@ def main() -> int:
     run("serve_moe_f32", phase_serve_moe_f32, device)
     free()
     # the other dense variants and MLA at their published widths
-    cfg, params = init_full(device, "qwen3-8b")
+    cfg, params = init_full(device, "qwen3-8b", num_layers=SERVE_DENSE_LAYERS)
     run("serve_dense", phase_serve, cfg, params, device)
     del params
     free()
@@ -4322,7 +4697,8 @@ def main() -> int:
                         results["embeds_full"], results["serve_ssm"],
                         results["serve_hybrid"],
                         results["serve_hybrid_f32"],
-                        results["serve_paged"], results["serve_mla_paged"])
+                        results["serve_paged"], results["serve_mla_paged"],
+                        results["zoo"])
     results["kernels"] = kernels
     results["seconds"] = time.perf_counter() - t0
     out_dir = ROOT / "chiprun_out"

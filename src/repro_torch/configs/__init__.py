@@ -1,5 +1,7 @@
 """Architecture registry of the port: ``get(name, smoke=)``, every
-architecture the reference registers, in its order."""
+architecture the reference registers, in its order.
+``get_config`` / ``get_smoke_config`` are the reference's thin
+wrappers."""
 
 from __future__ import annotations
 
@@ -35,3 +37,11 @@ def get(name: str, *, smoke: bool = False) -> ModelConfig:
             f"unknown config {name!r}; available: {', '.join(ARCH_IDS)}")
     mod = importlib.import_module(f".{_MOD[name]}", __name__)
     return mod.SMOKE if smoke else mod.CONFIG
+
+
+def get_config(arch: str) -> ModelConfig:
+    return get(arch)
+
+
+def get_smoke_config(arch: str) -> ModelConfig:
+    return get(arch, smoke=True)

@@ -18,6 +18,14 @@ _LAZY = {
     "available_kv_stores": "backends",
     "PagedKV": "kv",
     "kv_cache_bytes": "kv",
+    "ShardStore": "zoo",
+    "ModelZoo": "zoo",
+    "ZooConfig": "zoo",
+    "ZooRouter": "zoo",
+    "ZooHandle": "zoo",
+    "ZooError": "zoo",
+    "AdmissionStall": "zoo",
+    "model_resident_bytes": "zoo",
 }
 
 __all__ = sorted(_LAZY)

@@ -73,6 +73,11 @@ class WeightBackend:
     tree shares with another's (:meth:`warm_from`)."""
 
     name = "?"
+    # True when the resident tree holds serve-quantized tensors as
+    # {"q8", "q8s"} leaves (int8 levels + f32 scales): admission
+    # accounting (zoo.model_resident_bytes) sizes those leaves at int8
+    # width instead of the param dtype
+    q8_resident = False
 
     def __init__(self, decode: DecodeOptions | None = None,
                  policy_table=None, track_levels: bool = False):
@@ -377,6 +382,7 @@ class Bf16Backend(WeightBackend):
 
 class Q8Backend(WeightBackend):
     name = "q8"
+    q8_resident = True
 
     def _convert(self, name, rec, dtype, device):
         if isinstance(rec, Q8Tensor):

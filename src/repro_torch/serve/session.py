@@ -389,9 +389,19 @@ class ServeSession:
                 break
 
     def close(self) -> None:
-        """Release the paged cache's cold store (a no-op in slot mode)."""
+        """Release what the session holds on the device: the captured
+        graphs (with their memory pool), the slot caches or the page pools
+        (the paged cold store is closed first), the logits buffer and the
+        reference to the parameter tree.  Nothing is freed, resized or
+        written: a leaf another session shares (``warm_from``) keeps its
+        storage and values.  A closed session serves no more; closing it
+        again is a no-op."""
+        if self.params is None:
+            return
         if self._paged:
             self._kv.close()
+        self.graphs = None
+        self._kv = self._caches = self.logits = self.params = None
 
     # -- capacity accounting -------------------------------------------------
 

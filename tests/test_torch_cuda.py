@@ -1104,6 +1104,70 @@ def test_swap_under_graph_replay_equals_eager_and_cpu(tmp_path):
             assert torch.equal(cpu[1][k], v), k
 
 
+def _own_device_bytes(sess, others) -> int:
+    """Caching-allocator bytes of the tensors only ``sess`` holds: its
+    parameter leaves that no session in ``others`` shares, its slot
+    caches, logits buffer and graph input buffers, each storage once.
+    At smoke size every one is under 1 MiB, so the allocator gives each a
+    block of exactly its size rounded up to 512 bytes."""
+    from repro_torch.compression.tree import flatten_tree
+    shared = {t.untyped_storage().data_ptr() for o in others
+              for t in flatten_tree(o.params).values()}
+    tensors = [*flatten_tree(sess.params).values(),
+               *flatten_tree(sess._caches).values(), sess.logits,
+               *(t for g in sess.graphs._graphs.values() for t in g.inputs)]
+    blocks = {t.untyped_storage().data_ptr(): t.untyped_storage().nbytes()
+              for t in tensors}
+    assert max(blocks.values()) < 2**20
+    return sum(max(512, -(-n // 512) * 512) for p, n in blocks.items()
+               if p not in shared)
+
+
+def test_zoo_cold_warm_and_evict_on_the_card(tmp_path):
+    """The smoke chain in a q8 zoo on the card: a cold admission, a warm
+    one (``warm_from``) and an eviction.  Right after ``evict`` returns,
+    with no ``gc.collect()``, ``memory_allocated()`` has fallen by exactly
+    the evicted session's own blocks; the routed tokens and admission
+    kinds equal the CPU zoo's, and the decode graphs replayed."""
+    _needs_card()
+    from repro_torch.serve.session import ServeConfig
+    from repro_torch.serve.zoo import (ModelZoo, ZooConfig, ZooRouter,
+                                       model_resident_bytes)
+    cfg, _blob, dirs = _swap_chain(tmp_path / "ckpt")
+    scfg = ServeConfig(slots=2, max_len=32)
+    one = model_resident_bytes(cfg, scfg, backend="q8")
+    prompts = np.random.default_rng(2).integers(0, cfg.vocab_size, (2, 7))
+    out = {}
+    for device in ("cuda", "cpu"):
+        z = ModelZoo(str(tmp_path / f"zoo-{device}"),
+                     ZooConfig(hbm_budget=3 * one, backend="q8", serve=scfg),
+                     device=device)
+        z.register("base", cfg, dirs[0])
+        z.register("v1", cfg, dirs[1])
+        router = ZooRouter(z)
+        hs = [router.submit(m, p.astype(np.int32), max_new_tokens=8)
+              for m in ("base", "v1") for p in prompts]
+        router.run()
+        kinds = {m: r["last_admit"]
+                 for m, r in z.zoo_report()["models"].items()}
+        if device == "cuda":
+            base, v1 = z.session("base"), z.session("v1")
+            for s in (base, v1):
+                assert s.graphs.stats["captures"] >= 1
+                assert s.graphs.stats["replays"] >= \
+                    s.stats["decode_steps"] - 1
+            own = _own_device_bytes(base, [v1])
+            del base, s
+            before = torch.cuda.memory_allocated()
+            z.evict("base")
+            assert before - torch.cuda.memory_allocated() == own
+            assert z.resident() == ["v1"]
+        out[device] = ([h.result().tolist() for h in hs], kinds)
+        z.close()
+    assert out["cuda"] == out["cpu"]
+    assert out["cpu"][1] == {"base": "cold", "v1": "warm"}
+
+
 # ---------------------------------------------------------------------------
 # the other dense variants and MLA
 # ---------------------------------------------------------------------------

@@ -586,10 +586,11 @@ def test_paged_session_on_stub_graphs_gives_the_eager_tokens():
                                .astype(np.int32)]) for n in (3, 3, 5, 4, 3)]
     scfg = ServeConfig(slots=3, max_len=24, kv_page_size=4,
                        kv_pool_pages=11)
-    out = []
+    out, sessions = [], []
     for graphs in (False, True):
         sess = ServeSession(cfg, params, backend="q8", device="cpu",
                             serve_cfg=scfg)
+        sessions.append(sess)
         addrs = {k: v.data_ptr()
                  for k, v in flatten_tree(sess._kv.pools).items()}
         if graphs:
@@ -605,7 +606,6 @@ def test_paged_session_on_stub_graphs_gives_the_eager_tokens():
         out.append([h.tokens for h in hs])
         assert {k: v.data_ptr() for k, v in
                 flatten_tree(sess._kv.pools).items()} == addrs
-        sess.close()
     assert out[0] == out[1]
     assert sess.stats["parks"] > 1 and sess.stats["resumes"] > 1
     assert sess._kv.stats["prefix_hits"] > 0
@@ -613,3 +613,5 @@ def test_paged_session_on_stub_graphs_gives_the_eager_tokens():
     assert {"decode_paged", "partial_prefill"} <= kinds
     assert stub.captures == len(sess.graphs._graphs)
     assert sess.graphs.stats["replays"] > 0
+    for s in sessions:       # close() drops the graphs and the pools
+        s.close()
