@@ -50,8 +50,10 @@ Phases (each fails the run on its own; nothing is caught and ignored):
 7. deploy serve — full width cut to 1 layer: a deepcabac-rd container
              (every float leaf of rank >= 2, embed and head included)
              encoded from the card, served through
-             ``ServeEngine.from_compressed`` on the q8 and container
-             backends; tokens must equal a session on the in-memory tree
+             ``ServeEngine.from_compressed`` on the q8 backend (the
+             container backend's load of it was cut for time: 8 serves a
+             full-width container on that backend); tokens must equal a
+             session on the in-memory tree
              with the same policy applied, launch counts must match the
              path, the dispatch report must be empty;
 8. MoE serve — once the llama3-8b tensors are freed, deepseek-moe-16b at
@@ -117,9 +119,10 @@ Phases (each fails the run on its own; nothing is caught and ignored):
              and served as in 6; launches as predicted, no flash launch,
              only the d != dv (192 != 128) records; one full-width MLA
              block in f32, card against CPU;
-18. embeds_full — musicgen-medium (48 layers, the D = 64 flash instance)
-             and qwen2-vl-7b (28 layers, M-RoPE over a patch grid and
-             text) at full depth on q8: ``prefill(embeds=...)`` of 4 x 128
+18. embeds_full — musicgen-medium (12 of 48 layers, the D = 64 flash
+             instance) and qwen2-vl-7b (7 of 28 layers, M-RoPE over a
+             patch grid and text) at their published widths on q8
+             (EMBEDS_FULL_LAYERS): ``prefill(embeds=...)`` of 4 x 128
              and 31 decode steps fed back through a stub frontend table;
              then each at 2 layers in f32, card tokens equal to the CPU's;
 19. tune (after 17) — the autotuner (``kernels.autotune``) on the card,
@@ -145,11 +148,12 @@ Phases (each fails the run on its own; nothing is caught and ignored):
              identical on both and from graphs and eagerly on the card,
              close prefill logits, equal q8 levels; reports hold exactly
              the reference's loop-dequant records (LOOP_DEQUANT);
-23. serve_ssm, serve_hybrid (after 16) — mamba2-2.7b (64 layers) and
-             zamba2-2.7b (54 layers, its shared block through the D = 80
-             flash instance) at published widths and full depth, served as
-             in 6, with the decode step's byte bound (weights as stored,
-             the f32 state read and written, tails and attention cache);
+23. serve_ssm, serve_hybrid (after 16) — mamba2-2.7b (16 of 64 layers)
+             and zamba2-2.7b (18 of 54 layers: 3 groups, its shared block
+             through the D = 80 flash instance) at published widths
+             (SSM_SERVE_LAYERS), served as in 6, with the decode step's
+             byte bound (weights as stored, the f32 state read and
+             written, tails and attention cache);
 24. serve_hybrid_f32 — zamba2-2.7b at its published widths in f32, one
              group deep (6 mixers and the shared block: the D = 80 f32
              flash instance), on q8 eagerly and from graphs; tokens equal
@@ -186,11 +190,31 @@ Phases (each fails the run on its own; nothing is caught and ignored):
              as counted, an empty report; ingest, admission and eviction
              figures, decode ms/step.
 
+29. train (after 12) — training at llama3-8b's published widths, 2 of
+             32 layers, 8-bit AdamW moments and EF, batches of 8 x 128:
+             (a) ``train_loop`` straight for 12 steps (ms/step, tokens/s,
+             peak memory; no kernel under grad, an empty report); (b) the
+             same with raw async checkpoints every 4 steps, SIGTERM in
+             step 6 (the loop ends with a final save) and a resumed loop
+             to 12: losses and the final state equal (a)'s bit for bit
+             (deterministic algorithms on); (c) ``make_prefill_step`` and
+             8 greedy ``make_decode_step``s on the trained params: the
+             tokens of ``ServeEngine.generate``, flash launched once a
+             layer, an empty report; the profiler's split of a step
+             (forward+backward, EF, AdamW) and its idle share beside the
+             step's bound; (d) ``python -m repro_torch.launch.train
+             --smoke --steps 20 --compress-grads --ckpt-dir ...``: the loss
+             falls and the DeepCABAC checkpoint restores; the smoke
+             llama3-8b and deepseek-moe-16b steps card against CPU.  Its
+             directories under ``build/train/`` (up to 3 x 12 GB) are
+             removed.
+
 Every phase but 20 runs under the default kernel policy with an empty
 tuning cache (``REPRO_TORCH_KERNEL_TUNE_CACHE`` points at a fresh file
 under ``build/``), so a stale cache on the machine changes nothing.
 13 runs at 1 layer (RD_SWEEP_LAYERS) and one delta (RD_SWEEP_DELTAS), 14
-and 28 at 1 (DELTA_SWAP_LAYERS) and 16 at 12 (SERVE_DENSE_LAYERS), so that
+and 28 at 1 (DELTA_SWAP_LAYERS), 16 at 12 (SERVE_DENSE_LAYERS), 18 at 12
+and 7 (EMBEDS_FULL_LAYERS) and 23 at 16 and 18 (SSM_SERVE_LAYERS), so that
 the rest fit the time limit.
 
 The line before the last is the card's name and power limit; one line
@@ -292,6 +316,9 @@ MLA_PAGED_LENS = (120, 122, 124, 126)
 MLA_PAGED_NEW = 16
 EMBED_TABLE_ROWS = 4096
 EMBED_F32_LAYERS = 2
+# embeds_full's bf16 depth, cut for time from 48 and 28 layers (a quarter:
+# their layers repeat one shape class each)
+EMBEDS_FULL_LAYERS = {"musicgen-medium": 12, "qwen2-vl-7b": 7}
 EMBED_F32_NEW_TOKENS = 12
 # flash attention's (H, G) and D at full width: llama3-8b, deepseek-moe-16b
 # (D = 128), musicgen-medium (D = 64)
@@ -344,6 +371,24 @@ TOL_MOE_F32_LOGITS = 1e-4
 FIM_BATCHES, FIM_BATCH, FIM_SEQ = 2, 2, 16
 VD_STEPS = 4
 VD_BYTES_PER_PARAM = 44
+# the training phase: llama3-8b at its published widths cut to 2 of its 32
+# layers (1.487 G parameters), LoopConfig's default batch, 8-bit moments and
+# EF; a straight loop, a preempted one (SIGTERM while step TRAIN_SIGTERM_AT
+# + 1 runs) resumed from its raw async checkpoints, prefill + decode steps,
+# the launcher at smoke size (its loss must fall over TRAIN_CLI_STEPS), and
+# the smoke models' steps card against CPU (f32: losses rel TOL_TRAIN_LOSS;
+# params within TOL_TRAIN_PARAM of max|p| but for TRAIN_PART_SHARE of a
+# leaf, codes within TRAIN_CODE_TOL: a code on a rounding boundary rounds
+# either way after last-bit differences in the gradients)
+TRAIN_LAYERS, TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 2, 12, 8, 128
+TRAIN_CKPT_EVERY = 4
+TRAIN_SIGTERM_AT = 5
+TRAIN_PROMPTS, TRAIN_DECODE = 4, 8
+TRAIN_CLI_STEPS = 20
+TRAIN_SMOKE_STEPS = 3
+TOL_TRAIN_LOSS = 1e-5
+TOL_TRAIN_PARAM, TRAIN_PART_SHARE, TRAIN_CODE_TOL = 1e-3, 0.005, 2
+TRAIN_DIR = ROOT / "build" / "train"
 # rd_sweep: benchmarks/rd_sweep_bench.py's --fast grid, min_ndim=3 (the
 # stacked layer matrices: embed and head stay raw)
 RD_SWEEP_LAYERS = 1          # the sweep's depth (its launches of rd_quant
@@ -400,14 +445,18 @@ ZOO_MEM_TOL = 0.02
 # P-frame (from base it would decode two), and v2 steps alone at its end
 ZOO_V1_SECOND_TOKENS = SWAP_LATE_TOKENS + 4
 # the SSM and hybrid families: their smoke models run card against CPU (f32
-# and bf16, q8), mamba2-2.7b (64 layers) and zamba2-2.7b (54 layers) serve
-# at published widths and full depth; zamba2-2.7b also in f32 at one group
+# and bf16, q8), mamba2-2.7b and zamba2-2.7b serve at published widths
+# (SSM_SERVE_LAYERS deep); zamba2-2.7b also in f32 at one group
 # of its layers (HYBRID_F32_LAYERS: 6 mixers and the shared block, the
 # D = 80 f32 flash instance on a served path), card against CPU.  Under q8
 # the reference dequantizes the mixer tensors in its loop (no fused
 # consumer), and records each once: LOOP_DEQUANT, the names the reference
 # records (tests/test_torch_ssm.py holds this list to it on the CPU)
 SSM_ARCHS = ("mamba2-2.7b", "zamba2-2.7b")
+# their full-width serves' depth, cut for time from 64 and 54 layers (no
+# kernel shape class past zamba2's first group of 6 mixers and its shared
+# block; three groups keep the shared block's reuse across groups)
+SSM_SERVE_LAYERS = {"mamba2-2.7b": 16, "zamba2-2.7b": 18}
 LOOP_DEQUANT = ("w_z", "w_x", "w_b", "w_c", "w_dt", "conv_x_w", "conv_b_w",
                 "conv_c_w", "out_proj")
 SSM_PROMPT_LENS = (16, 16, 1, 9, 5, 16)     # a 1-token prompt among them
@@ -1564,9 +1613,11 @@ def phase_deploy_rd(params, policy):
 
 def phase_deploy_serve(device):
     """Full width cut to DEPLOY_SERVE_LAYERS layers: deepcabac-rd container
-    from the card, served from the blob on q8 and container, against
-    sessions on the in-memory tree with the same policy applied.  The
-    host CABAC decode rate is the q8 load's own record decodes."""
+    from the card, served from the blob on q8, against a session on the
+    in-memory tree with the same policy applied.  The host CABAC decode
+    rate is the q8 load's own record decodes.  (Its load on the container
+    backend, another host decode of the blob, was cut for time;
+    ``phase_container_moe`` serves a full-width container there.)"""
     import numpy as np
     import torch
     from repro_torch import compression, configs
@@ -1623,62 +1674,54 @@ def phase_deploy_serve(device):
            "encode_values_per_s": n_coded / enc_s, "blob_bytes": len(blob),
            "bits_per_param": bpp,
            "policy_steps": {k: r["step"] for k, r in policy["rules"].items()}}
-    for backend, tree_backend in (("q8", "q8"), ("container", "bf16")):
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    clock = _PartClock()
+    clock.wrap(core_codec, "decode_record", "decode")
+    t0 = time.perf_counter()
+    try:
+        eng = ServeEngine.from_compressed(cfg, blob, max_len=160,
+                                          backend="q8", device=device)
         torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        clock = _PartClock()
-        if backend == "q8":
-            clock.wrap(core_codec, "decode_record", "decode")
-        t0 = time.perf_counter()
-        try:
-            eng = ServeEngine.from_compressed(cfg, blob, max_len=160,
-                                              backend=backend, device=device)
-            torch.cuda.synchronize()
-        finally:
-            clock.restore()
-        load_s = time.perf_counter() - t0
-        if backend == "q8":
-            dec_s = clock.secs["decode"]
-            out.update(decode_s=dec_s, decode_values_per_s=n_coded / dec_s)
-            log(f"[deploy] host CABAC decode {dec_s:.1f} s ("
-                f"{n_coded / dec_s / 1e6:.1f} M values/s) of the q8 load's "
-                f"records")
-        clear_reports()
-        registry.reset_launch_counts()
-        t0 = time.perf_counter()
-        toks = eng.generate(prompts, new_tokens)
-        torch.cuda.synchronize()
-        gen_s = time.perf_counter() - t0
-        counts = registry.launch_counts()
-        report = registry.dispatch_report()
-        peak = torch.cuda.max_memory_allocated()
-        fwd = 1 + eng._session(len(prompts)).stats["decode_steps"]
-        ref = ServeEngine(cfg, tree_pol, max_len=160, backend=tree_backend,
-                          device=device).generate(prompts, new_tokens)
-        check(np.array_equal(toks, ref), f"deploy {backend}: greedy tokens "
-              f"from the container differ from the policy-applied tree's")
-        check(not report, f"deploy {backend}: dispatch report not empty: "
-              f"{report}")
-        check(counts["flash_attention"] == cfg.num_layers,
-              f"deploy {backend}: {counts['flash_attention']} flash "
-              f"launches, want {cfg.num_layers} (one prefill)")
-        if backend == "q8":
-            check(counts["dequant_matmul"] == per_fwd * fwd,
-                  f"deploy q8: {counts['dequant_matmul']} dequant_matmul "
-                  f"launches, want {per_fwd} x {fwd} passes")
-        out[backend] = {"load_s": load_s, "generate_s": gen_s,
-                        "forward_passes": fwd, "launches": counts,
-                        "dispatch_report": report,
-                        "max_memory_allocated": peak,
-                        "tokens_equal_policy_tree": True,
-                        "first_row_tail": toks[0, -8:].tolist()}
-        log(f"[deploy] {backend}: load {load_s:.1f} s (decode + transfer), "
-            f"4 x 128 + 32 greedy in {gen_s:.2f} s, tokens equal the "
-            f"policy-applied tree's, launches {counts}, peak "
-            f"{peak / 2**30:.2f} GiB")
-        del eng
-        gc.collect()
-        torch.cuda.empty_cache()
+    finally:
+        clock.restore()
+    load_s = time.perf_counter() - t0
+    dec_s = clock.secs["decode"]
+    out.update(decode_s=dec_s, decode_values_per_s=n_coded / dec_s)
+    log(f"[deploy] host CABAC decode {dec_s:.1f} s ("
+        f"{n_coded / dec_s / 1e6:.1f} M values/s) of the q8 load's "
+        f"records")
+    clear_reports()
+    registry.reset_launch_counts()
+    t0 = time.perf_counter()
+    toks = eng.generate(prompts, new_tokens)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    counts = registry.launch_counts()
+    report = registry.dispatch_report()
+    peak = torch.cuda.max_memory_allocated()
+    fwd = 1 + eng._session(len(prompts)).stats["decode_steps"]
+    ref = ServeEngine(cfg, tree_pol, max_len=160, backend="q8",
+                      device=device).generate(prompts, new_tokens)
+    check(np.array_equal(toks, ref), "deploy q8: greedy tokens from the "
+          "container differ from the policy-applied tree's")
+    check(not report, f"deploy q8: dispatch report not empty: {report}")
+    check(counts["flash_attention"] == cfg.num_layers,
+          f"deploy q8: {counts['flash_attention']} flash launches, want "
+          f"{cfg.num_layers} (one prefill)")
+    check(counts["dequant_matmul"] == per_fwd * fwd,
+          f"deploy q8: {counts['dequant_matmul']} dequant_matmul "
+          f"launches, want {per_fwd} x {fwd} passes")
+    out["q8"] = {"load_s": load_s, "generate_s": gen_s,
+                 "forward_passes": fwd, "launches": counts,
+                 "dispatch_report": report, "max_memory_allocated": peak,
+                 "tokens_equal_policy_tree": True,
+                 "first_row_tail": toks[0, -8:].tolist()}
+    log(f"[deploy] q8: load {load_s:.1f} s (decode + transfer), "
+        f"4 x 128 + 32 greedy in {gen_s:.2f} s, tokens equal the "
+        f"policy-applied tree's, launches {counts}, peak "
+        f"{peak / 2**30:.2f} GiB")
+    del eng
     del tree_pol
     gc.collect()
     torch.cuda.empty_cache()
@@ -1754,7 +1797,10 @@ def phase_delta_swap(device):
     serves 4 x 128 prompt tokens, and each P-frame is swapped in with the
     four requests in flight.  After each swap the resident leaves must
     equal, bit for bit, those of a q8 tree built from the host chain
-    decode (``restore_levels``), every coded tensor must have changed
+    decode (each P-frame applied on the host to the previous frame's
+    levels, from the keyframe's as its cold start decoded them; the
+    keyframe's second decode was cut for time), every coded tensor must
+    have changed
     levels, and the decode graph must not be captured again; a request
     admitted after the last swap must give that cold session's prefill
     logits bit for bit and its greedy tokens; the path's kernel launches
@@ -1864,6 +1910,9 @@ def phase_delta_swap(device):
         torch.cuda.synchronize()
         out["cold_start_s"] = time.perf_counter() - t0
         digests = {SWAP_STEPS[0]: _tree_digests(sess.params)}
+        # the keyframe's coded levels as the cold start decoded them on the
+        # host: the host chain decode of each P-frame starts from them
+        key_levels = dict(backend._levels)
         out["intra_decode_values_per_s"] = \
             n_coded / clock.secs["intra_decode"]
         rng = np.random.default_rng(0)
@@ -1900,12 +1949,14 @@ def phase_delta_swap(device):
                                            backend._levels[n].levels)]
             check(not unchanged, f"delta_swap: step {step} changed no level "
                   f"of {unchanged}")
-            # the host chain decode of this step: the whole chain for the
-            # first P-frame, then the next link on top of it
+            # the host chain decode of this step: its P-frame on top of
+            # the previous frame's levels (the keyframe's from the cold
+            # start's decode; its raw leaves are full records in every
+            # P-frame)
             t0 = time.perf_counter()
-            ents = (delta.restore_levels(str(root), step) if k == 0 else
-                    delta._apply_delta_file(
-                        ents, str(root / f"step_{step:08d}"), None, step))
+            ents = delta._apply_delta_file(
+                dict(key_levels) if k == 0 else ents,
+                str(root / f"step_{step:08d}"), None, step)
             chain_s = time.perf_counter() - t0
             cold_tree = get_backend("q8").load_entries(cfg, ents,
                                                        device=device)
@@ -3402,9 +3453,9 @@ def phase_pins(device):
 
 
 def phase_embeds_full(device, cpu="cpu"):
-    """The embeddings models at their published widths and full depth,
-    bf16 on q8: musicgen-medium (48 layers, layernorm, gelu, head dim 64:
-    the D = 64 flash instance) and qwen2-vl-7b (28 layers, M-RoPE with a
+    """The embeddings models at their published widths, cut in depth
+    (EMBEDS_FULL_LAYERS), bf16 on q8: musicgen-medium (layernorm, gelu,
+    head dim 64: the D = 64 flash instance) and qwen2-vl-7b (M-RoPE with a
     patch grid and text positions, rep-7 GQA): ``prefill(embeds=...)`` of
     4 x 128, then 31 decode steps (32 tokens) fed back through the stub
     table, eagerly; launches as predicted, an empty report.  Then each at
@@ -3419,7 +3470,7 @@ def phase_embeds_full(device, cpu="cpu"):
 
     res = {}
     for arch in ("musicgen-medium", "qwen2-vl-7b"):
-        cfg = configs.get(arch)
+        cfg = configs.get(arch).replace(num_layers=EMBEDS_FULL_LAYERS[arch])
         tree = init_q8_leafwise(cfg, device)
         emb, p3, table = embed_inputs(cfg, 4, 128, 8, device)
         torch.cuda.reset_peak_memory_stats()
@@ -3654,6 +3705,500 @@ def phase_variational(device):
             "ms_per_step": 1e3 * secs / VD_STEPS, "peak_bytes": peak,
             "peak_bytes_per_param": peak / n, "card_bytes": total,
             "pruned_share": pruned, "sigma_median": s_med}
+
+
+# ---------------------------------------------------------------------------
+# training (train/steps.py, train/loop.py, launch/train.py)
+# ---------------------------------------------------------------------------
+
+def _timed_manager(log: dict):
+    """A ``CheckpointManager`` subclass for the loop module that records
+    each save's seconds from its call to the end of its write (async
+    saves included), of the write alone (``state.npz`` encoded into its
+    file, the params container, fsyncs, rename) and its bytes on disk,
+    the seconds each ``save`` call held the loop, and each restore's
+    seconds, into ``log``."""
+    from repro_torch.checkpoint.manager import CheckpointManager
+    starts: dict = {}
+    log.update(saves=[], held_s=[], restores=[])
+
+    class Timed(CheckpointManager):
+        def save(self, state, step, **kw):
+            t0 = time.perf_counter()
+            starts.setdefault(step, []).append(t0)
+            super().save(state, step, **kw)
+            log["held_s"].append(time.perf_counter() - t0)
+
+        def _write(self, payloads, meta, step):
+            t0 = time.perf_counter()
+            super()._write(payloads, meta, step)
+            t1 = time.perf_counter()
+            d = Path(self.cfg.directory) / f"step_{step:08d}"
+            log["saves"].append({
+                "step": step, "seconds": t1 - starts[step].pop(0),
+                "write_s": t1 - t0,
+                "bytes": sum(f.stat().st_size for f in d.iterdir())})
+
+        def restore(self, *args, **kw):
+            t0 = time.perf_counter()
+            out = super().restore(*args, **kw)
+            log["restores"].append(time.perf_counter() - t0)
+            return out
+
+    return Timed
+
+
+def _state_mismatches(got: dict, want: dict) -> list:
+    """Flat names whose tensors (or scalars) differ in any bit (floats
+    compared as their bit patterns, so a NaN equals itself)."""
+    import torch
+    from repro_torch.compression.tree import flatten_tree
+    as_int = {torch.bfloat16: torch.int16, torch.float32: torch.int32}
+    g, w = flatten_tree(got), flatten_tree(want)
+    bad = sorted(set(g) ^ set(w))
+    for k in sorted(set(g) & set(w)):
+        a, b = g[k], w[k]
+        if isinstance(a, torch.Tensor):
+            same = (a.dtype == b.dtype and a.shape == b.shape and
+                    torch.equal(a.view(as_int.get(a.dtype, a.dtype)),
+                                b.to(a.device).view(as_int.get(b.dtype,
+                                                               b.dtype))))
+        else:
+            same = int(a) == int(b)
+        if not same:
+            bad.append(k)
+    return bad
+
+
+def train_step_bound(cfg, batch, seq) -> dict:
+    """The train step's least time on the card: the matmul FLOPs of
+    forward and backward (6 x the matmul parameters x the tokens, plus
+    the attention products, 12 B S^2 d a layer) at the bf16 tensor-core
+    peak, but the untied head's at the f32 peak (``_head_logits``
+    multiplies in f32, as the reference does), then the bytes the step
+    must move (params, moments and their scales, error feedback: each
+    read once and written once) at the HBM rate.  The parts add: the
+    optimizer's pass needs every gradient.  ``all_bf16_ms`` counts the
+    head at the bf16 rate too."""
+    from repro_torch.compression.q8 import q8_scale_shape
+    from repro_torch.models.transformer import param_specs
+    specs = param_specs(cfg)
+    n = sum(math.prod(s) for s, _ in specs.values())
+    n_mm = sum(math.prod(s) for k, (s, _) in specs.items()
+               if len(s) >= 2 and k != "embed")
+    n_head = math.prod(specs["head"][0])
+    tokens = batch * seq
+    flops = 6 * n_mm * tokens + 12 * batch * seq * seq * cfg.d_model \
+        * cfg.num_layers
+    head_flops = 6 * n_head * tokens
+    pbytes = 2 if cfg.param_dtype == "bfloat16" else 4
+    scales = sum(4 * math.prod(q8_scale_shape(tuple(s)))
+                 for s, _ in specs.values())
+    moved = 2 * (n * (pbytes + 2 + 4) + 2 * scales)
+    flops_ms = 1e3 * ((flops - head_flops) / BF16_FLOPS
+                      + head_flops / F32_FLOPS)
+    bytes_ms = 1e3 * moved / HBM_BYTES_PER_S
+    return {"params": n, "matmul_params": n_mm, "tokens": tokens,
+            "flops": flops, "head_f32_flops": head_flops, "bytes": moved,
+            "bytes_per_param": moved / n, "flops_ms": flops_ms,
+            "bytes_ms": bytes_ms, "bound_ms": flops_ms + bytes_ms,
+            "all_bf16_ms": 1e3 * flops / BF16_FLOPS + bytes_ms}
+
+
+def _train_split(cfg, state, step_fn, first_step):
+    """Two steps of ``state`` under ``torch.profiler`` (CPU and CUDA
+    activity; a warm-up step first): device busy ms a step, the idle
+    share of the traced wall time, and the split of the busy time into
+    EF and AdamW (the kernels launched inside ``step_fn``'s
+    ``train_step/ef`` and ``train_step/adamw`` ranges) and the rest
+    (forward and backward)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    from repro_torch.data.pipeline import make_batch
+    steps_traced = 2
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                   schedule=schedule(wait=0, warmup=1, active=steps_traced,
+                                     repeat=1))
+    wall = 0.0
+    with prof:
+        for i in range(1 + steps_traced):
+            batch = make_batch(cfg, first_step + i, batch=TRAIN_BATCH,
+                               seq=TRAIN_SEQ, seed=0)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            new, metrics = step_fn(state, batch)
+            state.update(new)
+            float(metrics["loss"])
+            torch.cuda.synchronize()
+            if i:
+                wall += time.perf_counter() - t0
+            prof.step()
+    events = prof.key_averages()
+    busy, top = _device_time(events)
+    if busy is None:
+        return {"busy_ms_per_step": None, "note": "the profiler saw no "
+                "device time", "wall_ms_per_step": 1e3 * wall / steps_traced}
+    ranges = {e.key: e.device_time_total / 1e3 for e in events
+              if e.key in ("train_step/ef", "train_step/adamw") and
+              not str(e.device_type).endswith("CUDA")}
+    ef = ranges.get("train_step/ef")
+    adam = ranges.get("train_step/adamw")
+    split = None
+    if ef and adam:
+        split = {"fwd_bwd_ms": (busy - ef - adam) / steps_traced,
+                 "ef_ms": ef / steps_traced,
+                 "adamw_ms": adam / steps_traced}
+    return {"busy_ms_per_step": busy / steps_traced,
+            "wall_ms_per_step": 1e3 * wall / steps_traced,
+            "idle_share": 1.0 - busy / (1e3 * wall),
+            "split": split,
+            "top_device_ms_per_step": {k: v / steps_traced for k, v in top}}
+
+
+def _smoke_steps(device, cpu="cpu"):
+    """TRAIN_SMOKE_STEPS steps of the llama3-8b and deepseek-moe-16b smoke
+    models in f32 with 8-bit moments and error feedback, on the card and
+    on the CPU from the same weights and batches: losses within
+    TOL_TRAIN_LOSS; parameters within TOL_TRAIN_PARAM of each leaf's
+    max|p| but for TRAIN_PART_SHARE of a leaf's weights, and moment codes
+    within TRAIN_CODE_TOL (a code on a rounding boundary rounds either
+    way after last-bit differences in the gradients, as in
+    ``tests/test_torch_train.py``)."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.compression.tree import flatten_tree, unflatten
+    from repro_torch.data.pipeline import make_batch
+    from repro_torch.distributed.compress import CompressionConfig
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.steps import init_train_state, make_train_step
+
+    out = {}
+    opt = AdamWConfig(lr=1e-2, quantized_moments=True)
+    comp = CompressionConfig(enabled=True)
+    for arch in ("llama3-8b", "deepseek-moe-16b"):
+        cfg = configs.get(arch, smoke=True)
+        states = {d: init_train_state(cfg, opt, comp, device=d)
+                  for d in (cpu, device)}
+        states[device]["params"] = unflatten(
+            {k: v.to(device) for k, v in
+             flatten_tree(states[cpu]["params"]).items()})
+        _, make = make_train_step(cfg, None, opt, comp, total_steps=12,
+                                  warmup=2)
+        fn = make(None, None)
+        losses = {d: [] for d in states}
+        for i in range(TRAIN_SMOKE_STEPS):
+            batch = make_batch(cfg, i, batch=2, seq=16, seed=0)
+            for d, st in states.items():
+                losses[d].append(float(fn(st, batch)[1]["loss"]))
+        rel = max(abs(a - b) / abs(b) for a, b in
+                  zip(losses[device], losses[cpu]))
+        check(rel <= TOL_TRAIN_LOSS, f"train {arch} smoke: card losses "
+              f"{losses[device]} vs CPU {losses[cpu]} (rel {rel:.2e})")
+        got, want = (flatten_tree(states[d]) for d in (device, cpu))
+        worst_share, worst_code = 0.0, 0
+        for k, w in want.items():
+            if not isinstance(w, torch.Tensor):
+                check(int(got[k]) == int(w), f"train {arch}: {k}")
+                continue
+            g = got[k].cpu()
+            if k.startswith("params/"):
+                far = (g - w).abs() > TOL_TRAIN_PARAM * w.abs().max()
+                worst_share = max(worst_share, float(far.float().mean()))
+            elif w.dtype == torch.int8:
+                worst_code = max(worst_code, int(
+                    (g.to(torch.int16) - w.to(torch.int16)).abs().max()))
+        check(worst_share <= TRAIN_PART_SHARE and
+              worst_code <= TRAIN_CODE_TOL, f"train {arch} smoke: card vs "
+              f"CPU parameters part in {worst_share:.4f} of a leaf (> "
+              f"{TRAIN_PART_SHARE}) or codes by {worst_code} (> "
+              f"{TRAIN_CODE_TOL})")
+        out[arch] = {"losses_card": losses[device],
+                     "losses_cpu": losses[cpu], "loss_rel": rel,
+                     "param_part_share": worst_share,
+                     "code_max_diff": worst_code}
+    return out
+
+
+def phase_train(device):
+    """The training path on the card: llama3-8b at its published widths
+    cut to TRAIN_LAYERS layers, 8-bit AdamW moments and error-feedback
+    gradient compression, batches of TRAIN_BATCH x TRAIN_SEQ.  (a) a
+    straight ``train_loop`` of TRAIN_STEPS steps; (b) the same with raw
+    async checkpoints every TRAIN_CKPT_EVERY steps under ``build/``,
+    SIGTERM sent while step TRAIN_SIGTERM_AT + 1 runs (the loop ends
+    after it with a final save), then a resumed loop to the end: its
+    losses and final state equal (a)'s bit for bit (under
+    ``torch.use_deterministic_algorithms``); (c) ``make_prefill_step`` and
+    TRAIN_DECODE greedy ``make_decode_step``s on the trained params: the
+    tokens of ``ServeEngine.generate`` (bf16), flash_attention launched
+    once a layer, an empty report; the profiler's split of a step;
+    (d) the documented launcher on the smoke model, whose loss falls and
+    whose DeepCABAC checkpoint restores; the smoke models' steps card
+    against CPU.  Every directory it writes is removed."""
+    import os
+    import shutil
+    import signal
+    from unittest import mock
+
+    import numpy as np
+    import torch
+    from repro_torch import configs
+    from repro_torch.checkpoint.manager import (CheckpointConfig,
+                                                CheckpointManager)
+    from repro_torch.data.pipeline import make_batch
+    from repro_torch.distributed.compress import CompressionConfig
+    from repro_torch.kernels import registry
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.train import loop as loop_mod
+    from repro_torch.train.steps import (init_train_state, make_decode_step,
+                                         make_prefill_step, make_train_step)
+
+    cfg = configs.get("llama3-8b").replace(num_layers=TRAIN_LAYERS)
+    opt = AdamWConfig(quantized_moments=True)
+    comp = CompressionConfig(enabled=True)
+    loop = loop_mod.LoopConfig(total_steps=TRAIN_STEPS, batch=TRAIN_BATCH,
+                               seq=TRAIN_SEQ, ckpt_every=TRAIN_CKPT_EVERY)
+    bound = train_step_bound(cfg, TRAIN_BATCH, TRAIN_SEQ)
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    out: dict = {"layers": TRAIN_LAYERS, "steps": TRAIN_STEPS,
+                 "batch": [TRAIN_BATCH, TRAIN_SEQ], "bound": bound}
+    prev_env = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    torch.use_deterministic_algorithms(True)
+    try:
+        # (a) straight
+        captured = {}
+        init = loop_mod.init_train_state
+
+        def capture(*args, **kw):
+            captured["state"] = init(*args, **kw)
+            return captured["state"]
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        clear_reports()
+        registry.reset_launch_counts()
+        t0 = time.perf_counter()
+        with mock.patch.object(loop_mod, "init_train_state", capture):
+            res_a = loop_mod.train_loop(cfg, None, loop, opt, comp,
+                                        device=device)
+        torch.cuda.synchronize()
+        secs_a = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        launches = registry.launch_counts()
+        report = registry.dispatch_report()
+        check(not report, f"train (a): dispatch report not empty: {report}")
+        check(not any(launches.values()), f"train (a): kernels launched "
+              f"under grad (attention takes the scan): {launches}")
+        check(res_a.final_step == TRAIN_STEPS and
+              all(math.isfinite(x) for x in res_a.losses),
+              f"train (a): {res_a.final_step} steps, losses {res_a.losses}")
+        state_a = captured["state"]
+        step_ms = sorted(1e3 * t for t in res_a.step_times[2:])
+        ms = step_ms[len(step_ms) // 2]
+        out["a"] = {"losses": res_a.losses, "seconds": secs_a,
+                    "step_ms": [1e3 * t for t in res_a.step_times],
+                    "ms_per_step": ms, "tokens_per_s":
+                        1e3 * TRAIN_BATCH * TRAIN_SEQ / ms,
+                    "peak_bytes": peak,
+                    "peak_bytes_per_param": peak / bound["params"],
+                    "stragglers": res_a.straggler_steps}
+        log(f"[train] (a) llama3-8b full width, {TRAIN_LAYERS} layers "
+            f"({bound['params'] / 1e9:.3f} G params, {cfg.param_dtype}), "
+            f"8-bit moments "
+            f"+ EF, {TRAIN_STEPS} steps of {TRAIN_BATCH} x {TRAIN_SEQ}: "
+            f"losses {res_a.losses[0]:.4f} -> {res_a.losses[-1]:.4f}, "
+            f"{ms:.2f} ms/step (median after 2; bound "
+            f"{bound['bound_ms']:.2f} = {bound['flops_ms']:.2f} FLOPs + "
+            f"{bound['bytes_ms']:.2f} bytes; {bound['all_bf16_ms']:.2f} "
+            f"with the f32 head at the bf16 rate), "
+            f"{out['a']['tokens_per_s']:.0f} tokens/s, peak "
+            f"{peak / 2**30:.2f} GiB ({peak / bound['params']:.2f} "
+            f"B/param), no kernel launched, empty report")
+
+        # (b) preempted at step TRAIN_SIGTERM_AT, then resumed
+        ck = CheckpointConfig(str(TRAIN_DIR / "b"), params_mode="raw",
+                              async_save=True, keep=2)
+        timing: dict = {}
+
+        def hooked(cfg_, step, **kw):
+            if step == TRAIN_SIGTERM_AT:
+                os.kill(os.getpid(), signal.SIGTERM)
+            return make_batch(cfg_, step, **kw)
+        make_step = loop_mod.make_train_step
+
+        def capture_step(*args, **kw):
+            # the state the loop trains (the resumed run's: restored from
+            # its checkpoint), updated in place by the step
+            step_fn_, jitted = make_step(*args, **kw)
+
+            def jitted_capture(state, probe):
+                captured["state"] = state
+                return jitted(state, probe)
+            return step_fn_, jitted_capture
+        t0 = time.perf_counter()
+        with mock.patch.object(loop_mod, "CheckpointManager",
+                               _timed_manager(timing)):
+            with mock.patch.object(loop_mod, "make_batch", hooked):
+                cut = loop_mod.train_loop(cfg, None, loop, opt, comp, ck,
+                                          device=device)
+            cut_s = time.perf_counter() - t0
+            steps_on_disk = CheckpointManager(ck).steps()
+            check(cut.final_step == TRAIN_SIGTERM_AT + 1 and
+                  steps_on_disk[-1] == TRAIN_SIGTERM_AT + 1,
+                  f"train (b): SIGTERM in step {TRAIN_SIGTERM_AT + 1} "
+                  f"ended at {cut.final_step}, on disk {steps_on_disk}")
+            t0 = time.perf_counter()
+            with mock.patch.object(loop_mod, "make_train_step",
+                                   capture_step):
+                resumed = loop_mod.train_loop(cfg, None, loop, opt, comp,
+                                              ck, device=device)
+            resumed_s = time.perf_counter() - t0
+        steps_on_disk = CheckpointManager(ck).steps()
+        check(cut.losses == res_a.losses[:len(cut.losses)] and
+              resumed.losses == res_a.losses[len(cut.losses):],
+              f"train (b): losses {cut.losses} + {resumed.losses} are not "
+              f"the straight run's {res_a.losses} bit for bit")
+        check(steps_on_disk[-1] == TRAIN_STEPS and
+              len(timing["restores"]) == 1, f"train (b): on disk "
+              f"{steps_on_disk}, {len(timing['restores'])} restores")
+        bad = _state_mismatches(captured.pop("state"), state_a)
+        check(not bad, f"train (b): the resumed run's final state differs "
+              f"from the straight run's in {bad}")
+        out["b"] = {"cut_losses": cut.losses,
+                    "resumed_losses": resumed.losses, "cut_s": cut_s,
+                    "resumed_s": resumed_s, "saves": timing["saves"],
+                    "held_s": timing["held_s"],
+                    "restores_s": timing["restores"],
+                    "steps_on_disk": steps_on_disk}
+        sv = timing["saves"]
+        log(f"[train] (b) SIGTERM in step {TRAIN_SIGTERM_AT + 1}: the loop "
+            f"ended at {cut.final_step} with a final save; resumed from "
+            f"{cut.final_step} to {resumed.final_step}: losses and the "
+            f"final params, 8-bit moments, EF and counters equal (a)'s bit "
+            f"for bit; saves (raw, async) "
+            + ", ".join(f"step {s['step']} {s['seconds']:.2f} s (write "
+                        f"{s['write_s']:.2f}) {s['bytes'] / 1e9:.2f} GB"
+                        for s in sv)
+            + f"; restores " + ", ".join(
+                f"{t:.2f}" for t in out["b"]["restores_s"]) + " s")
+    finally:
+        torch.use_deterministic_algorithms(False)
+        if prev_env is None:
+            os.environ.pop("CUBLAS_WORKSPACE_CONFIG", None)
+        else:
+            os.environ["CUBLAS_WORKSPACE_CONFIG"] = prev_env
+        shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+
+    # (c) prefill and greedy decode steps on the trained params
+    params = state_a["params"]
+    rng = np.random.default_rng(3)
+    prompts = rng.integers(0, cfg.vocab_size, (TRAIN_PROMPTS, TRAIN_SEQ)) \
+        .astype(np.int32)
+    max_len = TRAIN_SEQ + TRAIN_DECODE + 1
+    prefill = make_prefill_step(cfg, None, max_len=max_len)
+    decode = make_decode_step(cfg, None)
+    clear_reports()
+    registry.reset_launch_counts()
+    toks = torch.from_numpy(prompts).to(device, torch.int64)
+    logits, caches = prefill(params, {"tokens": toks})
+    got = [logits.argmax(-1)]
+    for i in range(TRAIN_DECODE):
+        pos = torch.full((TRAIN_PROMPTS,), TRAIN_SEQ + i, dtype=torch.int32,
+                         device=device)
+        logits, caches = decode(params, caches, {"tokens": got[-1]}, pos)
+        got.append(logits.argmax(-1))
+    torch.cuda.synchronize()
+    launches = registry.launch_counts()
+    report = registry.dispatch_report()
+    got = torch.stack(got, 1).cpu().numpy()
+    del caches, logits
+    check(launches["flash_attention"] == TRAIN_LAYERS and
+          not launches["dequant_matmul"] and not report,
+          f"train (c): launches {launches} (flash_attention "
+          f"{TRAIN_LAYERS} expected), report {report}")
+    engine = ServeEngine(cfg, params, max_len=max_len, backend="bf16",
+                         device=device)
+    want = engine.generate(prompts, TRAIN_DECODE + 1)[:, TRAIN_SEQ:]
+    del engine
+    check(np.array_equal(got, want), f"train (c): make_prefill_step / "
+          f"make_decode_step tokens {got.tolist()} != ServeEngine's "
+          f"{want.tolist()}")
+    out["c"] = {"launches": launches, "tokens": got.tolist()}
+    log(f"[train] (c) make_prefill_step + {TRAIN_DECODE} make_decode_steps "
+        f"on the trained params: {TRAIN_PROMPTS} x {TRAIN_DECODE + 1} greedy "
+        f"tokens equal ServeEngine.generate's (bf16); launches {launches}, "
+        f"empty report")
+
+    # the profiler's split of a step, on (a)'s state
+    _, make = make_train_step(cfg, None, opt, comp, total_steps=TRAIN_STEPS)
+    step_fn = make(None, None)
+    out["trace"] = _train_split(cfg, state_a, lambda s, b: step_fn(s, b),
+                                TRAIN_STEPS)
+    del state_a, params, captured
+    gc.collect()
+    torch.cuda.empty_cache()
+    tr = out["trace"]
+    if tr.get("split"):
+        sp = tr["split"]
+        split_txt = (f"forward+backward {sp['fwd_bwd_ms']:.2f}, EF "
+                     f"{sp['ef_ms']:.2f}, AdamW {sp['adamw_ms']:.2f} ms")
+    else:
+        split_txt = "split not measured (no device time in the ranges)"
+    log(f"[train] traced step: busy {_fmt(tr.get('busy_ms_per_step'))} of "
+        f"{tr['wall_ms_per_step']:.2f} ms (idle "
+        f"{_fmt(tr.get('idle_share'))}); {split_txt}")
+
+    # (d) the documented launcher, smoke size
+    cli_dir = TRAIN_DIR / "cli"
+    shutil.rmtree(cli_dir, ignore_errors=True)
+    try:
+        t0 = time.perf_counter()
+        res = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+             "llama3-8b", "--smoke", "--steps", str(TRAIN_CLI_STEPS),
+             "--ckpt-dir", str(cli_dir), "--compress-grads"],
+            cwd=ROOT, capture_output=True, text=True, timeout=300,
+            env={**os.environ, "PYTHONPATH": str(SRC)})
+        cli_s = time.perf_counter() - t0
+        check(res.returncode == 0, f"train (d): the launcher failed: "
+              f"{res.stderr[-2000:]}")
+        line = res.stdout.strip().splitlines()[-1]
+        vals = dict(kv.split("=") for kv in line.split())
+        check(int(vals["steps"]) == TRAIN_CLI_STEPS and
+              float(vals["last_loss"]) < float(vals["first_loss"]),
+              f"train (d): the launcher's loss did not fall: {line}")
+        smoke = configs.get("llama3-8b", smoke=True)
+        template = init_train_state(smoke, AdamWConfig(lr=1e-3), comp,
+                                    device=device)
+        st, meta = CheckpointManager(CheckpointConfig(str(cli_dir))) \
+            .restore(template, device=device)
+        check(meta["codec"] == "ckpt-nearest" and
+              int(st["step"]) == TRAIN_CLI_STEPS and
+              all(bool(torch.isfinite(p).all()) for p in
+                  _leaves(st["params"])),
+              f"train (d): the launcher's checkpoint restored to step "
+              f"{int(st['step'])} with codec {meta['codec']}")
+    finally:
+        shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    out["d"] = {"line": line, "seconds": cli_s,
+                "ckpt_compressed_bytes": meta["params_compressed_bytes"],
+                "ckpt_raw_bytes": meta["params_raw_bytes"]}
+    log(f"[train] (d) python -m repro_torch.launch.train --smoke --steps "
+        f"{TRAIN_CLI_STEPS} --compress-grads --ckpt-dir ...: {line} "
+        f"({cli_s:.1f} s); its ckpt-nearest step restores "
+        f"({meta['params_compressed_bytes']} of {meta['params_raw_bytes']} "
+        f"bytes)")
+
+    out["smoke"] = _smoke_steps(device)
+    log("[train] smoke steps card vs CPU (f32, 8-bit moments, EF): "
+        + "; ".join(f"{a} losses rel {v['loss_rel']:.2e}, params part in "
+                    f"{v['param_part_share']:.4f}, codes within "
+                    f"{v['code_max_diff']}" for a, v in out["smoke"].items()))
+    out["launches"] = out["c"]["launches"]
+    return out
 
 
 class _PartClock:
@@ -4376,7 +4921,7 @@ def phase_serve_mla_paged(cfg, tree, device):
 def summarize(dm_rows, fa_rows, grouped_rows, serve, serve_moe, rd_rows,
               deploy, serve_moe_f32, sweep, swap, grouped_v3, serve_dense,
               serve_mla, embeds, serve_ssm, serve_hybrid, hybrid_f32,
-              serve_paged, serve_mla_paged, zoo):
+              serve_paged, serve_mla_paged, zoo, train):
     """One entry per kernel and, for flash_attention and
     dequant_matmul_grouped, one per instance (``instance``).
     dequant_matmul: one full-width llama3-8b decode step's 225 calls at 4
@@ -4403,7 +4948,7 @@ def summarize(dm_rows, fa_rows, grouped_rows, serve, serve_moe, rd_rows,
     beside them; rd_quant's calls take milliseconds and are timed
     eagerly.  The other dense variants and MLA (PR 20): the D = 64 flash
     instances at musicgen-medium's prefill (B=4, S=128, H=G=24), launched
-    by ``embeds_full`` (bf16 at 48 layers, f32 at 2), the grouped kernel
+    by ``embeds_full`` (bf16 at 12 layers, f32 at 2), the grouped kernel
     at deepseek-v3-671b's 256 experts (one decode step's 3 calls at M=32,
     launched by ``serve_mla``), and the launches of each serving path of
     qwen3-8b, deepseek-v3-671b, musicgen-medium and qwen2-vl-7b beside
@@ -4415,7 +4960,8 @@ def summarize(dm_rows, fa_rows, grouped_rows, serve, serve_moe, rd_rows,
     serves: dequant_matmul's and flash_attention's launches of each run
     of ``serve_paged`` (llama3-8b, graph run; the eager run's are checked
     equal) and dequant_matmul's and the E = 256 grouped instance's of
-    ``serve_mla_paged``."""
+    ``serve_mla_paged``.  The training phase's prefill step (``train``, 2
+    layers) launches the bf16 flash instance: ``train_launches``."""
     def row(m, k, n, x):
         return next(r for r in dm_rows if (r["arch"], r["m"], r["k"], r["n"],
                                            r["x"]) ==
@@ -4463,6 +5009,7 @@ def summarize(dm_rows, fa_rows, grouped_rows, serve, serve_moe, rd_rows,
     fa["delta_swap_launches"] = swap["launches"]["flash_attention"]
     dm["delta_swap_launches"] = swap["launches"]["dequant_matmul"]
     fa["zoo_launches"] = zoo["launches"]["flash_attention"]
+    fa["train_launches"] = train["launches"]["flash_attention"]
     dm["zoo_launches"] = zoo["launches"]["dequant_matmul"]
     fa32 = fa_entry(16, "float32",
                     serve_moe_f32["launches"]["flash_attention"],
@@ -4652,10 +5199,11 @@ def main() -> int:
     run("serve_dense", phase_serve, cfg, params, device)
     del params
     free()
-    # the SSM and hybrid families at their published widths and depths
+    # the SSM and hybrid families at their published widths, cut in depth
     for key, arch in (("serve_ssm", "mamba2-2.7b"),
                       ("serve_hybrid", "zamba2-2.7b")):
-        cfg, params = init_full(device, arch)
+        cfg, params = init_full(device, arch,
+                                num_layers=SSM_SERVE_LAYERS[arch])
         run(key, phase_serve, cfg, params, device)
         del params
         free()
@@ -4680,6 +5228,9 @@ def main() -> int:
     free()
     run("fim", phase_fim, device)
     run("variational", phase_variational, device)
+    free()
+    run("train", phase_train, device)
+    free()
     run("rd_sweep", phase_rd_sweep, device)
     for key in ("tokens", "logits"):      # serve_mla_tuned's reference
         results["serve_mla"].pop(key)
@@ -4698,7 +5249,7 @@ def main() -> int:
                         results["serve_hybrid"],
                         results["serve_hybrid_f32"],
                         results["serve_paged"], results["serve_mla_paged"],
-                        results["zoo"])
+                        results["zoo"], results["train"])
     results["kernels"] = kernels
     results["seconds"] = time.perf_counter() - t0
     out_dir = ROOT / "chiprun_out"

@@ -40,7 +40,6 @@ reference's (payload files and manifests) for the same state.
 
 from __future__ import annotations
 
-import io
 import json
 import os
 import shutil
@@ -126,7 +125,11 @@ class CheckpointManager:
             overrides["policy_table"] = self.cfg.policy_table
         return get(name, strict=False, **overrides)
 
-    def _write(self, payloads: dict[str, bytes], meta: dict, step: int):
+    def _write(self, payloads: dict, meta: dict, step: int):
+        """Write ``payloads`` (file name -> bytes, or a callable that
+        writes the file's bytes into the open file) and ``meta.json``
+        into a fresh directory, fsync each file, and rename it into
+        place."""
         final = os.path.join(self.cfg.directory, f"step_{step:08d}")
         tmp = tempfile.mkdtemp(prefix=f"step_{step:08d}.tmp.",
                                dir=self.cfg.directory)
@@ -134,7 +137,10 @@ class CheckpointManager:
             for fname, blob in payloads.items():
                 path = os.path.join(tmp, fname)
                 with open(path, "wb") as f:
-                    f.write(blob)
+                    if callable(blob):
+                        blob(f)
+                    else:
+                        f.write(blob)
                     f.flush()
                     os.fsync(f.fileno())
             with open(os.path.join(tmp, "meta.json"), "w") as f:
@@ -234,10 +240,10 @@ class CheckpointManager:
             flat_p = flatten_tree(snapshot["params"])
             rest = {k: v for k, v in snapshot.items() if k != "params"}
             other = flatten_tree(rest)
-            buf = {}
-            bio = io.BytesIO()
-            np.savez(bio, **{k: _host_array(v) for k, v in other.items()})
-            buf["state.npz"] = bio.getvalue()
+            arrays = {k: _host_array(v) for k, v in other.items()}
+            # written straight into the step's file: no in-memory copy of
+            # the optimizer state
+            buf = {"state.npz": lambda f: np.savez(f, **arrays)}
             meta_extra = {}
             base_step = self._delta_base() if self.cfg.delta_every > 0 \
                 else None
@@ -393,4 +399,15 @@ def _restore_rest(other: dict, template: dict, device) -> dict:
             out[key] = leaf.dtype.type(arr)
         else:
             out[key] = type(leaf)(arr)
-    return unflatten(out)
+    return _keep_none(unflatten(out), template)
+
+
+def _keep_none(tree: dict, template: dict) -> dict:
+    """``tree`` with the template's ``None`` values put back (a train
+    state's ``"ef": None`` has no leaf to store)."""
+    for key, leaf in template.items():
+        if leaf is None:
+            tree[key] = None
+        elif isinstance(leaf, dict):
+            _keep_none(tree.setdefault(key, {}), leaf)
+    return tree

@@ -2,9 +2,12 @@
 
 Flat names equal ``repro.compression.tree.flatten_tree`` output on the
 reference's parameter trees (dict keys joined with "/"), so one set of
-names addresses either package's parameters."""
+names addresses either package's parameters.  A ``None`` value is no leaf,
+as in a JAX pytree (a train state's ``"ef": None``)."""
 
 from __future__ import annotations
+
+import torch
 
 
 def flatten_tree(tree, prefix: str = "") -> dict:
@@ -12,6 +15,8 @@ def flatten_tree(tree, prefix: str = "") -> dict:
     for key in sorted(tree):
         val = tree[key]
         name = f"{prefix}{key}"
+        if val is None:
+            continue
         if isinstance(val, dict):
             out.update(flatten_tree(val, name + "/"))
         else:
@@ -34,8 +39,8 @@ def unflatten_like(flat: dict, template: dict, device=None) -> dict:
     """Rebuild ``template``'s nested structure from a flat dict, moving
     each tensor to ``device`` (default: the template leaf's device) and
     the leaf's dtype, and checking shapes.
-    Quantized representations (anything with ``dequantize``) are placed
-    as they are."""
+    Quantized representations (a record with ``dequantize`` that is not a
+    tensor: every tensor has that method) are placed as they are."""
     out = {}
     for key, leaf in flatten_tree(template).items():
         if key not in flat:
@@ -44,7 +49,8 @@ def unflatten_like(flat: dict, template: dict, device=None) -> dict:
         if tuple(arr.shape) != tuple(leaf.shape):
             raise ValueError(f"{key}: checkpoint shape {tuple(arr.shape)} "
                              f"!= state {tuple(leaf.shape)}")
-        out[key] = (arr if hasattr(arr, "dequantize")
+        out[key] = (arr if not isinstance(arr, torch.Tensor)
+                    and hasattr(arr, "dequantize")
                     else arr.to(leaf.device if device is None else device,
                                 leaf.dtype))
     return unflatten(out)

@@ -1,3 +1,4 @@
-"""Sharding rules of the port: only what a checkpoint manifest needs (the
-per-dim mesh axes of a tensor); mesh placement waits for the multi-card
-slice."""
+"""Distribution of the port: the sharding rules (per-dim mesh axes of a
+tensor, as a checkpoint manifest and the train state's specs need them)
+and error-feedback gradient compression on one card; the collectives and
+mesh placement wait for the distribution slice."""

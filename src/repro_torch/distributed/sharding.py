@@ -1,5 +1,5 @@
 """Logical-axis sharding rules -> per-dim mesh axes (the port's copy of
-``logical_axes_for_path`` and ``spec_for`` from
+``logical_axes_for_path``, ``spec_for`` and ``build_param_specs`` from
 ``repro.distributed.sharding``).
 
 Parameters are matched by flat name against a rule table of *logical*
@@ -16,6 +16,8 @@ from __future__ import annotations
 import re
 
 import numpy as np
+
+from ..compression.tree import flatten_tree, unflatten
 
 DEFAULT_RULES: dict[str, object] = {
     "batch": ("pod", "data"),      # DP over pods x data
@@ -152,3 +154,14 @@ def logical_axes_for_path(path_str: str, ndim: int) -> tuple:
                 return (None,) * (ndim - len(axes)) + tuple(axes)
             return tuple(axes[:ndim])
     return (None,) * ndim
+
+
+def build_param_specs(params, mesh, rules=None) -> dict:
+    """Specs (tuples) in ``params``' nested structure, one per leaf, by
+    flat name; optimizer moments and error-feedback trees take their
+    param's rule through the name.  Shapes only: no device is touched."""
+    return unflatten({
+        name: spec_for(tuple(leaf.shape),
+                       logical_axes_for_path(name, len(leaf.shape)), mesh,
+                       rules)
+        for name, leaf in flatten_tree(params).items()})

@@ -1,13 +1,21 @@
-"""AdamW with f32 moments (the port's copy of ``repro.optim.adamw``).
+"""AdamW with optional 8-bit block-quantized moments (the port's copy of
+``repro.optim.adamw``).
 
 The math is the reference's: a global-norm clip of the gradients, bias
-correction in f32 and decoupled weight decay.  As ``torch.optim`` does,
-:func:`adamw_update` writes the new parameters and moments into the
-tensors it was given (the reference returns new pytrees): at full width
-the variational FIM keeps two f32 copies of the model and their four
-moments, and a second set would not fit the card.  The 8-bit moments
-(``quantized_moments=True``) need ``compression/q8.py`` and wait with the
-training slice.
+correction in f32 and decoupled weight decay.  The state has the
+reference's layout, ``{"count", "moments": tree}``, each leaf of the tree
+``{"m", "v"}`` (f32) or, with ``quantized_moments=True``, ``{"m_q", "m_s",
+"v_q", "v_s"}``: int8 codes with per-block (128 along the last axis)
+absmax scales from ``compression/q8.py``, ``v`` quantized in sqrt-space.
+So a train state's ``state.npz`` holds the same entries in either package.
+
+As ``torch.optim`` does, :func:`adamw_update` writes the new parameters
+and moments into the tensors it was given (the reference returns new
+pytrees): at full width the variational FIM keeps two f32 copies of the
+model and their four moments, and a second set would not fit the card.
+The 8-bit moments are decoded, updated in f32 and encoded back into the
+same code and scale tensors.  ``count`` is a host ``np.int32``: the bias
+correction is computed on the host.
 
     state = adamw_init(params, cfg)
     params, state = adamw_update(grads, state, params, cfg)
@@ -20,6 +28,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ..compression.q8 import (q8_decode, q8_decode_sqrt, q8_encode,
+                              q8_encode_sqrt, q8_scale_shape)
 from ..compression.tree import flatten_tree, unflatten
 
 
@@ -35,17 +45,24 @@ class AdamWConfig:
 
 
 def adamw_init(params, cfg: AdamWConfig) -> dict:
-    """{"count": 0, "m": tree, "v": tree}: zero f32 moments shaped like
-    ``params``, on their devices."""
-    if cfg.quantized_moments:
-        raise NotImplementedError(
-            "quantized_moments: not yet ported (needs compression/q8.py)")
+    """{"count": 0, "moments": tree}: zero moments shaped like ``params``,
+    on their devices."""
+    def zeros(shape, dtype, like):
+        return torch.zeros(shape, dtype=dtype, device=like.device)
 
-    def zeros():
-        return unflatten({k: torch.zeros(p.shape, dtype=torch.float32,
-                                         device=p.device)
-                          for k, p in flatten_tree(params).items()})
-    return {"count": 0, "m": zeros(), "v": zeros()}
+    def moment(p):
+        if cfg.quantized_moments:
+            s = q8_scale_shape(tuple(p.shape))
+            return {"m_q": zeros(p.shape, torch.int8, p),
+                    "m_s": zeros(s, torch.float32, p),
+                    "v_q": zeros(p.shape, torch.int8, p),
+                    "v_s": zeros(s, torch.float32, p)}
+        return {"m": zeros(p.shape, torch.float32, p),
+                "v": zeros(p.shape, torch.float32, p)}
+
+    return {"count": np.int32(0),
+            "moments": unflatten({k: moment(p) for k, p in
+                                  flatten_tree(params).items()})}
 
 
 def global_norm(tree) -> torch.Tensor:
@@ -56,11 +73,22 @@ def global_norm(tree) -> torch.Tensor:
     return torch.sqrt(total)
 
 
+def _moments_of(state: dict) -> dict:
+    """Flat param name -> that leaf's moment dict."""
+    flat = flatten_tree(state["moments"])
+    out: dict = {}
+    for name, t in flat.items():
+        path, which = name.rsplit("/", 1)
+        out.setdefault(path, {})[which] = t
+    return out
+
+
 def adamw_update(grads, state: dict, params, cfg: AdamWConfig,
-                 lr_scale: float = 1.0):
+                 lr_scale=1.0):
     """One step: updates ``params`` and ``state`` in place and returns
-    them as ``(params, state)``."""
-    count = state["count"] + 1
+    them as ``(params, state)``.  ``lr_scale`` is a float or a 0-d
+    tensor (the schedule's value)."""
+    count = np.int32(state["count"] + 1)
     gnorm = global_norm(grads)
     clip = torch.clamp_max(cfg.grad_clip / (gnorm + 1e-12), 1.0)
     c = np.float32(count)
@@ -68,10 +96,15 @@ def adamw_update(grads, state: dict, params, cfg: AdamWConfig,
     bc2 = float(np.float32(1.0) - np.float32(cfg.b2) ** c)
     lr = cfg.lr * lr_scale
     flat_g = flatten_tree(grads)
-    flat_m, flat_v = flatten_tree(state["m"]), flatten_tree(state["v"])
+    moments = _moments_of(state)
     for name, p in flatten_tree(params).items():
         g = flat_g[name].to(torch.float32) * clip
-        m, v = flat_m[name], flat_v[name]
+        mom = moments[name]
+        if cfg.quantized_moments:
+            m = q8_decode(mom["m_q"], mom["m_s"])
+            v = q8_decode_sqrt(mom["v_q"], mom["v_s"])
+        else:
+            m, v = mom["m"], mom["v"]
         m.mul_(cfg.b1).add_((1.0 - cfg.b1) * g)
         v.mul_(cfg.b2).add_((1.0 - cfg.b2) * torch.square(g))
         del g
@@ -79,5 +112,12 @@ def adamw_update(grads, state: dict, params, cfg: AdamWConfig,
         pf = p.to(torch.float32)
         step += cfg.weight_decay * pf
         p.copy_(pf - lr * step)
+        del step, pf
+        if cfg.quantized_moments:
+            for (q, s), (codes, scale) in (
+                    (("m_q", "m_s"), q8_encode(m)),
+                    (("v_q", "v_s"), q8_encode_sqrt(v))):
+                mom[q].copy_(codes)
+                mom[s].copy_(scale)
     state["count"] = count
     return params, state

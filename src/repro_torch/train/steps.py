@@ -1,0 +1,225 @@
+"""Step factories: train_step / prefill / decode (the port's copy of
+``repro.train.steps``).
+
+The reference resolves parameter, optimizer, cache and batch shardings
+from the logical rule tables and jits each step.  The port runs on one
+device: the spec functions return the same per-dim mesh axes (tuples, as
+``distributed.sharding`` gives them) for a checkpoint manifest or a later
+placement, and a step factory given a mesh of more than one device
+raises (``rules`` are taken for the reference's signature).  The train
+step updates its state in place (parameters, AdamW
+moments, the error-feedback accumulators), the port's counterpart of the
+reference's ``donate_argnums=(0,)``.
+
+Under autograd attention takes the scan (the flash kernel has no
+backward, nor has the reference's Pallas kernel); the prefill step runs
+under ``torch.no_grad``, so its attention launches ``flash_attention``.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..checkpoint.sharded import MeshSpec
+from ..compression.tree import flatten_tree, unflatten
+from ..data.pipeline import to_device
+from ..distributed.compress import (CompressionConfig, ef_compress_update,
+                                    init_error_feedback)
+from ..distributed.sharding import build_param_specs, spec_for
+from ..kernels.registry import resolve_device
+from ..models.config import ModelConfig
+from ..models.transformer import forward, init_cache, init_params, train_loss
+from ..optim.adamw import AdamWConfig, adamw_init, adamw_update
+from ..optim.schedule import linear_warmup_cosine
+
+TrainState = dict  # {"params", "opt", "ef", "step"}
+
+
+# ---------------------------------------------------------------------------
+# Sharding resolution (device-free)
+# ---------------------------------------------------------------------------
+
+def _shape(x) -> tuple:
+    return tuple(x.shape) if hasattr(x, "shape") else np.shape(x)
+
+
+def batch_specs(batch: dict, mesh, rules=None) -> dict:
+    def one(name, x):
+        shape = _shape(x)
+        if name == "pos3d":
+            return spec_for(shape, (None, "batch", "seq"), mesh, rules)
+        return spec_for(shape, ("batch", "seq", None)[:len(shape)], mesh,
+                        rules)
+    return {k: one(k, v) for k, v in batch.items()}
+
+
+_CACHE_AXES = {
+    "k": (None, "batch", "kv_seq", None, None),
+    "v": (None, "batch", "kv_seq", None, None),
+    "ckv": (None, "batch", "kv_seq", None),
+    "kr": (None, "batch", "kv_seq", None),
+    "x": (None, "batch", None, "tp"),
+    "b": (None, "batch", None, "tp"),
+    "c": (None, "batch", None, "tp"),
+    "state": (None, "batch", "heads", None, None),
+}
+
+
+def cache_logical_specs(cache, mesh, rules=None) -> dict:
+    """Specs of ``init_cache``'s tree, by each leaf's own key."""
+    def leaf(name, x):
+        shape = _shape(x)
+        axes = _CACHE_AXES.get(name.rsplit("/", 1)[-1], (None,) * len(shape))
+        return spec_for(shape, axes, mesh, rules)
+    return unflatten({k: leaf(k, v) for k, v in flatten_tree(cache).items()})
+
+
+def state_specs(state, mesh, rules=None) -> dict:
+    return {
+        "params": build_param_specs(state["params"], mesh, rules),
+        "opt": {"count": (),
+                "moments": build_param_specs(state["opt"]["moments"], mesh,
+                                             rules)},
+        "ef": (build_param_specs(state["ef"], mesh, rules)
+               if state.get("ef") is not None else None),
+        "step": (),
+    }
+
+
+def _one_device(mesh, what: str) -> None:
+    if mesh is not None and MeshSpec.from_any(mesh).size > 1:
+        raise NotImplementedError(
+            f"{what} on a mesh of {MeshSpec.from_any(mesh).size} devices: "
+            "not yet ported: distribution slice")
+
+
+# ---------------------------------------------------------------------------
+# State init
+# ---------------------------------------------------------------------------
+
+def init_train_state(cfg: ModelConfig, opt_cfg: AdamWConfig,
+                     comp_cfg: CompressionConfig | None = None,
+                     seed: int = 0, *, device="cuda") -> TrainState:
+    """{"params", "opt", "ef", "step"} on ``device`` (the card unless
+    ``"cpu"`` is asked for): ``init_params(cfg, seed)``, zero AdamW
+    moments, zero error-feedback accumulators when ``comp_cfg`` enables
+    compression (else ``None``), and ``step`` a 0-d int32 tensor."""
+    dev = resolve_device(device)
+    params = init_params(cfg, seed, device=dev)
+    return {
+        "params": params,
+        "opt": adamw_init(params, opt_cfg),
+        "ef": (init_error_feedback(params)
+               if comp_cfg and comp_cfg.enabled else None),
+        "step": torch.zeros((), dtype=torch.int32, device=dev),
+    }
+
+
+def _batch_on(batch: dict, device) -> dict:
+    """``make_batch``'s numpy batch as the model's tensors on ``device``;
+    tensors are moved as they are."""
+    host = {k: v for k, v in batch.items()
+            if not isinstance(v, torch.Tensor)}
+    out = {k: v.to(device) for k, v in batch.items()
+           if isinstance(v, torch.Tensor)}
+    out.update(to_device(host, device))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Steps
+# ---------------------------------------------------------------------------
+
+def make_train_step(cfg: ModelConfig, mesh, opt_cfg: AdamWConfig,
+                    comp_cfg: CompressionConfig | None = None,
+                    rules=None, total_steps: int = 10000,
+                    warmup: int = 100):
+    """Returns ``(step_fn, jitted)``.  ``step_fn(state, batch) -> (state,
+    {"loss", "lr_scale"})`` runs the reference's order: loss and
+    gradients by autograd, error feedback when enabled, the warmup-cosine
+    scale of ``state["step"]``, AdamW, ``step + 1``; it writes the
+    parameters, moments and EF in place, so the returned state holds the
+    same tensors and a new ``step``.  ``jitted(state, probe)`` returns
+    ``fn(state, batch)``, which runs ``step_fn`` on the state's device and
+    writes the new state into ``state``.  The steps
+    carry ``torch.profiler.record_function`` ranges ``train_step/ef`` and
+    ``train_step/adamw``."""
+    _one_device(mesh, "make_train_step")
+    comp_cfg = comp_cfg or CompressionConfig(enabled=False)
+
+    def step_fn(state: TrainState, batch: dict):
+        params = state["params"]
+        flat = flatten_tree(params)
+        batch = _batch_on(batch, next(iter(flat.values())).device)
+        leaves = [p.detach().requires_grad_(True) for p in flat.values()]
+        with torch.enable_grad():
+            loss = train_loss(unflatten(dict(zip(flat, leaves))), batch, cfg)
+            grads = torch.autograd.grad(loss, leaves)
+        del leaves
+        with torch.no_grad():
+            grads = unflatten(dict(zip(flat, grads)))
+            ef = state["ef"]
+            if comp_cfg.enabled:
+                with torch.profiler.record_function("train_step/ef"):
+                    grads, ef = ef_compress_update(grads, ef, comp_cfg)
+            lr_scale = linear_warmup_cosine(state["step"], warmup,
+                                            total_steps)
+            with torch.profiler.record_function("train_step/adamw"):
+                params, opt = adamw_update(grads, state["opt"], params,
+                                           opt_cfg, lr_scale)
+        del grads
+        new_state = {"params": params, "opt": opt, "ef": ef,
+                     "step": state["step"] + 1}
+        return new_state, {"loss": loss.detach(), "lr_scale": lr_scale}
+
+    def jitted(state, batch):
+        del batch                     # no shapes to specialise on
+
+        def fn(st, b):
+            new, metrics = step_fn(st, b)
+            st.update(new)
+            return st, metrics
+        return fn
+
+    return step_fn, jitted
+
+
+def make_prefill_step(cfg: ModelConfig, mesh, rules=None, max_len=None):
+    """``step_fn(params, batch) -> (last logits (B, V), caches)``: the
+    prompt (``tokens`` (B, S), or ``embeds`` (B, S, d) with ``pos3d``)
+    into fresh caches of ``max_len`` (default S) on the input's device."""
+    _one_device(mesh, "make_prefill_step")
+
+    @torch.no_grad()
+    def step_fn(params, batch):
+        tokens = batch.get("tokens")
+        inp = tokens if tokens is not None else batch["embeds"]
+        b, s = inp.shape[0], inp.shape[1]
+        caches = init_cache(cfg, b, max_len or s, device=inp.device)
+        logits, new_caches, _ = forward(
+            params, cfg, tokens=tokens, embeds=batch.get("embeds"),
+            pos3d=batch.get("pos3d"), caches=caches, last_only=True,
+            with_aux=False)
+        return logits[:, 0, :], new_caches
+
+    return step_fn
+
+
+def make_decode_step(cfg: ModelConfig, mesh, rules=None):
+    """serve_step: one new token against a filled KV/state cache;
+    ``step_fn(params, caches, inputs, pos) -> (logits (B, V), caches)``,
+    the caches written in place."""
+    _one_device(mesh, "make_decode_step")
+
+    @torch.no_grad()
+    def step_fn(params, caches, inputs, pos):
+        logits, new_caches, _ = forward(
+            params, cfg,
+            tokens=(inputs["tokens"][:, None]
+                    if "tokens" in inputs else None),
+            embeds=inputs.get("embeds"), pos3d=inputs.get("pos3d"),
+            caches=caches, cache_pos=pos, last_only=True, with_aux=False)
+        return logits[:, 0, :], new_caches
+
+    return step_fn

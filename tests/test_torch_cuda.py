@@ -1332,3 +1332,120 @@ def test_paged_session_graphs_equal_eager_and_cpu(arch):
     assert graph[1] == eager[1] == cpu[1]
     assert cpu[1]["parks"] > 0
     assert graph[2]["replays"] > 0 and graph[2]["captures"] == graph[3]
+
+
+@pytest.mark.parametrize("arch", ["llama3-8b", "deepseek-moe-16b"])
+def test_train_step_on_the_card_matches_the_cpu(arch):
+    """Three steps of the smoke model (f32, 8-bit moments, error
+    feedback) on the card and on the CPU from the same weights and
+    batches: losses rel 1e-5, the counters equal; parameters within 1e-3
+    of each leaf's max|p| but for at most 0.5% of its weights, moment
+    codes within 2 (a gradient or moment code on a rounding boundary
+    rounds either way after last-bit differences in the gradients, as in
+    ``tests/test_torch_train.py``); no kernel launched under grad."""
+    _needs_card()
+    from repro_torch import configs
+    from repro_torch.compression.tree import flatten_tree, unflatten
+    from repro_torch.data.pipeline import make_batch
+    from repro_torch.distributed.compress import CompressionConfig
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.steps import init_train_state, make_train_step
+    cfg = configs.get(arch, smoke=True)
+    opt = AdamWConfig(lr=1e-2, quantized_moments=True)
+    comp = CompressionConfig(enabled=True)
+    states = {d: init_train_state(cfg, opt, comp, device=d)
+              for d in ("cpu", "cuda")}
+    states["cuda"]["params"] = unflatten(
+        {k: v.cuda() for k, v in flatten_tree(states["cpu"]["params"])
+         .items()})
+    assert states["cuda"]["step"].is_cuda
+    fn = make_train_step(cfg, None, opt, comp, total_steps=12,
+                         warmup=2)[1](None, None)
+    kernels.reset_launch_counts()
+    for i in range(3):
+        batch = make_batch(cfg, i, batch=2, seq=16, seed=0)
+        losses = {d: float(fn(st, batch)[1]["loss"])
+                  for d, st in states.items()}
+        assert abs(losses["cuda"] - losses["cpu"]) <= 1e-5 * abs(
+            losses["cpu"])
+    assert sum(kernels.launch_counts().values()) == 0
+    got, want = flatten_tree(states["cuda"]), flatten_tree(states["cpu"])
+    assert sorted(got) == sorted(want)
+    assert int(got["step"]) == int(want["step"]) == 3
+    assert got["opt/count"] == want["opt/count"] == 3
+    for k, w in want.items():
+        if not isinstance(w, torch.Tensor):
+            continue
+        g = got[k].cpu()
+        assert g.dtype == w.dtype and g.shape == w.shape, k
+        if k.startswith("params/"):
+            far = (g - w).abs() > 1e-3 * w.abs().max()
+            assert float(far.float().mean()) <= 0.005, k
+        elif w.dtype == torch.int8:
+            assert int((g.to(torch.int16) - w.to(torch.int16)).abs()
+                       .max()) <= 2, k
+
+
+def test_prefill_step_launches_flash_and_matches_the_cpu():
+    """``make_prefill_step`` on the card runs outside autograd, so its
+    attention launches flash_attention once a layer with nothing
+    recorded; its logits and caches match the CPU's (f32, 1e-4 of the
+    largest magnitude), and ``make_decode_step`` continues them."""
+    _needs_card()
+    from repro_torch import configs
+    from repro_torch.compression.tree import flatten_tree, unflatten
+    from repro_torch.models.transformer import init_params
+    from repro_torch.train.steps import make_decode_step, make_prefill_step
+    cfg = configs.get("llama3-8b", smoke=True)
+    cpu = init_params(cfg, 0, device="cpu")
+    card = unflatten({k: v.cuda() for k, v in flatten_tree(cpu).items()})
+    toks = torch.randint(0, cfg.vocab_size, (4, 32),
+                         generator=torch.Generator().manual_seed(2))
+    pre = make_prefill_step(cfg, None, max_len=40)
+    dec = make_decode_step(cfg, None)
+    kernels.reset_launch_counts()
+    kernels.clear_dispatch_report()
+    lc, cc = pre(card, {"tokens": toks.cuda()})
+    assert kernels.launch_counts()["flash_attention"] == cfg.num_layers
+    assert kernels.dispatch_report() == []
+    lp, cp = pre(cpu, {"tokens": toks})
+    assert _rel(lc, lp) <= 1e-4
+    for k, v in flatten_tree(cp).items():
+        assert _rel(flatten_tree(cc)[k], v) <= 1e-4, k
+    nxt = lp.argmax(-1)
+    lc, _ = dec(card, cc, {"tokens": nxt.cuda()}, 32)
+    lp, _ = dec(cpu, cp, {"tokens": nxt}, 32)
+    assert _rel(lc, lp) <= 1e-4
+
+
+def test_train_state_checkpoint_restores_onto_the_card(tmp_path):
+    """A train state saved from the card (raw params, 8-bit moments, EF)
+    restores onto the card, every tensor there with its template's dtype
+    and its saved bits, and the loop resumes from it."""
+    _needs_card()
+    from repro_torch import configs
+    from repro_torch.checkpoint.manager import (CheckpointConfig,
+                                                CheckpointManager)
+    from repro_torch.compression.tree import flatten_tree
+    from repro_torch.distributed.compress import CompressionConfig
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.loop import LoopConfig, train_loop
+    from repro_torch.train.steps import init_train_state
+    cfg = configs.get("llama3-8b", smoke=True).replace(
+        param_dtype="bfloat16", compute_dtype="bfloat16")
+    opt = AdamWConfig(quantized_moments=True)
+    comp = CompressionConfig(enabled=True)
+    ck = CheckpointConfig(str(tmp_path), params_mode="raw")
+    loop = LoopConfig(total_steps=4, batch=2, seq=16, ckpt_every=2)
+    train_loop(cfg, None, loop, opt, comp, ck, device="cuda")
+    template = init_train_state(cfg, opt, comp, device="cuda")
+    st, meta = CheckpointManager(ck).restore(template, step=2)
+    for k, t in flatten_tree(st).items():
+        if isinstance(t, torch.Tensor):
+            assert t.is_cuda, k
+            assert t.dtype == flatten_tree(template)[k].dtype, k
+    assert int(st["step"]) == 2 and st["opt"]["count"] == 2
+    res = train_loop(cfg, None, LoopConfig(total_steps=6, batch=2, seq=16,
+                                           ckpt_every=2), opt, comp, ck,
+                     device="cuda")
+    assert res.final_step == 6 and len(res.losses) == 2

@@ -205,22 +205,86 @@ def test_adamw_three_steps_match_reference():
         for k, v in jflatten(jp).items():          # rel 1e-6
             np.testing.assert_allclose(flatten_tree(tp)[k].numpy(),
                                        np.asarray(v), rtol=1e-6, atol=0)
-        # the moments: within 1e-6 of each leaf's max|moment| (b1*m +
-        # (1-b1)*g cancels, and XLA may fuse it into an FMA)
+        # the moments, in the reference's layout: within 1e-6 of each
+        # leaf's max|moment| (b1*m + (1-b1)*g cancels, and XLA may fuse it
+        # into an FMA)
+        tflat = flatten_tree(tst["moments"])
+        assert sorted(tflat) == sorted(jflatten(jst["moments"]))
         for k, mom in jflatten(jst["moments"]).items():
-            *path, which = k.split("/")
             mom = np.asarray(mom)
             np.testing.assert_allclose(
-                flatten_tree(tst[which])["/".join(path)].numpy(), mom,
-                rtol=0, atol=1e-6 * float(np.abs(mom).max()))
+                tflat[k].numpy(), mom, rtol=0,
+                atol=1e-6 * float(np.abs(mom).max()))
     np.testing.assert_allclose(
         float(adamw.global_norm(unflatten({k: torch.from_numpy(v)
                                            for k, v in grads[0].items()}))),
         float(jadamw.global_norm({k: jnp.asarray(v)
                                   for k, v in grads[0].items()})),
         rtol=1e-6)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        adamw.adamw_init(tp, adamw.AdamWConfig(quantized_moments=True))
+
+
+def test_adamw_quantized_moments_match_reference():
+    """8-bit moments (int8 codes, per-128 absmax scales, v in
+    sqrt-space).  Fed the same decoded moments and gradient, one step's
+    codes and scales equal the reference's exactly; three steps from zero
+    moments: codes within 1, parameters within 1e-6 of each leaf's
+    max|p| (an element near 0 cancels in p - lr * step)."""
+    rng = np.random.default_rng(1)
+    shapes = {"a": (6, 256), "b/c": (7,), "b/d": (3, 2, 128)}
+    p0 = {k: rng.standard_normal(s).astype(np.float32)
+          for k, s in shapes.items()}
+    grads = [{k: (rng.standard_normal(s) * 3).astype(np.float32)
+              for k, s in shapes.items()} for _ in range(3)]
+    jcfg = jadamw.AdamWConfig(quantized_moments=True, lr=1e-2)
+    tcfg = adamw.AdamWConfig(quantized_moments=True, lr=1e-2)
+
+    def jtree(flat):
+        return unflatten({k: jnp.asarray(v) for k, v in flat.items()})
+
+    def ttree(flat):
+        return unflatten({k: torch.from_numpy(np.array(v))
+                          for k, v in flat.items()})
+
+    # one step from the same quantized moments
+    moms = {}
+    for k, s in shapes.items():
+        m = jnp.asarray(rng.standard_normal(s) * 0.1, jnp.float32)
+        v = jnp.asarray(np.abs(rng.standard_normal(s)) * 0.01, jnp.float32)
+        (mq, ms), (vq, vs) = jadamw.q8_encode(m), jadamw.q8_encode_sqrt(v)
+        moms.update({f"{k}/m_q": mq, f"{k}/m_s": ms, f"{k}/v_q": vq,
+                     f"{k}/v_s": vs})
+    jst = {"count": jnp.asarray(4, jnp.int32), "moments": jtree(moms)}
+    tst = adamw.adamw_init(ttree(p0), tcfg)
+    tst["count"] = np.int32(4)
+    for k, t in flatten_tree(tst["moments"]).items():
+        t.copy_(torch.from_numpy(np.array(moms[k])))
+    _, jst = jadamw.adamw_update(jtree(grads[0]), jst, jtree(p0), jcfg)
+    _, tst = adamw.adamw_update(ttree(grads[0]), tst, ttree(p0), tcfg)
+    for k, want in jflatten(jst["moments"]).items():     # exact
+        got = flatten_tree(tst["moments"])[k]
+        assert got.dtype == (torch.int8 if k.endswith("_q")
+                             else torch.float32), k
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want),
+                                      err_msg=k)
+
+    # three steps from zero moments
+    jp, tp = jtree(p0), ttree(p0)
+    jst, tst = jadamw.adamw_init(jp, jcfg), adamw.adamw_init(tp, tcfg)
+    assert sorted(flatten_tree(tst)) == sorted(jflatten(jst))
+    for g in grads:
+        jp, jst = jadamw.adamw_update(jtree(g), jst, jp, jcfg)
+        tp, tst = adamw.adamw_update(ttree(g), tst, tp, tcfg)
+    assert tst["count"] == int(jst["count"]) == 3
+    for k, v in jflatten(jp).items():    # within 1e-6 of the leaf's max|p|
+        v = np.asarray(v)
+        np.testing.assert_allclose(flatten_tree(tp)[k].numpy(), v, rtol=0,
+                                   atol=1e-6 * float(np.abs(v).max()))
+    for k, want in jflatten(jst["moments"]).items():
+        got = flatten_tree(tst["moments"])[k].numpy()
+        if k.endswith("_q"):                             # within 1
+            assert int(np.abs(got.astype(np.int16) - want).max()) <= 1, k
+        else:                                            # scales rel 1e-6
+            np.testing.assert_allclose(got, np.asarray(want), rtol=1e-6)
 
 
 # ---------------------------------------------------------------------------

@@ -244,6 +244,9 @@ def test_port_imports_no_jax_and_nothing_of_repro():
         "'repro_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "import chip_smoke\n"
+        "for m in ('train.loop', 'train.steps', 'optim.schedule', "
+        "'distributed.compress', 'launch.train', 'launch.mesh'):\n"
+        "    assert 'repro_torch.' + m in sys.modules, m\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith(('jax.', 'jaxlib', 'repro.')) or m == 'repro')\n"
         "print('BAD', bad)\n"
