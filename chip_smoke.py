@@ -74,8 +74,9 @@ Phases (each fails the run on its own; nothing is caught and ignored):
              on the CPU: rd_sweep (F = 1) gives the same points, policy and
              policy bytes; search_dc_v2 and search_dc_v1 (one sigma for
              both) with the eval NLL computed on each device choose the
-             same hyperparameters and write identical blobs;
-11. fim     — fisher_for on llama3-8b at full width, 2 layers: in bf16 on
+             same hyperparameters and write identical blobs (grids of 2
+             deltas x 2 lambdas and 2 S values, cut for time);
+11. fim     — fisher_for on llama3-8b at full width, 1 layer: in bf16 on
              the card (finite, wq/wk/wv nonzero: gradients pass through
              attention, which under grad takes the scan, so no kernel
              launches), then in f32 on the card against the CPU;
@@ -111,7 +112,7 @@ Phases (each fails the run on its own; nothing is caught and ignored):
              deepseek-v3-671b (f32, q8; qwen2-vl-7b also bf16) on the card
              and on the CPU: identical greedy tokens, close logits, equal
              q8 levels; reports hold only MLA's d != dv records;
-16. serve_dense (after 9) — qwen3-8b at published widths cut to 12 of its
+16. serve_dense (after 9) — qwen3-8b at published widths cut to 6 of its
              36 layers (SERVE_DENSE_LAYERS), served as in 6 (the q8 check
              of layer 0, then q8 and bf16, eager and graphs);
 17. serve_mla — deepseek-v3-671b at published widths cut to 4 layers (3
@@ -119,8 +120,8 @@ Phases (each fails the run on its own; nothing is caught and ignored):
              and served as in 6; launches as predicted, no flash launch,
              only the d != dv (192 != 128) records; one full-width MLA
              block in f32, card against CPU;
-18. embeds_full — musicgen-medium (12 of 48 layers, the D = 64 flash
-             instance) and qwen2-vl-7b (7 of 28 layers, M-RoPE over a
+18. embeds_full — musicgen-medium (6 of 48 layers, the D = 64 flash
+             instance) and qwen2-vl-7b (4 of 28 layers, M-RoPE over a
              patch grid and text) at their published widths on q8
              (EMBEDS_FULL_LAYERS): ``prefill(embeds=...)`` of 4 x 128
              and 31 decode steps fed back through a stub frontend table;
@@ -192,11 +193,13 @@ Phases (each fails the run on its own; nothing is caught and ignored):
 
 29. train (after 12) — training at llama3-8b's published widths, 2 of
              32 layers, 8-bit AdamW moments and EF, batches of 8 x 128:
-             (a) ``train_loop`` straight for 12 steps (ms/step, tokens/s,
+             (a) ``train_loop`` straight for 6 steps (ms/step, tokens/s,
              peak memory; no kernel under grad, an empty report); (b) the
-             same with raw async checkpoints every 4 steps, SIGTERM in
-             step 6 (the loop ends with a final save) and a resumed loop
-             to 12: losses and the final state equal (a)'s bit for bit
+             same with raw async checkpoints every 6 steps, SIGTERM in
+             step 4 (the loop ends after it with a final save) and a
+             resumed loop to 6 (its cadence save at 6, not written twice):
+             the saves are steps 4 and 6, losses and the final state
+             equal (a)'s bit for bit
              (deterministic algorithms on); (c) ``make_prefill_step`` and
              8 greedy ``make_decode_step``s on the trained params: the
              tokens of ``ServeEngine.generate``, flash launched once a
@@ -208,14 +211,40 @@ Phases (each fails the run on its own; nothing is caught and ignored):
              llama3-8b and deepseek-moe-16b steps card against CPU.  Its
              directories under ``build/train/`` (up to 3 x 12 GB) are
              removed.
+30. mesh_restore (right after 14, on its chain; the distribution phases
+             run on a one-rank NCCL world, its rendezvous a FileStore
+             under ``build/``) — the keyframe by ``restore_on_mesh`` and
+             the first P-frame by ``restore_on_mesh_delta`` onto the card's
+             (data 1, model 1) DeviceMesh, every leaf a DTensor equal to
+             the host decode bit for bit; ``restore_local_slices`` of
+             device 0 of SWAP_MESH decoding fewer values than the
+             manifest; a bf16 backend with ``mesh=`` serving the keyframe
+             from graphs with the tokens of the same load without a mesh,
+             one flash launch a prefill and layer, an empty report;
+31. collectives (after 30) — ``cross_pod_psum_compressed`` of a
+             llama3-8b ``w_gate``-shaped f32 tensor on a pod axis of 1
+             equal to ``q8_decode(q8_encode(x))`` bit for bit, its wire
+             bytes a value; ``gpipe_apply`` with one stage over 4
+             microbatches of 4 x 128 x 4096 through a llama3-8b MLP block
+             in bf16 equal to the block in sequence bit for bit; ms of
+             each;
+32. train_dp (after 29) — ``train_loop`` on the NCCL DeviceMesh
+             (data 1, model 1: the data-parallel step, the all-reduced
+             stop flag, the closing barrier) at 29's width against the
+             mesh-free step, 3 steps each from one seed: losses and the
+             whole state equal bit for bit on the card (deterministic
+             algorithms on), ms/step of both; the prefill step on the
+             mesh launches flash once a layer with the mesh-free
+             prefill's logits.
 
 Every phase but 20 runs under the default kernel policy with an empty
 tuning cache (``REPRO_TORCH_KERNEL_TUNE_CACHE`` points at a fresh file
 under ``build/``), so a stale cache on the machine changes nothing.
 13 runs at 1 layer (RD_SWEEP_LAYERS) and one delta (RD_SWEEP_DELTAS), 14
-and 28 at 1 (DELTA_SWAP_LAYERS), 16 at 12 (SERVE_DENSE_LAYERS), 18 at 12
-and 7 (EMBEDS_FULL_LAYERS) and 23 at 16 and 18 (SSM_SERVE_LAYERS), so that
-the rest fit the time limit.
+and 28 at 1 (DELTA_SWAP_LAYERS), 16 at 6 (SERVE_DENSE_LAYERS), 18 at 6
+and 4 (EMBEDS_FULL_LAYERS), 23 at 16 and 18 (SSM_SERVE_LAYERS), 11 at 1
+(FIM_LAYERS), 29 at 6 steps (TRAIN_STEPS) and 10 with smaller DC grids
+(DC_DELTAS, DC_S_GRID), so that the rest fit the time limit.
 
 The line before the last is the card's name and power limit; one line
 before it is the ``{"kernels": [...]}`` summary; the last line is
@@ -316,9 +345,10 @@ MLA_PAGED_LENS = (120, 122, 124, 126)
 MLA_PAGED_NEW = 16
 EMBED_TABLE_ROWS = 4096
 EMBED_F32_LAYERS = 2
-# embeds_full's bf16 depth, cut for time from 48 and 28 layers (a quarter:
-# their layers repeat one shape class each)
-EMBEDS_FULL_LAYERS = {"musicgen-medium": 12, "qwen2-vl-7b": 7}
+# embeds_full's bf16 depth, cut for time from 48 and 28 layers (their
+# layers repeat one shape class each; 12 and 7 before the distribution
+# phases came)
+EMBEDS_FULL_LAYERS = {"musicgen-medium": 6, "qwen2-vl-7b": 4}
 EMBED_F32_NEW_TOKENS = 12
 # flash attention's (H, G) and D at full width: llama3-8b, deepseek-moe-16b
 # (D = 128), musicgen-medium (D = 64)
@@ -370,6 +400,9 @@ TOL_MOE_F32_LOGITS = 1e-4
 # and room for one leaf's temporaries: the embedding's, at full width)
 FIM_BATCHES, FIM_BATCH, FIM_SEQ = 2, 2, 16
 VD_STEPS = 4
+# fim's depth, cut from DEPLOY_LAYERS (2) for time: its f32 CPU reference
+# took 17.6 s of the phase
+FIM_LAYERS = 1
 VD_BYTES_PER_PARAM = 44
 # the training phase: llama3-8b at its published widths cut to 2 of its 32
 # layers (1.487 G parameters), LoopConfig's default batch, 8-bit moments and
@@ -380,15 +413,33 @@ VD_BYTES_PER_PARAM = 44
 # params within TOL_TRAIN_PARAM of max|p| but for TRAIN_PART_SHARE of a
 # leaf, codes within TRAIN_CODE_TOL: a code on a rounding boundary rounds
 # either way after last-bit differences in the gradients)
-TRAIN_LAYERS, TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 2, 12, 8, 128
-TRAIN_CKPT_EVERY = 4
-TRAIN_SIGTERM_AT = 5
+# (TRAIN_STEPS cut from 12 to 6 for time, the cadence from 4 to 6 steps
+# and the SIGTERM moved from step 6 to step 4: two 12 GB raw saves
+# fewer.  The SIGTERM step stays off the cadence, so the preempted loop
+# ends with its final save; the resumed loop's last step is a cadence
+# save, which the final save does not write again)
+TRAIN_LAYERS, TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 2, 6, 8, 128
+TRAIN_CKPT_EVERY = 6
+TRAIN_SIGTERM_AT = 3
 TRAIN_PROMPTS, TRAIN_DECODE = 4, 8
 TRAIN_CLI_STEPS = 20
 TRAIN_SMOKE_STEPS = 3
 TOL_TRAIN_LOSS = 1e-5
 TOL_TRAIN_PARAM, TRAIN_PART_SHARE, TRAIN_CODE_TOL = 1e-3, 0.005, 2
 TRAIN_DIR = ROOT / "build" / "train"
+# distribution on a one-rank NCCL world (rendezvous: a FileStore under
+# build/): the data-parallel step against the mesh-free one at the train
+# phase's width (DP_STEPS steps each, the same seed and batches); the
+# compressed cross-pod sum of a llama3-8b w_gate-shaped f32 tensor on a pod
+# axis of 1; gpipe_apply with one stage over GPIPE_MICRO microbatches of
+# GPIPE_ROWS x 4096 through one llama3-8b MLP block in bf16; the mesh
+# restores of delta_swap's chain
+DIST_STORE = ROOT / "build" / "dist_store"
+MESH_RESTORE_WORKERS = 8     # the card machine's host cores: tensors decode
+#                              and move on a thread pool
+DP_STEPS = 3
+PSUM_SHAPE = (1, 4096, 14336)
+GPIPE_MICRO, GPIPE_ROWS = 4, (4, 128)
 # rd_sweep: benchmarks/rd_sweep_bench.py's --fast grid, min_ndim=3 (the
 # stacked layer matrices: embed and head stay raw)
 RD_SWEEP_LAYERS = 1          # the sweep's depth (its launches of rd_quant
@@ -401,19 +452,21 @@ SWEEP = dict(delta_rels=(1e-3, 6e-3), lambdas=(0.0, 1e-5), prompts=3,
 RD_SWEEP_DELTAS = (6e-3,)
 # qwen3-8b's serve at its published widths, cut from 36 layers for time
 # (its layers bring no kernel shape beyond llama3-8b's)
-SERVE_DENSE_LAYERS = 12
+SERVE_DENSE_LAYERS = 6       # 12 before the distribution phases came
 # search parity at smoke size: the sweep's logit KL card vs CPU (a sum over
 # the vocabulary of f32 log-probability differences), the DC grids and the
 # accuracy budget on minus the eval NLL.  On the seeded smoke weights each
-# grid has points on both sides of the budget (a CPU run: DC-v2 keeps 0.01
-# and 0.02 of the deltas and passes at lambda 0 only, DC-v1 passes at
-# S = 32 only), so the choice is not a fallback.  DC-v1 runs lambda = 0
-# alone: its F_i (the empirical FIM of random weights, 1e-6 and less) make
-# any lambda > 0 zero most weights, which lowers a random model's NLL.
+# grid has points on both sides of the budget (a CPU run: DC-v2 keeps 0.02
+# of the deltas and passes at lambda 0 only, DC-v1 passes at S = 32 only),
+# so the choice is not a fallback.  DC-v1 runs lambda = 0 alone: its F_i
+# (the empirical FIM of random weights, 1e-6 and less) make any lambda > 0
+# zero most weights, which lowers a random model's NLL.  (The grids were
+# cut for time from 4 deltas and 3 S values: 9 and 4 evaluations a device,
+# now 5 and 3.)
 TOL_KL_ABS = 1e-6
-DC_DELTAS = (0.005, 0.01, 0.02, 0.05)
+DC_DELTAS = (0.02, 0.05)
 DC_LAMBDAS = (0.0, 1e-4)
-DC_S_GRID = (16.0, 32.0, 64.0)
+DC_S_GRID = (16.0, 32.0)
 DC_V1_LAMBDAS = (0.0,)
 SEARCH_TOL = 0.005
 # delta_swap: llama3-8b at full width, DELTA_SWAP_LAYERS deep, trained in
@@ -1806,11 +1859,13 @@ def phase_delta_swap(device):
     logits bit for bit and its greedy tokens; the path's kernel launches
     must be ``per_forward_launches``' and the dispatch report empty.
 
-    Hands the ``zoo`` phase (``out["handover"]``) its chain: the step
-    directories (left on disk unless this phase fails), the leaf digests
-    of the three q8 trees (the keyframe's cold start, the chain's cold
-    starts of both P-frames), the prompts, and the late request's cold
-    prefill logits row and greedy tokens."""
+    Hands the ``mesh_restore`` and ``zoo`` phases (``out["handover"]``)
+    its chain: the step directories (left on disk unless this phase
+    fails), the keyframe's coded levels as the cold start decoded them and
+    the host chain decode of the first P-frame (its entries), the leaf
+    digests of the three q8 trees (the keyframe's cold start, the chain's
+    cold starts of both P-frames), the prompts, and the late request's
+    cold prefill logits row and greedy tokens."""
     import resource
     import shutil
 
@@ -1958,6 +2013,8 @@ def phase_delta_swap(device):
                 dict(key_levels) if k == 0 else ents,
                 str(root / f"step_{step:08d}"), None, step)
             chain_s = time.perf_counter() - t0
+            if k == 0:                  # mesh_restore's reference (the
+                first_ents = dict(ents)  # next P-frame replaces records)
             cold_tree = get_backend("q8").load_entries(cfg, ents,
                                                        device=device)
             digests[step] = _tree_digests(cold_tree)
@@ -2014,13 +2071,14 @@ def phase_delta_swap(device):
               f"{late.tokens} != the cold start's {ref.tokens}")
         out["handover"] = {
             "root": str(root), "steps": SWAP_STEPS, "digests": digests,
-            "prompts": prompts,
+            "prompts": prompts, "key_levels": key_levels,
+            "chain_step": SWAP_STEPS[1], "chain_entries": first_ents,
             "late_logits": late_logits.cpu().numpy()[0].copy(),
             "late_tokens": list(ref.tokens)}
         check(bool(torch.isfinite(late_logits).all()) and
               list(late_logits.shape) == [1, cfg.vocab_size],
               "delta_swap: late prefill logits not finite or misshaped")
-        del cold, cold_tree, sess, ents
+        del cold, cold_tree, sess, ents, first_ents
         # tick 1 holds the prefill and tick 2 captures the decode graph
         decode_before = float(np.median(tick_ms[2:SWAP_TICKS]))
         decode_after = float(np.median(tick_ms[2 * SWAP_TICKS:]))
@@ -3591,7 +3649,7 @@ def _fisher_leaves(cfg, params, what):
 
 def phase_fim(device, cpu="cpu"):
     """The empirical FIM (``fisher_for``) of the full-width llama3-8b cut
-    to DEPLOY_LAYERS layers: in its bf16 on the card (every leaf finite,
+    to FIM_LAYERS layers: in its bf16 on the card (every leaf finite,
     wq/wk/wv nonzero, no kernel launched, empty report), then in f32 on the
     card against the same f32 weights on the CPU, per leaf within TOL_F32
     of max|F|."""
@@ -3599,15 +3657,15 @@ def phase_fim(device, cpu="cpu"):
     from repro_torch.compression import flatten_tree
     from repro_torch.compression.tree import unflatten
 
-    cfg, params = _full_cut(device)
+    cfg, params = _full_cut(device, num_layers=FIM_LAYERS)
     torch.cuda.reset_peak_memory_stats()
     _, bf16_s, launches = _fisher_leaves(cfg, params, "bf16")
     bf16_peak = torch.cuda.max_memory_allocated()
     del params
     gc.collect()
     torch.cuda.empty_cache()
-    cfg32, params = _full_cut(device, param_dtype="float32",
-                              compute_dtype="float32")
+    cfg32, params = _full_cut(device, num_layers=FIM_LAYERS,
+                              param_dtype="float32", compute_dtype="float32")
     torch.cuda.reset_peak_memory_stats()
     f_card, f32_s, _ = _fisher_leaves(cfg32, params, "f32 card")
     f32_peak = torch.cuda.max_memory_allocated()
@@ -3753,16 +3811,12 @@ def _state_mismatches(got: dict, want: dict) -> list:
     compared as their bit patterns, so a NaN equals itself)."""
     import torch
     from repro_torch.compression.tree import flatten_tree
-    as_int = {torch.bfloat16: torch.int16, torch.float32: torch.int32}
     g, w = flatten_tree(got), flatten_tree(want)
     bad = sorted(set(g) ^ set(w))
     for k in sorted(set(g) & set(w)):
         a, b = g[k], w[k]
         if isinstance(a, torch.Tensor):
-            same = (a.dtype == b.dtype and a.shape == b.shape and
-                    torch.equal(a.view(as_int.get(a.dtype, a.dtype)),
-                                b.to(a.device).view(as_int.get(b.dtype,
-                                                               b.dtype))))
+            same = _bits_equal(a, b)
         else:
             same = int(a) == int(b)
         if not same:
@@ -3926,8 +3980,10 @@ def phase_train(device):
     gradient compression, batches of TRAIN_BATCH x TRAIN_SEQ.  (a) a
     straight ``train_loop`` of TRAIN_STEPS steps; (b) the same with raw
     async checkpoints every TRAIN_CKPT_EVERY steps under ``build/``,
-    SIGTERM sent while step TRAIN_SIGTERM_AT + 1 runs (the loop ends
-    after it with a final save), then a resumed loop to the end: its
+    SIGTERM sent while step TRAIN_SIGTERM_AT + 1 runs, off the cadence
+    (the loop ends after it with a final save), then a resumed loop to the
+    end (its last step a cadence save, not written twice): the saves are
+    those two steps, its
     losses and final state equal (a)'s bit for bit (under
     ``torch.use_deterministic_algorithms``); (c) ``make_prefill_step`` and
     TRAIN_DECODE greedy ``make_decode_step``s on the trained params: the
@@ -4064,6 +4120,11 @@ def phase_train(device):
         check(steps_on_disk[-1] == TRAIN_STEPS and
               len(timing["restores"]) == 1, f"train (b): on disk "
               f"{steps_on_disk}, {len(timing['restores'])} restores")
+        saved_steps = [sv_["step"] for sv_ in timing["saves"]]
+        check(saved_steps == [TRAIN_SIGTERM_AT + 1, TRAIN_STEPS],
+              f"train (b): saved steps {saved_steps}, want the preempted "
+              f"loop's final save at {TRAIN_SIGTERM_AT + 1} and the "
+              f"resumed loop's cadence save at {TRAIN_STEPS}, once")
         bad = _state_mismatches(captured.pop("state"), state_a)
         check(not bad, f"train (b): the resumed run's final state differs "
               f"from the straight run's in {bad}")
@@ -4198,6 +4259,377 @@ def phase_train(device):
                     f"{v['param_part_share']:.4f}, codes within "
                     f"{v['code_max_diff']}" for a, v in out["smoke"].items()))
     out["launches"] = out["c"]["launches"]
+    return out
+
+
+# ---------------------------------------------------------------------------
+# distribution on a one-rank NCCL world (distributed/, launch/mesh.py,
+# checkpoint restores onto a DeviceMesh, a backend's mesh=)
+# ---------------------------------------------------------------------------
+
+def nccl_world() -> str:
+    """Initialise the one-rank NCCL process group the distribution phases
+    run on; its rendezvous is a ``FileStore`` under ``build/`` (no
+    network).  Returns the backend's name."""
+    import torch
+    import torch.distributed as dist
+    DIST_STORE.parent.mkdir(parents=True, exist_ok=True)
+    DIST_STORE.unlink(missing_ok=True)
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", store=dist.FileStore(str(DIST_STORE), 1),
+                            rank=0, world_size=1)
+    check(dist.get_backend() == "nccl", f"process group on "
+          f"{dist.get_backend()}, not NCCL")
+    return dist.get_backend()
+
+
+def _bits_equal(a, b) -> bool:
+    """Equal dtype, shape and bits (``b`` moved to ``a``'s device)."""
+    import torch
+    as_int = {torch.bfloat16: torch.int16, torch.float32: torch.int32}
+    b = b.to(a.device)
+    return (a.dtype == b.dtype and a.shape == b.shape and
+            torch.equal(a.view(as_int.get(a.dtype, a.dtype)),
+                        b.view(as_int.get(b.dtype, b.dtype))))
+
+
+def phase_mesh_restore(device, swap):
+    """Restores onto the card's ``DeviceMesh`` (data 1, model 1) from
+    delta_swap's chain, without a new encode: ``restore_on_mesh`` of the
+    keyframe, every leaf a DTensor whose local tensor equals, bit for
+    bit, the keyframe's host decode (its coded levels as delta_swap's cold
+    start decoded them through ``restore_flat``'s path, its raw records
+    read here, dequantized as ``restore_flat`` dequantizes them);
+    ``restore_on_mesh_delta`` of the first P-frame against delta_swap's
+    host chain decode of that step (the P-frame applied to the keyframe's
+    levels, as ``restore_flat_delta`` resolves it; reused, not decoded
+    again, for time: a frame of the chain rereads the raw embed and head,
+    so the last P-frame would cost one more); ``restore_local_slices`` of
+    device 0 of
+    SWAP_MESH decoding fewer values than the manifest holds; and a bf16
+    backend with ``mesh=`` loading the keyframe into a graph-replaying
+    ``ServeSession`` whose greedy tokens equal those of the same
+    backend's load of the same entries without a mesh, with flash
+    launched once a prefill and layer and an empty report."""
+    import torch
+    from torch.distributed.tensor import DTensor
+    from repro_torch import configs
+    from repro_torch.checkpoint import delta, sharded
+    from repro_torch.checkpoint.sharded import MeshSpec
+    from repro_torch.kernels import registry
+    from repro_torch.launch.mesh import device_mesh, make_local_mesh
+    from repro_torch.serve.backends import get_backend
+    from repro_torch.serve.session import ServeConfig, ServeSession
+
+    root = Path(swap["root"])
+    steps = swap["steps"]
+    key = root / f"step_{steps[0]:08d}"
+    mesh = device_mesh(make_local_mesh(1, 1), device)
+    out: dict = {"mesh": {"data": 1, "model": 1}}
+    secs = {}
+
+    t0 = time.perf_counter()
+    placed = sharded.restore_on_mesh(str(key), mesh,
+                                     workers=MESH_RESTORE_WORKERS)
+    torch.cuda.synchronize()
+    secs["restore_on_mesh"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    manifest = sharded.load_manifest(str(key))
+    entries = dict(swap.pop("key_levels"))
+    for name, tinfo in sorted(manifest["tensors"].items()):
+        if name not in entries:         # raw records: not tracked levels
+            entries[name] = sharded.assemble_slice(
+                str(key), name, tinfo, num_gr=manifest.get("num_gr"),
+                dequantize=False)
+    secs["host_raw_records"] = time.perf_counter() - t0
+
+    def want_of(rec):
+        return rec if isinstance(rec, torch.Tensor) else rec.dequantize()
+    bad = sorted(set(placed) ^ set(entries))
+    for name, rec in entries.items():
+        got = placed.get(name)
+        if not (isinstance(got, DTensor) and
+                _bits_equal(got.to_local(), want_of(rec))):
+            bad.append(name)
+    check(not bad, f"mesh_restore: restore_on_mesh of the keyframe differs "
+          f"from its host decode in {bad}")
+    out["keyframe_tensors"] = len(placed)
+    out["keyframe_coded"] = sum(not isinstance(r, torch.Tensor)
+                                for r in entries.values())
+    del placed
+
+    t0 = time.perf_counter()
+    pstep = swap["chain_step"]
+    on_mesh = delta.restore_on_mesh_delta(str(root), pstep, mesh,
+                                          workers=MESH_RESTORE_WORKERS)
+    torch.cuda.synchronize()
+    secs["restore_on_mesh_delta"] = time.perf_counter() - t0
+    chain = swap.pop("chain_entries")
+    bad = sorted(set(on_mesh) ^ set(chain))
+    for name, rec in chain.items():
+        got = on_mesh.get(name)
+        if not (isinstance(got, DTensor) and
+                _bits_equal(got.to_local(), want_of(rec))):
+            bad.append(name)
+    check(not bad, f"mesh_restore: restore_on_mesh_delta of step "
+          f"{pstep} differs from the host chain in {bad}")
+    del on_mesh, chain
+
+    stats = sharded.RestoreStats()
+    t0 = time.perf_counter()
+    sharded.restore_local_slices(str(key), MeshSpec.from_any(SWAP_MESH), [0],
+                                 stats=stats)
+    secs["local_slices"] = time.perf_counter() - t0
+    total = sharded.manifest_total_values(sharded.load_manifest(str(key)))
+    check(0 < stats.decoded_values < total, f"mesh_restore: device 0 of "
+          f"{SWAP_MESH} decoded {stats.decoded_values} of {total} values")
+    out["local_slices"] = {**stats.as_dict(), "manifest_values": total}
+
+    cfg = configs.get("llama3-8b").replace(num_layers=DELTA_SWAP_LAYERS)
+    prompts = swap["prompts"]
+    scfg = ServeConfig(slots=len(prompts),
+                       max_len=prompts.shape[1] + SWAP_LATE_TOKENS)
+    runs = {}
+    for mode in ("mesh", "plain"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        clear_reports()
+        registry.reset_launch_counts()
+        t0 = time.perf_counter()
+        if mode == "mesh":
+            sess = ServeSession(cfg, str(key),
+                                backend=get_backend("bf16", mesh=mesh),
+                                serve_cfg=scfg, device=device)
+        else:
+            be = get_backend("bf16")
+            sess = ServeSession.from_loaded(
+                cfg, be.load_entries(cfg, entries, device), backend=be,
+                serve_cfg=scfg, device=device)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        hs = [sess.submit(p, SWAP_LATE_TOKENS) for p in prompts]
+        sess.run()
+        torch.cuda.synchronize()
+        runs[mode] = {"tokens": [list(h.tokens) for h in hs],
+                      "launches": registry.launch_counts(),
+                      "report": registry.dispatch_report(),
+                      "graphs": dict(sess.graphs.stats), "load_s": load_s,
+                      "leaf_types": sorted({type(v).__name__ for v in
+                                            _leaves(sess.params)})}
+        sess.close()
+        del sess
+    del entries
+    m, p = runs["mesh"], runs["plain"]
+    check(m["tokens"] == p["tokens"], f"mesh_restore: the mesh-loaded "
+          f"session's tokens {m['tokens']} != the plain load's "
+          f"{p['tokens']}")
+    check(m["launches"]["flash_attention"] == flash_per_prefill(cfg) and
+          not m["launches"]["dequant_matmul"] and not m["report"] and
+          m["launches"] == p["launches"] and m["leaf_types"] == ["Tensor"],
+          f"mesh_restore: launches {m['launches']} (plain "
+          f"{p['launches']}; {flash_per_prefill(cfg)} flash expected), "
+          f"report {m['report']}, leaves {m['leaf_types']}")
+    check(m["graphs"]["replays"] > 0, f"mesh_restore: the session replayed "
+          f"no graph: {m['graphs']}")
+    out.update(seconds=secs, serve=runs, launches=m["launches"])
+    log(f"[mesh_restore] delta_swap's chain onto the card's DeviceMesh "
+        f"(data 1, model 1), NCCL: restore_on_mesh of the keyframe "
+        f"{secs['restore_on_mesh']:.2f} s ({out['keyframe_tensors']} "
+        f"DTensors equal its host decode bit for bit: "
+        f"{out['keyframe_coded']} coded, as delta_swap's cold start decoded "
+        f"them, and raw records read in {secs['host_raw_records']:.2f} s); "
+        f"restore_on_mesh_delta of step {pstep} "
+        f"{secs['restore_on_mesh_delta']:.2f} s (= delta_swap's host chain "
+        f"decode of it); restore_local_slices of device 0 of "
+        f"{SWAP_MESH} decoded {stats.decoded_values} of {total} values in "
+        f"{secs['local_slices']:.2f} s; a bf16 backend with mesh= loaded "
+        f"in {m['load_s']:.2f} s (plain {p['load_s']:.2f}), "
+        f"{len(prompts)} x {SWAP_LATE_TOKENS} greedy tokens equal the plain "
+        f"load's, graphs {m['graphs']}, launches {m['launches']}, empty "
+        f"report")
+    return out
+
+
+def phase_collectives(device):
+    """The collectives at full width on the one-rank NCCL world:
+    ``cross_pod_psum_compressed`` of a llama3-8b ``w_gate``-shaped f32
+    tensor PSUM_SHAPE on a (pod 1, data 1, model 1) mesh equals
+    ``q8_decode(q8_encode(x))`` bit for bit (its wire bytes per value
+    and ms beside the plain q8 round trip's); ``gpipe_apply`` with one
+    stage over GPIPE_MICRO microbatches of GPIPE_ROWS x d_model through
+    one llama3-8b MLP block in bf16 equals the block applied to each
+    microbatch in sequence bit for bit (ms beside it)."""
+    import torch
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from repro_torch import configs
+    from repro_torch.compression.q8 import q8_decode, q8_encode
+    from repro_torch.distributed.compress import cross_pod_psum_compressed
+    from repro_torch.distributed.pipeline_stage import gpipe_apply
+    from repro_torch.launch.mesh import device_mesh, make_local_mesh
+    from repro_torch.models.layers import swiglu_mlp
+
+    mesh = device_mesh(make_local_mesh(1, 1, pod=1), device)
+    g = torch.Generator(device=device).manual_seed(7)
+    x = torch.randn(PSUM_SHAPE, generator=g, device=device)
+    xd = DTensor.from_local(x, mesh, [Shard(0), Replicate(), Replicate()],
+                            run_check=False)
+    stats: dict = {}
+    y = cross_pod_psum_compressed(xd, mesh, stats=stats)
+    want = q8_decode(*q8_encode(x[0]))
+    check(isinstance(y, DTensor) and tuple(y.shape) == PSUM_SHAPE and
+          _bits_equal(y.to_local()[0], want), "collectives: the compressed "
+          "psum on a pod axis of 1 is not q8_decode(q8_encode(x))")
+    wire = stats["wire_bytes"] / stats["elements"]
+    check(wire <= 1.04, f"collectives: {wire:.4f} wire bytes a value")
+    psum_ms = time_ms(lambda: cross_pod_psum_compressed(xd, mesh))
+    q8_ms = time_ms(lambda: q8_decode(*q8_encode(x[0])))
+    del x, xd, y, want
+
+    cfg = configs.get("llama3-8b")
+    d, f = cfg.d_model, cfg.d_ff
+    params = {k: (0.02 * torch.randn((1, *shape), generator=g,
+                                     device=device)).to(torch.bfloat16)
+              for k, shape in (("w_gate", (d, f)), ("w_up", (d, f)),
+                               ("w_down", (f, d)))}
+    x_mb = torch.randn((GPIPE_MICRO, *GPIPE_ROWS, d), generator=g,
+                       device=device).to(torch.bfloat16)
+
+    def block(p, xm):
+        return swiglu_mlp(xm, p, cfg.act, policy=cfg.kernels)
+    stage = {k: v[0] for k, v in params.items()}
+    got = gpipe_apply(block, params, x_mb, mesh, axis="pod")
+    seq = torch.stack([block(stage, xm) for xm in x_mb])
+    check(_bits_equal(got, seq), "collectives: gpipe_apply with one stage "
+          "differs from the block applied in sequence")
+    gpipe_ms = time_ms(lambda: gpipe_apply(block, params, x_mb, mesh,
+                                           axis="pod"))
+    seq_ms = time_ms(lambda: [block(stage, xm) for xm in x_mb])
+    out = {"psum": {"shape": list(PSUM_SHAPE), "wire_bytes_per_value": wire,
+                    **stats, "ms": psum_ms, "q8_roundtrip_ms": q8_ms},
+           "gpipe": {"microbatches": GPIPE_MICRO, "rows": list(GPIPE_ROWS),
+                     "ms": gpipe_ms, "sequential_ms": seq_ms}}
+    log(f"[collectives] cross_pod_psum_compressed {PSUM_SHAPE} f32 on a pod "
+        f"axis of 1 (NCCL): = q8_decode(q8_encode(x)) bit for bit, "
+        f"{wire:.5f} wire bytes a value (f32: 4), {psum_ms:.3f} ms (the "
+        f"plain q8 round trip {q8_ms:.3f}); gpipe_apply, 1 stage, "
+        f"{GPIPE_MICRO} x {GPIPE_ROWS} x {d} bf16 through a llama3-8b MLP "
+        f"block: = the block in sequence bit for bit, {gpipe_ms:.3f} ms "
+        f"(sequence {seq_ms:.3f})")
+    return out
+
+
+def phase_train_dp(device):
+    """The data-parallel train step on the one-rank NCCL world's
+    (data 1, model 1) ``DeviceMesh`` at the train phase's width
+    (llama3-8b, TRAIN_LAYERS layers, TRAIN_BATCH x TRAIN_SEQ, 8-bit
+    moments + EF): DP_STEPS steps of the mesh-free step and DP_STEPS of
+    ``train_loop`` on the mesh (its step on the mesh, the stop flag
+    all-reduced each step, the closing barrier; no checkpoint) from the
+    same seed and batches, under deterministic algorithms: losses and the
+    whole state (parameters, moments, EF, counters) equal bit for bit,
+    compared on the card; ms/step of each (median after the first); then
+    ``make_prefill_step`` on the mesh launches flash once a layer, with
+    the mesh-free prefill's logits bit for bit and an empty report."""
+    import os
+    from unittest import mock
+
+    import numpy as np
+    import torch
+    from repro_torch import configs
+    from repro_torch.data.pipeline import make_batch
+    from repro_torch.distributed.compress import CompressionConfig
+    from repro_torch.kernels import registry
+    from repro_torch.launch.mesh import device_mesh, make_local_mesh
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train import loop as loop_mod
+    from repro_torch.train.steps import (init_train_state, make_prefill_step,
+                                         make_train_step)
+
+    cfg = configs.get("llama3-8b").replace(num_layers=TRAIN_LAYERS)
+    opt = AdamWConfig(quantized_moments=True)
+    comp = CompressionConfig(enabled=True)
+    mesh = device_mesh(make_local_mesh(1, 1), device)
+    runs = {}
+    prev_env = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    torch.use_deterministic_algorithms(True)
+    try:
+        # the mesh-free step, DP_STEPS steps (the loop's schedule: warmup
+        # and cosine over DP_STEPS)
+        state = init_train_state(cfg, opt, comp, seed=0, device=device)
+        _, make = make_train_step(cfg, None, opt, comp, total_steps=DP_STEPS)
+        fn = make(state, None)
+        losses, ms = [], []
+        for i in range(DP_STEPS):
+            batch = make_batch(cfg, i, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                               seed=0)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, metrics = fn(state, batch)
+            losses.append(float(metrics["loss"]))
+            torch.cuda.synchronize()
+            ms.append(1e3 * (time.perf_counter() - t0))
+        runs["mesh_free"] = {"state": state, "losses": losses,
+                             "step_ms": ms,
+                             "ms_per_step": float(np.median(ms[1:]))}
+        del state
+        # train_loop on the mesh (the state it trains, updated in place)
+        captured = {}
+        init = loop_mod.init_train_state
+
+        def capture(*args, **kw):
+            captured["state"] = init(*args, **kw)
+            return captured["state"]
+        with mock.patch.object(loop_mod, "init_train_state", capture):
+            res = loop_mod.train_loop(
+                cfg, mesh, loop_mod.LoopConfig(
+                    total_steps=DP_STEPS, batch=TRAIN_BATCH, seq=TRAIN_SEQ),
+                opt, comp, device=device)
+        check(res.final_step == DP_STEPS, f"train_dp: train_loop on the "
+              f"mesh ended at step {res.final_step}")
+        ms = [1e3 * t for t in res.step_times]
+        runs["mesh"] = {"state": captured.pop("state"),
+                        "losses": res.losses, "step_ms": ms,
+                        "ms_per_step": float(np.median(ms[1:]))}
+        free_s, mesh_s = runs["mesh_free"], runs["mesh"]
+        check(mesh_s["losses"] == free_s["losses"], f"train_dp: losses "
+              f"{mesh_s['losses']} on the mesh, {free_s['losses']} without")
+        bad = _state_mismatches(mesh_s.pop("state"), free_s["state"])
+        check(not bad, f"train_dp: the mesh step's state differs from the "
+              f"mesh-free step's in {bad}")
+        params = free_s.pop("state")["params"]
+        rng = np.random.default_rng(3)
+        toks = torch.from_numpy(rng.integers(
+            0, cfg.vocab_size, (TRAIN_PROMPTS, TRAIN_SEQ))).to(device)
+        want, _ = make_prefill_step(cfg, None)(params, {"tokens": toks})
+        clear_reports()
+        registry.reset_launch_counts()
+        got, caches = make_prefill_step(cfg, mesh)(params, {"tokens": toks})
+        torch.cuda.synchronize()
+        launches = registry.launch_counts()
+        report = registry.dispatch_report()
+        del caches, params
+    finally:
+        torch.use_deterministic_algorithms(False)
+        if prev_env is None:
+            os.environ.pop("CUBLAS_WORKSPACE_CONFIG", None)
+        else:
+            os.environ["CUBLAS_WORKSPACE_CONFIG"] = prev_env
+    check(launches["flash_attention"] == TRAIN_LAYERS and not report and
+          _bits_equal(got, want), f"train_dp: the prefill step on the mesh "
+          f"launched {launches} ({TRAIN_LAYERS} flash expected), report "
+          f"{report}, logits equal: {_bits_equal(got, want)}")
+    out = {"steps": DP_STEPS, "batch": [TRAIN_BATCH, TRAIN_SEQ],
+           "launches": launches, **runs}
+    log(f"[train_dp] llama3-8b full width, {TRAIN_LAYERS} layers, 8-bit "
+        f"moments + EF, {TRAIN_BATCH} x {TRAIN_SEQ}: {DP_STEPS} steps of "
+        f"train_loop on the NCCL DeviceMesh (data 1, model 1) equal the "
+        f"mesh-free steps bit for bit (losses {runs['mesh']['losses']}, "
+        f"the whole state); "
+        f"{runs['mesh']['ms_per_step']:.2f} ms/step on the mesh, "
+        f"{runs['mesh_free']['ms_per_step']:.2f} without (median after the "
+        f"first); the mesh's prefill step launched {launches}, logits equal "
+        f"the mesh-free prefill's, empty report")
     return out
 
 
@@ -4921,7 +5353,8 @@ def phase_serve_mla_paged(cfg, tree, device):
 def summarize(dm_rows, fa_rows, grouped_rows, serve, serve_moe, rd_rows,
               deploy, serve_moe_f32, sweep, swap, grouped_v3, serve_dense,
               serve_mla, embeds, serve_ssm, serve_hybrid, hybrid_f32,
-              serve_paged, serve_mla_paged, zoo, train):
+              serve_paged, serve_mla_paged, zoo, train, train_dp,
+              mesh_restore):
     """One entry per kernel and, for flash_attention and
     dequant_matmul_grouped, one per instance (``instance``).
     dequant_matmul: one full-width llama3-8b decode step's 225 calls at 4
@@ -4961,7 +5394,10 @@ def summarize(dm_rows, fa_rows, grouped_rows, serve, serve_moe, rd_rows,
     of ``serve_paged`` (llama3-8b, graph run; the eager run's are checked
     equal) and dequant_matmul's and the E = 256 grouped instance's of
     ``serve_mla_paged``.  The training phase's prefill step (``train``, 2
-    layers) launches the bf16 flash instance: ``train_launches``."""
+    layers) launches the bf16 flash instance: ``train_launches``; so do
+    the data-parallel prefill step on the NCCL mesh (``train_dp``, 2
+    layers: ``train_dp_launches``) and the session on the mesh-loaded bf16
+    keyframe (``mesh_restore``, 1 layer: ``mesh_restore_launches``)."""
     def row(m, k, n, x):
         return next(r for r in dm_rows if (r["arch"], r["m"], r["k"], r["n"],
                                            r["x"]) ==
@@ -5010,6 +5446,8 @@ def summarize(dm_rows, fa_rows, grouped_rows, serve, serve_moe, rd_rows,
     dm["delta_swap_launches"] = swap["launches"]["dequant_matmul"]
     fa["zoo_launches"] = zoo["launches"]["flash_attention"]
     fa["train_launches"] = train["launches"]["flash_attention"]
+    fa["train_dp_launches"] = train_dp["launches"]["flash_attention"]
+    fa["mesh_restore_launches"] = mesh_restore["launches"]["flash_attention"]
     dm["zoo_launches"] = zoo["launches"]["dequant_matmul"]
     fa32 = fa_entry(16, "float32",
                     serve_moe_f32["launches"]["flash_attention"],
@@ -5183,7 +5621,13 @@ def main() -> int:
     free()
     run("delta_swap", phase_delta_swap, device)
     free()
-    run("zoo", phase_zoo, device, results["delta_swap"].pop("handover"))
+    handover = results["delta_swap"].pop("handover")
+    results["dist_backend"] = nccl_world()
+    run("mesh_restore", phase_mesh_restore, device, handover)
+    free()
+    run("collectives", phase_collectives, device)
+    free()
+    run("zoo", phase_zoo, device, handover)
     free()
     # deepseek-moe-16b once every llama3-8b tensor is freed
     cfg, params = init_full(device, "deepseek-moe-16b")
@@ -5231,7 +5675,11 @@ def main() -> int:
     free()
     run("train", phase_train, device)
     free()
+    run("train_dp", phase_train_dp, device)
+    free()
     run("rd_sweep", phase_rd_sweep, device)
+    import torch.distributed as dist
+    dist.destroy_process_group()
     for key in ("tokens", "logits"):      # serve_mla_tuned's reference
         results["serve_mla"].pop(key)
     results["phase_seconds"] = phase_s
@@ -5249,7 +5697,8 @@ def main() -> int:
                         results["serve_hybrid"],
                         results["serve_hybrid_f32"],
                         results["serve_paged"], results["serve_mla_paged"],
-                        results["zoo"], results["train"])
+                        results["zoo"], results["train"],
+                        results["train_dp"], results["mesh_restore"])
     results["kernels"] = kernels
     results["seconds"] = time.perf_counter() - t0
     out_dir = ROOT / "chiprun_out"

@@ -33,8 +33,8 @@ Keyframes may equally be monolithic (``params.dcbc``); the base
 reference then pins that blob's hash.  Restore always resolves the whole
 chain: :func:`restore_levels` reconstructs the quantized entries (what a
 serving backend cold-starts a chain's tip from) and
-:func:`restore_flat_delta` full host tensors; placing them on a mesh of
-cards (``restore_on_mesh_delta``) waits for the multi-card slice.  The
+:func:`restore_flat_delta` full host tensors, which
+:func:`restore_on_mesh_delta` places on a ``DeviceMesh``.  The
 files, manifests and error messages are the reference's, so a chain
 written by either package restores in the other.
 
@@ -58,7 +58,8 @@ from ..core.codec import (DEFAULT_CHUNK, DecodeOptions, DeltaTensor,
                           encode_level_chunks_batched)
 from ..core.container import ENC_CABAC_DELTA, ContainerReader, ContainerWriter
 from .sharded import (MANIFEST_FORMAT, MANIFEST_NAME, MANIFEST_VERSION_DELTA,
-                      _is_raw, load_manifest, restore_flat, verify_files)
+                      _is_raw, load_manifest, place_on_mesh, restore_flat,
+                      verify_files)
 
 DELTA_FILE = "delta_00000.dcbc"
 PARAMS_FILE = "params.dcbc"            # monolithic keyframe payload
@@ -458,7 +459,19 @@ def restore_flat_delta(directory: str, step: int | None = None, *,
                                        verify=verify))
 
 
-def restore_on_mesh_delta(*args, **kwargs):
-    """A delta step placed on a mesh of cards: waits for the multi-card
-    slice."""
-    raise NotImplementedError("restore_on_mesh_delta: not yet ported")
+def restore_on_mesh_delta(directory: str, step: int | None, mesh, *,
+                          rules=None, opts: DecodeOptions | None = None,
+                          max_depth: int = DEFAULT_MAX_DEPTH,
+                          workers: int = 0, verify: bool = False) -> dict:
+    """Restore a delta step as ``DTensor``\\ s on any target
+    ``DeviceMesh`` (elastic: the mesh need not match any save mesh in the
+    chain).  Residual reconstruction is inherently full-frame — every
+    P-frame element needs its co-located base level — so tensors are
+    chain-reconstructed on the host, then each placed with its spec on
+    the target mesh (the same rule table the training specs use): this
+    rank keeps its box."""
+    flat = restore_flat_delta(directory, step, opts=opts,
+                              max_depth=max_depth, workers=workers,
+                              verify=verify)
+    return {name: place_on_mesh(name, arr, mesh, rules=rules)
+            for name, arr in flat.items()}

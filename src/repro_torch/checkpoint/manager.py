@@ -22,8 +22,8 @@ bits, since numpy has no bfloat16, restored by the template's dtype).
 Sharded checkpoints (``CheckpointConfig.sharded=True``): one DCBC container
 file per owning device of the save mesh (a ``sharded.MeshSpec``, no
 devices needed) plus ``params.manifest.json``; restore assembles each
-tensor from the manifest on the host.  Placing it on a mesh of cards waits
-for the multi-card slice.
+tensor from the manifest on the host, or with ``mesh=`` (a
+``torch.distributed`` ``DeviceMesh``) only the box each rank holds.
 
 Delta ("P-frame") checkpoints (``CheckpointConfig.delta_every=K`` with a
 delta-capable codec, e.g. ``codec="deepcabac-delta"``): every K-th save
@@ -53,6 +53,7 @@ import torch
 from ..arrays import BF16, from_storage, to_storage
 from ..compression import decompress
 from ..compression.tree import flatten_tree, unflatten, unflatten_like
+from ..distributed.sharding import check_mesh
 from ..kernels.registry import resolve_device
 from . import delta as delta_mod
 from . import sharded
@@ -323,26 +324,47 @@ class CheckpointManager:
 
     # -- restore --------------------------------------------------------------
     def restore(self, template_state, step: int | None = None,
-                device="cuda"):
+                device="cuda", mesh=None):
         """Rebuild ``template_state``'s tree from disk: every tensor with
         its template leaf's shape and dtype on ``device`` (the card unless
         ``"cpu"`` is asked for; an absent card raises), scalars as the
         template's types.  Cold-start decode is batched (every CABAC chunk
         of a monolithic container joins one lane batch); sharded steps
         are assembled from their manifest and delta steps resolve their
-        chain.  Returns ``(state, meta)``."""
+        chain.  With ``mesh`` (a ``DeviceMesh`` on ``device``'s type, any
+        shape, not necessarily the save mesh) a sharded step's parameters
+        come back as ``DTensor``\\ s, each rank decoding only its boxes
+        (``sharded.restore_on_mesh``; a P-frame is rebuilt on the host and
+        placed, ``delta.restore_on_mesh_delta``); a monolithic step
+        raises.  Returns ``(state, meta)``."""
         dev = resolve_device(device)
+        if mesh is not None:
+            check_mesh(mesh, dev)
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError("no checkpoints found")
         d = os.path.join(self.cfg.directory, f"step_{step:08d}")
-        if os.path.exists(os.path.join(d, sharded.MANIFEST_NAME)):
-            if sharded.load_manifest(d).get("base") is not None:
+        is_sharded = os.path.exists(os.path.join(d, sharded.MANIFEST_NAME))
+        if mesh is not None and not is_sharded:
+            raise ValueError(
+                f"restore(mesh=...) needs a sharded checkpoint, but "
+                f"step {step} has no {sharded.MANIFEST_NAME} (monolithic "
+                f"save) — restore without mesh instead")
+        if is_sharded:
+            is_delta = sharded.load_manifest(d).get("base") is not None
+            if is_delta and mesh is not None:
+                flat = delta_mod.restore_on_mesh_delta(
+                    self.cfg.directory, step, mesh,
+                    workers=self.cfg.shard_workers)
+            elif is_delta:
                 # chained (P-frame) step: resolve the base chain and apply
                 # the residuals
                 flat = delta_mod.restore_flat_delta(
                     self.cfg.directory, step,
                     workers=self.cfg.shard_workers)
+            elif mesh is not None:
+                flat = sharded.restore_on_mesh(
+                    d, mesh, workers=self.cfg.shard_workers)
             else:
                 flat = sharded.restore_flat(
                     d, workers=self.cfg.shard_workers)

@@ -19,10 +19,13 @@ would.  The files and the manifest are byte-identical to the reference's
 for the same entries and mesh.  Quantization happens on the *full* tensor
 before sharding (the step size is a global per-tensor quantity), so a
 sharded save restores bit-identically to the monolithic path.  Restore is
-manifest-driven and host-side (:func:`restore_flat`, :func:`assemble_slice`:
-only the v3 chunk ranges a box needs are decoded); placing slices on a mesh
-of cards (``restore_on_mesh`` and its helpers) waits for the multi-card
-slice.
+manifest-driven (:func:`restore_flat`, :func:`assemble_slice`: only the v3
+chunk ranges a box needs are decoded).  Elastic restores onto a
+``torch.distributed`` ``DeviceMesh`` of any shape
+(:func:`restore_on_mesh`, :func:`restore_tensor_on_mesh`) decode on each
+rank only the box its mesh coordinates own and join the boxes as a
+``DTensor``; :func:`restore_local_slices` plans the same per device of a
+device-free :class:`MeshSpec`.
 """
 
 from __future__ import annotations
@@ -38,13 +41,15 @@ import numpy as np
 
 import torch
 
-from ..arrays import dtype_name
+from ..arrays import dtype_name, to_storage
 from ..core import binarization as B
 from ..core.codec import (DEFAULT_CHUNK, DecodeOptions, QuantizedTensor,
                           decode_level_chunks_batched, decode_record,
                           encode_level_chunks_batched)
 from ..core.container import ContainerWriter, read_record_at
-from ..distributed.sharding import logical_axes_for_path, spec_for
+from ..distributed.sharding import (logical_axes_for_path, mesh_device,
+                                    mesh_flat_index, placements_for,
+                                    spec_for)
 
 MANIFEST_NAME = "params.manifest.json"
 MANIFEST_FORMAT = "dcbc-manifest"
@@ -67,7 +72,9 @@ class MeshSpec:
 
     Shard-grid math only needs sizes, so a save runs on a host that cannot
     see the fleet's devices; an axis-size dict, or anything with a
-    ``.shape`` mapping, converts via :meth:`from_any`.
+    ``.shape`` mapping, converts via :meth:`from_any`, as does a
+    ``torch.distributed`` ``DeviceMesh`` (its ``mesh_dim_names`` and
+    ``.shape`` tuple).
     """
 
     axis_names: tuple
@@ -87,6 +94,9 @@ class MeshSpec:
             return mesh
         if mesh is None:
             return cls(("data",), (1,))
+        if getattr(mesh, "mesh_dim_names", None) is not None:  # DeviceMesh
+            return cls(tuple(mesh.mesh_dim_names),
+                       tuple(int(v) for v in mesh.shape))
         shape = mesh.shape if hasattr(mesh, "shape") else mesh
         return cls(tuple(shape.keys()),
                    tuple(int(v) for v in shape.values()))
@@ -149,6 +159,34 @@ def _owner_device(spec_axes: list[tuple], mesh: MeshSpec, index) -> int:
     for a in mesh.axis_names:
         flat = flat * mesh.shape[a] + coords[a]
     return flat
+
+
+def device_coords(flat: int, mesh: MeshSpec) -> dict:
+    coords = {}
+    for a in reversed(mesh.axis_names):
+        coords[a] = flat % mesh.shape[a]
+        flat //= mesh.shape[a]
+    return coords
+
+
+def _dim_shard_index(coords: dict, axes: tuple, mesh: MeshSpec) -> int:
+    """Compose one dim's shard index from mesh coords (first axis major,
+    matching jax PartitionSpec semantics for tuple entries)."""
+    idx = 0
+    for a in axes:
+        idx = idx * mesh.shape.get(a, 1) + coords.get(a, 0)
+    return idx
+
+
+def device_box(shape, spec_axes: list[tuple], mesh: MeshSpec,
+               flat_device: int) -> tuple[tuple, tuple]:
+    """The [start, stop) box of ``shape`` that ``flat_device`` holds under
+    the given spec — restore planning for one device of a target mesh."""
+    coords = device_coords(flat_device, mesh)
+    grid = shard_grid(spec_axes, mesh)
+    index = tuple(_dim_shard_index(coords, axes, mesh)
+                  for axes in spec_axes)
+    return shard_box(shape, grid, index)
 
 
 def spec_axes_for(name: str, shape, mesh: MeshSpec,
@@ -506,22 +544,118 @@ def restore_flat(directory: str, *, opts: DecodeOptions | None = None,
     return dict(_pool_map(job, items, workers))
 
 
-def restore_tensor_on_mesh(*args, **kwargs):
-    """Placement of one tensor's slices on a mesh of cards: waits for the
-    multi-card slice."""
-    raise NotImplementedError("restore_tensor_on_mesh: not yet ported")
+def restore_tensor_on_mesh(directory: str, name: str, tinfo: dict, mesh,
+                           *, rules=None, opts: DecodeOptions | None = None,
+                           num_gr: int | None = None, dtype=None,
+                           workers: int = 0,
+                           stats: RestoreStats | None = None):
+    """Restore one tensor as a ``DTensor`` on ``mesh`` (a ``DeviceMesh``).
+
+    The target spec is re-resolved against ``mesh`` (any shape — not
+    necessarily the save mesh); this rank's box (its mesh coordinates'
+    ``device_box``) is assembled from only the saved shards and v3 chunk
+    ranges that cover it, decoded once, cast to ``dtype`` (a torch dtype;
+    default the record's), moved to the rank's device and joined with
+    ``DTensor.from_local``.  No full tensor is built on the host for a
+    sharded tensor.  ``workers`` is the reference's: a rank decodes one
+    box."""
+    shape = tuple(tinfo["shape"])
+    spec, starts, stops = _mesh_box(name, shape, mesh, rules)
+    arr = assemble_slice(directory, name, tinfo, starts, stops, opts=opts,
+                         num_gr=num_gr, dequantize=True, stats=stats)
+    return _from_box(arr, spec, shape, mesh, dtype)
 
 
-def restore_on_mesh(*args, **kwargs):
-    """Elastic restore onto a mesh of cards: waits for the multi-card
-    slice."""
-    raise NotImplementedError("restore_on_mesh: not yet ported")
+def _mesh_box(name: str, shape, mesh, rules) -> tuple:
+    """(spec, starts, stops): ``name``'s spec on ``mesh`` and the box this
+    rank holds under it."""
+    spec_mesh = MeshSpec.from_any(mesh)
+    spec = spec_for(shape, logical_axes_for_path(name, len(shape)),
+                    spec_mesh, rules)
+    starts, stops = device_box(shape, _spec_axes(spec, len(shape)),
+                               spec_mesh, mesh_flat_index(mesh))
+    return spec, starts, stops
 
 
-def restore_local_slices(*args, **kwargs):
-    """The slices a subset of a target mesh's devices owns: waits for the
-    multi-card slice."""
-    raise NotImplementedError("restore_local_slices: not yet ported")
+def _from_box(box: torch.Tensor, spec, shape, mesh, dtype=None):
+    """This rank's box, moved to its device, as its part of a DTensor."""
+    from torch.distributed.tensor import DTensor
+    local = box.to(mesh_device(mesh), dtype or box.dtype).contiguous()
+    return DTensor.from_local(
+        local, mesh, placements_for(spec, mesh), run_check=False,
+        shape=torch.Size(shape),
+        stride=torch.empty(shape, device="meta").stride())
+
+
+def place_on_mesh(name: str, arr: torch.Tensor, mesh, *, rules=None):
+    """A whole host tensor as a ``DTensor`` on ``mesh`` under ``name``'s
+    spec: this rank's box is cut on the host and moved alone."""
+    shape = tuple(arr.shape)
+    spec, starts, stops = _mesh_box(name, shape, mesh, rules)
+    box = arr[tuple(slice(a, b) for a, b in zip(starts, stops))]
+    return _from_box(box, spec, shape, mesh)
+
+
+def restore_on_mesh(directory: str, mesh, *, rules=None,
+                    opts: DecodeOptions | None = None, workers: int = 0,
+                    stats: RestoreStats | None = None,
+                    verify: bool = False) -> dict:
+    """Elastic restore of every manifest tensor onto a (possibly
+    different) target ``DeviceMesh`` — see :func:`restore_tensor_on_mesh`.
+    ``workers`` > 1 decodes tensors' boxes on a thread pool."""
+    directory = manifest_dir(directory)
+    manifest = load_manifest(directory)
+    _reject_delta(manifest, directory, "restore_on_mesh")
+    if verify:
+        verify_files(directory, manifest)
+    num_gr = manifest.get("num_gr")
+
+    def job(item):
+        name, tinfo = item
+        return name, restore_tensor_on_mesh(
+            directory, name, tinfo, mesh, rules=rules, opts=opts,
+            num_gr=num_gr, stats=stats)
+    return dict(_pool_map(job, sorted(manifest["tensors"].items()), workers))
+
+
+def restore_local_slices(directory: str, mesh, local_devices,
+                         *, rules=None, opts: DecodeOptions | None = None,
+                         workers: int = 0,
+                         stats: RestoreStats | None = None) -> dict:
+    """Decode only the slices a subset of target-mesh devices owns — what
+    one host of a multi-host deployment (or a sub-mesh serving fleet)
+    pays at cold start.  ``mesh`` may be a :class:`MeshSpec`; no device
+    is touched.  Returns ``{name: {flat_device: ndarray}}`` (bf16 as its
+    uint16 bits: numpy has no bfloat16); a slice replicated on several of
+    the devices is decoded once."""
+    mesh = MeshSpec.from_any(mesh)
+    directory = manifest_dir(directory)
+    manifest = load_manifest(directory)
+    _reject_delta(manifest, directory, "restore_local_slices")
+    num_gr = manifest.get("num_gr")
+    jobs = []
+    devs_by_box: dict[tuple, list] = {}
+    for name, tinfo in sorted(manifest["tensors"].items()):
+        shape = tuple(tinfo["shape"])
+        axes = spec_axes_for(name, shape, mesh, rules)
+        for dev in local_devices:
+            starts, stops = device_box(shape, axes, mesh, dev)
+            key = (name, starts, stops)
+            if key not in devs_by_box:      # replicated slice: decode once
+                jobs.append((name, tinfo, starts, stops))
+            devs_by_box.setdefault(key, []).append(dev)
+
+    def decode(job):
+        name, tinfo, starts, stops = job
+        return (name, starts, stops), to_storage(assemble_slice(
+            directory, name, tinfo, starts, stops, opts=opts,
+            num_gr=num_gr, dequantize=True, stats=stats))
+
+    out: dict = {}
+    for key, arr in _pool_map(decode, jobs, workers):
+        for dev in devs_by_box[key]:        # every device gets its slice
+            out.setdefault(key[0], {})[dev] = arr
+    return out
 
 
 def manifest_total_values(manifest: dict) -> int:

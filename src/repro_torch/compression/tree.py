@@ -40,7 +40,9 @@ def unflatten_like(flat: dict, template: dict, device=None) -> dict:
     each tensor to ``device`` (default: the template leaf's device) and
     the leaf's dtype, and checking shapes.
     Quantized representations (a record with ``dequantize`` that is not a
-    tensor: every tensor has that method) are placed as they are."""
+    tensor: every tensor has that method) are placed as they are; a
+    ``DTensor`` stays on its mesh, cast to the leaf's dtype."""
+    from torch.distributed.tensor import DTensor
     out = {}
     for key, leaf in flatten_tree(template).items():
         if key not in flat:
@@ -49,8 +51,12 @@ def unflatten_like(flat: dict, template: dict, device=None) -> dict:
         if tuple(arr.shape) != tuple(leaf.shape):
             raise ValueError(f"{key}: checkpoint shape {tuple(arr.shape)} "
                              f"!= state {tuple(leaf.shape)}")
-        out[key] = (arr if not isinstance(arr, torch.Tensor)
-                    and hasattr(arr, "dequantize")
-                    else arr.to(leaf.device if device is None else device,
-                                leaf.dtype))
+        if isinstance(arr, DTensor):
+            out[key] = arr.to(leaf.dtype)
+        elif not isinstance(arr, torch.Tensor) and hasattr(arr,
+                                                           "dequantize"):
+            out[key] = arr
+        else:
+            out[key] = arr.to(leaf.device if device is None else device,
+                              leaf.dtype)
     return unflatten(out)

@@ -1,4 +1,6 @@
 """Distribution of the port: the sharding rules (per-dim mesh axes of a
-tensor, as a checkpoint manifest and the train state's specs need them)
-and error-feedback gradient compression on one card; the collectives and
-mesh placement wait for the distribution slice."""
+tensor, and their DTensor placements on a ``torch.distributed``
+``DeviceMesh``), error-feedback gradient compression and the compressed
+cross-pod sum (``compress``), the data-parallel batch group of the train
+steps (``data_parallel``) and GPipe stages over a mesh axis
+(``pipeline_stage``)."""

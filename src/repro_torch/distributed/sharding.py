@@ -9,6 +9,14 @@ replication).  A spec is a plain tuple with one entry per dim (``None``, an
 axis name or a tuple of names), as ``jax.sharding.PartitionSpec`` holds
 them, and a mesh is anything with a ``.shape`` mapping of axis sizes
 (``checkpoint.sharded.MeshSpec``): a save's shard grid needs no devices.
+
+On a ``torch.distributed`` ``DeviceMesh`` a spec becomes DTensor
+placements (:func:`placements_for`, the counterpart of the reference's
+``named_shardings``); :func:`check_mesh` refuses a mesh that cannot hold
+a tensor of a given device (no fallback to another device or backend).
+The reference's ``activation_sharding`` / ``constrain`` have no copy: the
+port's model is not traced under SPMD, and its data-parallel steps keep
+the state replicated, so no activation needs a layout constraint.
 """
 
 from __future__ import annotations
@@ -31,6 +39,24 @@ DEFAULT_RULES: dict[str, object] = {
     "seq": None,                   # set to "data" to enable SP
     "kv_seq": "model",             # decode KV-cache sequence sharding
     "moe_group": ("pod", "data"),  # MoE dispatch groups (== batch rows)
+}
+
+# Serving: no optimizer state, so parameters are TP-sharded and replicated
+# over data; MoE expert banks span (data x model).
+SERVE_RULES: dict[str, object] = {
+    **DEFAULT_RULES,
+    "fsdp": None,
+    "fsdp_pod": None,
+    "expert": ("data", "model"),
+    "moe_group": None,             # tokens -> expert owners is the all-to-all
+}
+
+# Prefill: like serving, but MoE dispatch groups shard with the batch and
+# experts stay on "model" (group-local dispatch).
+PREFILL_RULES: dict[str, object] = {
+    **SERVE_RULES,
+    "expert": "model",
+    "moe_group": ("pod", "data"),
 }
 
 
@@ -165,3 +191,84 @@ def build_param_specs(params, mesh, rules=None) -> dict:
                        logical_axes_for_path(name, len(leaf.shape)), mesh,
                        rules)
         for name, leaf in flatten_tree(params).items()})
+
+
+# ---------------------------------------------------------------------------
+# DeviceMesh placement (torch.distributed)
+# ---------------------------------------------------------------------------
+
+def mesh_axis_names(mesh) -> tuple:
+    """A ``DeviceMesh``'s axis names (``mesh_dim_names``, required)."""
+    names = getattr(mesh, "mesh_dim_names", None)
+    if not names:
+        raise ValueError("a DeviceMesh needs mesh_dim_names (the spec's "
+                         "axis names)")
+    return tuple(names)
+
+
+def placements_for(spec, device_mesh) -> list:
+    """DTensor placements of a spec tuple on ``device_mesh``: a dim whose
+    entry names mesh axes is ``Shard(dim)`` on each of them, every other
+    mesh dim ``Replicate()``.  A dim split over two mesh axes is split in
+    mesh-dim order by DTensor and in the tuple's order by JAX, so the
+    tuple must name them in mesh order (it does for every rule:
+    ``("pod", "data")``, ``("data", "model")``)."""
+    from torch.distributed.tensor import Replicate, Shard
+    names = mesh_axis_names(device_mesh)
+    out = [Replicate()] * len(names)
+    for dim, entry in enumerate(spec):
+        axes = (() if entry is None else
+                tuple(entry) if isinstance(entry, (tuple, list)) else (entry,))
+        idx = []
+        for a in axes:
+            if a not in names:
+                raise ValueError(f"spec {spec}: axis {a!r} is not on the "
+                                 f"mesh {names}")
+            if not isinstance(out[names.index(a)], Replicate):
+                raise ValueError(f"spec {spec}: mesh axis {a!r} shards two "
+                                 "dims")
+            idx.append(names.index(a))
+        if idx != sorted(idx):
+            raise ValueError(
+                f"spec {spec}: dim {dim} is split over {axes}, not in the "
+                f"mesh's order {names}; DTensor would split it in mesh "
+                "order and JAX in the tuple's")
+        for i in idx:
+            out[i] = Shard(dim)
+    return out
+
+
+def mesh_device(mesh):
+    """The device this rank holds on ``mesh``: the current card of a CUDA
+    mesh."""
+    import torch
+    if mesh.device_type == "cuda":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device(mesh.device_type)
+
+
+def mesh_flat_index(mesh) -> int:
+    """This rank's flat index on ``mesh`` (C order over its axes), the
+    numbering of ``checkpoint.sharded.device_box``."""
+    flat = 0
+    for size, c in zip(mesh.shape, mesh.get_coordinate()):
+        flat = flat * int(size) + int(c)
+    return flat
+
+
+def check_mesh(mesh, device) -> None:
+    """Raise unless ``mesh`` (a ``DeviceMesh``) can hold tensors of
+    ``device``: the same device type, and a CUDA mesh's groups on NCCL.
+    Nothing falls back to another device or backend."""
+    import torch
+    import torch.distributed as dist
+    dev = torch.device(device)
+    if mesh.device_type != dev.type:
+        raise ValueError(f"the mesh is on {mesh.device_type!r} but the "
+                         f"tensors are on {dev.type!r}")
+    if dev.type == "cuda":
+        for g in mesh.get_all_groups():
+            if dist.get_backend(g) != "nccl":
+                raise ValueError(
+                    f"a CUDA mesh needs NCCL process groups, got "
+                    f"{dist.get_backend(g)!r}")

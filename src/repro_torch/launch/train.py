@@ -3,27 +3,53 @@
     PYTHONPATH=src python -m repro_torch.launch.train --arch llama3-8b \\
         --smoke --steps 200 --batch 8 --seq 128 --ckpt-dir build/ckpt
     PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu
+    PYTHONPATH=src torchrun --nproc-per-node 4 \\
+        -m repro_torch.launch.train --smoke --device cpu
 
 ``--smoke`` selects the reduced config; without it the full assigned
 configuration trains, which must fit one card.  The loop checkpoints
 (DeepCABAC-compressed, written on a worker thread), resumes after
 restarts, error-feedback-compresses the gradient stream when
 ``--compress-grads`` is set, and reports straggler steps.  Runs on the
-card unless ``--device cpu``.  The port trains on one device:
-``--production-mesh`` (16 x 16, or 2 x 16 x 16 with ``--multi-pod``)
-raises "not yet ported" until the distribution slice.
+card unless ``--device cpu``.
+
+Under ``torchrun`` (or with ``RANK`` and ``WORLD_SIZE`` set) every rank
+trains: the process group is initialised (NCCL on ``cuda``, each rank on
+card ``LOCAL_RANK``; gloo with ``--device cpu``) and the mesh is
+``data = world size``, as the reference uses every device.  Without
+them the run is a world of one on a mesh-free step.  ``--production-mesh``
+(16 x 16, or 2 x 16 x 16 with ``--multi-pod``) has a model axis of 16,
+and tensor parallelism is not yet ported: it raises.  Only rank 0
+prints.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 
 from .. import configs
 from ..checkpoint.manager import CheckpointConfig
 from ..distributed.compress import CompressionConfig
 from ..optim.adamw import AdamWConfig
 from ..train.loop import LoopConfig, train_loop
-from .mesh import make_local_mesh, make_production_mesh
+from .mesh import device_mesh, make_local_mesh, make_production_mesh
+
+
+def _init_world(device: str):
+    """The process group of a ``torchrun`` launch (``RANK``,
+    ``WORLD_SIZE``, ``MASTER_ADDR`` / ``MASTER_PORT`` from the
+    environment), or None outside one."""
+    if "RANK" not in os.environ or "WORLD_SIZE" not in os.environ:
+        return None
+    import torch
+    import torch.distributed as dist
+    if device.startswith("cuda"):
+        torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", 0)))
+        dist.init_process_group("nccl")
+    else:
+        dist.init_process_group("gloo")
+    return dist
 
 
 def main(argv=None):
@@ -43,22 +69,32 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     cfg = configs.get(args.arch, smoke=args.smoke)
+    dist = None
     if args.production_mesh:
         mesh = make_production_mesh(multi_pod=args.multi_pod)
     else:
-        mesh = make_local_mesh(data=1, model=1)
+        dist = _init_world(args.device)
+        mesh = (device_mesh(make_local_mesh(data=dist.get_world_size()),
+                            args.device) if dist else None)
     loop = LoopConfig(total_steps=args.steps, batch=args.batch,
                       seq=args.seq, ckpt_every=args.ckpt_every)
     ckpt = (CheckpointConfig(args.ckpt_dir, params_mode="cabac",
                              async_save=True)
             if args.ckpt_dir else None)
-    res = train_loop(cfg, mesh, loop,
-                     opt_cfg=AdamWConfig(lr=args.lr),
-                     comp_cfg=CompressionConfig(enabled=args.compress_grads),
-                     ckpt_cfg=ckpt, device=args.device)
-    print(f"steps={res.final_step} first_loss={res.losses[0]:.4f} "
-          f"last_loss={res.losses[-1]:.4f} "
-          f"stragglers={len(res.straggler_steps)}")
+    rank = dist.get_rank() if dist else 0
+    try:
+        res = train_loop(cfg, mesh, loop,
+                         opt_cfg=AdamWConfig(lr=args.lr),
+                         comp_cfg=CompressionConfig(
+                             enabled=args.compress_grads),
+                         ckpt_cfg=ckpt, device=args.device)
+    finally:
+        if dist:
+            dist.destroy_process_group()
+    if rank == 0:
+        print(f"steps={res.final_step} first_loss={res.losses[0]:.4f} "
+              f"last_loss={res.losses[-1]:.4f} "
+              f"stragglers={len(res.straggler_steps)}")
 
 
 if __name__ == "__main__":

@@ -93,9 +93,13 @@ def dispatch(x: torch.Tensor, topi, pos, keep, num_experts: int,
     return store[:spare].view(num_experts, g, cap, d).transpose(0, 1)
 
 
-def moe_block(x: torch.Tensor, p: dict, cfg, *, with_aux: bool = True):
+def moe_block(x: torch.Tensor, p: dict, cfg, *, with_aux: bool = True,
+              aux_reduce=None):
     """x (G, S, d) -> (out (G, S, d), aux load-balance loss, 0-d f32; None
-    unless ``with_aux``: the serving steps never use it)."""
+    unless ``with_aux``: the serving steps never use it).  The aux loss
+    ``E * sum_e f_e P_e`` is a product of whole-batch means, so a rank of
+    a data-parallel step passes ``aux_reduce`` (its group's differentiable
+    mean) to average ``f_e`` and ``P_e`` before the product."""
     g, s, d = x.shape
     e, k = cfg.num_experts, cfg.top_k
 
@@ -138,5 +142,7 @@ def moe_block(x: torch.Tensor, p: dict, cfg, *, with_aux: bool = True):
     # Switch-style load-balance aux loss: E * sum_e f_e * P_e
     me = torch.mean(probs, dim=(0, 1))                   # (e,)
     fe = hit.sum(dim=(0, 2)).to(torch.float32) / (g * s * k)
+    if aux_reduce is not None:
+        me, fe = aux_reduce(me), aux_reduce(fe)
     aux = e * torch.sum(fe * me)
     return out, aux

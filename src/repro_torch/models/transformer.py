@@ -296,22 +296,24 @@ def _attn_block(x, lp, cfg, positions, pos3d, cache, cache_pos,
     return x + a
 
 
-def _dense_block(x, lp, cfg, *attn_args, with_aux=True):
+def _dense_block(x, lp, cfg, *attn_args, with_aux=True, aux_reduce=None):
     x = _attn_block(x, lp, cfg, *attn_args)
     x = x + swiglu_mlp(norm(x, lp["mlp_norm"], cfg), lp["mlp"],
                        cfg.act, policy=cfg.kernels)
     return x, None
 
 
-def _moe_layer_block(x, lp, cfg, *attn_args, with_aux=True):
+def _moe_layer_block(x, lp, cfg, *attn_args, with_aux=True,
+                     aux_reduce=None):
     x = _attn_block(x, lp, cfg, *attn_args)
     m, aux = moe_block(norm(x, lp["mlp_norm"], cfg), lp["moe"],
-                       cfg, with_aux=with_aux)
+                       cfg, with_aux=with_aux, aux_reduce=aux_reduce)
     return x + m, aux
 
 
 def _ssm_block(x, lp, cfg, positions, pos3d, cache, cache_pos,
-               qpos_canonical, cache_pages=None, with_aux=True):
+               qpos_canonical, cache_pages=None, with_aux=True,
+               aux_reduce=None):
     m, _ = mamba2_mixer(norm(x, lp["norm"], cfg), lp["mixer"], cfg,
                         cache=cache)
     return x + m, None
@@ -361,7 +363,7 @@ def _layers(params, cfg: ModelConfig, caches, dt, platform):
 def forward(params, cfg: ModelConfig, *, tokens=None, embeds=None,
             positions=None, pos3d=None, caches=None, cache_pos=None,
             cache_pages=None, last_only: bool = False, last_index=None,
-            with_aux: bool = True):
+            with_aux: bool = True, aux_reduce=None):
     """Returns (logits, caches, aux).
 
     tokens (B, S) int, or for an ``embed_input=False`` model embeds
@@ -377,7 +379,9 @@ def forward(params, cfg: ModelConfig, *, tokens=None, embeds=None,
     as an SSM or hybrid state cache has no token axis to page.  ``aux`` is
     the MoE load-balance loss summed over layers (0 for a dense model), or None
     unless ``with_aux``: :func:`prefill` and :func:`decode_step` skip it,
-    as the reference's compiled serving steps drop it.
+    as the reference's compiled serving steps drop it.  ``aux_reduce``
+    (data-parallel training) averages each MoE layer's ``f_e`` and
+    ``P_e`` over the ranks before their product (``models.moe``).
 
     Nothing here reads a device value on the host, so a CUDA graph can
     capture a step: offsets are Python ints or device tensors (see
@@ -422,7 +426,8 @@ def forward(params, cfg: ModelConfig, *, tokens=None, embeds=None,
            else None)
     for block, lp, cache_l in _layers(params, cfg, caches, dt, platform):
         x, a = block(x, lp, cfg, positions, pos3d, cache_l, cache_pos,
-                     qpos_canonical, cache_pages, with_aux=with_aux)
+                     qpos_canonical, cache_pages, with_aux=with_aux,
+                     aux_reduce=aux_reduce)
         if a is not None:
             aux = aux + a
 
@@ -459,14 +464,17 @@ def _head_logits(x, params, cfg: ModelConfig):
                         head.to(torch.float32))
 
 
-def train_loss(params, batch: dict, cfg: ModelConfig) -> torch.Tensor:
+def train_loss(params, batch: dict, cfg: ModelConfig, *,
+               aux_reduce=None) -> torch.Tensor:
     """Mean next-token NLL of ``batch`` (labels (B, S) with tokens, or
     embeds and, for M-RoPE, pos3d: ``data.pipeline.to_device``), as a 0-d
     f32 tensor that autograd differentiates; a MoE model adds
-    ``router_aux_weight * aux / num_layers``."""
+    ``router_aux_weight * aux / num_layers``.  ``aux_reduce`` (a rank's
+    share of a data-parallel batch) takes the whole batch's means into
+    the load-balance terms: see :func:`forward`."""
     logits, _, aux = forward(params, cfg, tokens=batch.get("tokens"),
                              embeds=batch.get("embeds"),
-                             pos3d=batch.get("pos3d"))
+                             pos3d=batch.get("pos3d"), aux_reduce=aux_reduce)
     logp = torch.log_softmax(logits, dim=-1)
     ll = torch.gather(logp, -1, batch["labels"][..., None])[..., 0]
     loss = -torch.mean(ll)

@@ -22,9 +22,16 @@ a Mamba2 mixer's ``a_log`` and ``dt_bias`` stay f32 in a bf16 model).
 A manifest source is a path: the directory of a sharded checkpoint step
 (``repro_torch.checkpoint``) or its ``params.manifest.json``; its
 tensors are assembled one at a time on the host
-(``checkpoint.sharded``).  A ``serve-q8`` record of a stacked 4-D
-expert bank (L, E, K, N) keeps its (L, N) scale, so each layer hands
-``dequant_matmul_grouped`` the shared (N,) form.  ``policy_table=``
+(``checkpoint.sharded``).  With ``mesh=`` (a ``torch.distributed``
+``DeviceMesh``) on the ``bf16`` and ``container`` backends, a manifest's
+entropy-coded and raw tensors skip the conversion and arrive as
+``DTensor``\\ s of the template's dtype, each rank decoding only its
+box (``sharded.restore_tensor_on_mesh``); ``q8`` records are still
+converted.  The ``q8`` backend converts every manifest tensor on the
+host and ignores the mesh, as the reference's does.  A ``serve-q8``
+record of a stacked 4-D expert bank (L, E, K, N) keeps its (L, N)
+scale, so each layer hands ``dequant_matmul_grouped`` the shared (N,)
+form.  ``policy_table=``
 applies a per-tensor RD policy to *tree* sources (quantize, then
 dequantize back), so a tree session equals one cold-started from the
 matching ``deepcabac-rd`` container.
@@ -54,6 +61,7 @@ from ..compression.tree import flatten_tree, unflatten
 from ..core.codec import (Q8Tensor, QuantizedTensor, decode_delta_record,
                           decode_record)
 from ..core.container import ENC_CABAC_DELTA, ContainerReader
+from ..distributed.sharding import check_mesh
 
 _BLOB = (bytes, bytearray, memoryview)
 
@@ -70,7 +78,10 @@ class WeightBackend:
     to patch the weights from a delta ("P-frame") checkpoint step.  It
     costs one int64 copy of the quantized model on the host; leave it off
     for static deployments.  ``shared`` names the leaves this backend's
-    tree shares with another's (:meth:`warm_from`)."""
+    tree shares with another's (:meth:`warm_from`).  ``mesh`` scopes
+    manifest cold starts to a serving ``DeviceMesh`` (see the module's
+    docstring); tracked levels need host-visible levels, so
+    ``track_levels`` with a mesh refuses a manifest load."""
 
     name = "?"
     # True when the resident tree holds serve-quantized tensors as
@@ -79,9 +90,10 @@ class WeightBackend:
     # width instead of the param dtype
     q8_resident = False
 
-    def __init__(self, decode: DecodeOptions | None = None,
-                 policy_table=None, track_levels: bool = False):
+    def __init__(self, decode: DecodeOptions | None = None, mesh=None,
+                 track_levels: bool = False, policy_table=None):
         self.decode = decode or DecodeOptions()
+        self.mesh = mesh
         self.policy_table = policy_table
         self.track_levels = track_levels
         self._levels: dict[str, QuantizedTensor] | None = (
@@ -103,6 +115,15 @@ class WeightBackend:
         if self._levels is not None and isinstance(rec, QuantizedTensor):
             self._levels[name] = rec
         return self._convert(name, rec, dtype, device)
+
+    def _check_mesh_tracking(self, source) -> None:
+        if (self.track_levels and self.mesh is not None
+                and _is_manifest(source)):
+            raise RuntimeError(
+                "track_levels=True needs host-visible quantized levels, "
+                "but a manifest load with mesh= set assembles tensors "
+                "straight onto the mesh without materializing them — "
+                "load without mesh, or without track_levels")
 
     # -- delta ("P-frame") live patching ------------------------------------
 
@@ -251,10 +272,13 @@ class WeightBackend:
             out[name] = rec.dequantize().to(leaf.device, leaf.dtype)
         return unflatten(out)
 
-    def _decoded_tree(self, cfg, source, device):
+    def _decoded_tree(self, cfg, source, device, mesh=None):
         if _is_manifest(source):
-            return _manifest_tree(cfg, source, self._fold, _device(device),
-                                  decode=self.decode)
+            dev = _device(device)
+            if mesh is not None:
+                check_mesh(mesh, dev)
+            return _manifest_tree(cfg, source, self._fold, dev,
+                                  decode=self.decode, mesh=mesh)
         return _stream_tree(cfg, bytes(source), self._fold,
                             _device(device), decode=self.decode)
 
@@ -343,11 +367,13 @@ def _stream_tree(cfg, blob: bytes, convert, device,
 
 
 def _manifest_tree(cfg, source, convert, device,
-                   decode: DecodeOptions | None = None) -> dict:
+                   decode: DecodeOptions | None = None, mesh=None) -> dict:
     """Cold start from a checkpoint manifest: the same template contract
     as :func:`_stream_tree`, each tensor assembled from its shards on the
     host (``checkpoint.sharded.assemble_slice``) and converted before the
-    next."""
+    next.  With ``mesh``, entropy-coded and raw tensors skip ``convert``
+    and arrive as ``DTensor``\\ s of the template's dtype built from only
+    the shards this rank's box covers."""
     from ..checkpoint import sharded
     directory = sharded.manifest_dir(str(source))
     manifest = sharded.load_manifest(str(source))
@@ -363,6 +389,11 @@ def _manifest_tree(cfg, source, convert, device,
             raise ValueError(
                 f"{name}: manifest shape {tuple(tinfo['shape'])} != model "
                 f"{tuple(shape)}")
+        if mesh is not None and tinfo["encoding"] != "q8":
+            flat[name] = sharded.restore_tensor_on_mesh(
+                directory, name, tinfo, mesh, opts=decode, num_gr=num_gr,
+                dtype=dtype)
+            continue
         rec = sharded.assemble_slice(directory, name, tinfo, opts=decode,
                                      num_gr=num_gr, dequantize=False)
         flat[name] = convert(name, rec, dtype, device)
@@ -375,8 +406,9 @@ class Bf16Backend(WeightBackend):
     name = "bf16"
 
     def load(self, cfg, source, device=None):
+        self._check_mesh_tracking(source)
         if isinstance(source, _BLOB) or _is_manifest(source):
-            return self._decoded_tree(cfg, source, device)
+            return self._decoded_tree(cfg, source, device, mesh=self.mesh)
         return self._apply_policy_tree(source)
 
 
@@ -391,6 +423,8 @@ class Q8Backend(WeightBackend):
         return quantize_leaf(t) if serve_q8_policy(name, t) else t
 
     def load(self, cfg, source, device=None):
+        # host-side conversion: every decoded tensor becomes a q8 leaf or
+        # a float one on ``device``, so a mesh does not apply here
         if isinstance(source, _BLOB) or _is_manifest(source):
             return self._decoded_tree(cfg, source, device)
         return quantize_tree_q8(self._apply_policy_tree(source))
@@ -411,7 +445,8 @@ class ContainerBackend(WeightBackend):
                 "checkpoint manifest path; got "
                 f"{type(source).__name__} — use the 'bf16' or 'q8' backend "
                 "for in-memory trees")
-        return self._decoded_tree(cfg, source, device)
+        self._check_mesh_tracking(source)
+        return self._decoded_tree(cfg, source, device, mesh=self.mesh)
 
 
 _BACKENDS: dict = {"bf16": Bf16Backend, "q8": Q8Backend,

@@ -1,5 +1,6 @@
 """Fixed-point serving helpers (port of ``repro.serve.quantized``): q8
-weight leaves and the int8 KV cache."""
+weight leaves (:func:`quantize_params_for_serving`) and the int8 KV
+cache."""
 
 from __future__ import annotations
 
@@ -11,6 +12,17 @@ from ..kernels.embed_lookup import is_q8_leaf
 is_q8 = is_q8_leaf
 
 DEFAULT_KV_CACHE_DELTA = 1.0 / 16.0
+
+
+def quantize_params_for_serving(params):
+    """int8-quantize the matmul weights: stacked layer tensors (ndim >= 3 —
+    per-layer vectors stack to 2-D and stay full precision, as the paper
+    leaves 1-D tensors unquantized) and the unstacked 2-D embed/head.
+
+    This is the in-memory form of ``compression.get("serve-q8")`` — the
+    codec's tree pass with {"q8","q8s"} leaf dicts instead of a container.
+    """
+    return quantize_tree_q8(params)
 
 
 def dequant_leaf(leaf, dtype: torch.dtype):

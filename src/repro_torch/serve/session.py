@@ -152,9 +152,36 @@ class _Slot:
         self.req, self.pos, self.next_token = None, 0, 0
 
 
+def _local_tree(tree, device):
+    """``tree`` with each ``DTensor`` leaf (a backend's load onto a
+    ``DeviceMesh``) replaced by its local tensor, which must be the whole
+    tensor (a mesh of one, or replicated) on ``device``: serving a tree
+    sharded across ranks is not yet ported."""
+    from torch.distributed.tensor import DTensor
+    flat = flatten_tree(tree)
+    if not any(isinstance(v, DTensor) for v in flat.values()):
+        return tree
+    out = {}
+    for name, leaf in flat.items():
+        if isinstance(leaf, DTensor):
+            local = leaf.to_local()
+            if tuple(local.shape) != tuple(leaf.shape):
+                raise NotImplementedError(
+                    f"{name}: a tree sharded across ranks ({leaf.placements}"
+                    f" on a mesh of {leaf.device_mesh.size()}): serving it "
+                    "is not yet ported")
+            if local.device.type != device.type:
+                raise ValueError(f"{name}: on {local.device}, the session "
+                                 f"on {device}")
+            leaf = local
+        out[name] = leaf
+    return unflatten(out)
+
+
 class ServeSession:
     """Continuous-batching serving session over a slot or paged KV
-    cache."""
+    cache.  A tree of ``DTensor`` leaves is served where every leaf is
+    whole on this rank (:func:`_local_tree`)."""
 
     def __init__(self, cfg: ModelConfig, weights, *, backend="bf16",
                  serve_cfg: ServeConfig | None = None, device="cuda",
@@ -181,8 +208,10 @@ class ServeSession:
         # preloaded: ``weights`` is already this backend's serving tree
         # (built by load_entries or warm_from); loading it again would
         # clobber the backend's tracked levels
-        self.params = (weights if preloaded else
-                       self.backend.load(cfg, weights, device=self.device))
+        self.params = _local_tree(
+            weights if preloaded else
+            self.backend.load(cfg, weights, device=self.device),
+            self.device)
 
         self._slots = [_Slot() for _ in range(serve_cfg.slots)]
         self._queue: deque[RequestHandle] = deque()

@@ -10,6 +10,13 @@ median of the last 64 steps.  Times are read through this module's
 ``time``.  Where the last periodic save already wrote the final step,
 the final save only waits for it (the reference writes the same state a
 second time).
+
+On a ``torch.distributed`` ``DeviceMesh`` every rank builds the same
+batch and the step takes its rows; only the mesh's first rank writes
+checkpoints (sharded over the mesh's shape when the config is sharded),
+every rank restores, a barrier ends a run once the last save is on disk,
+and a stop flag is all-reduced once a step, so a SIGTERM on any rank
+stops all of them after the same step.
 """
 
 from __future__ import annotations
@@ -21,11 +28,13 @@ from dataclasses import dataclass, field
 import numpy as np
 
 from ..checkpoint.manager import CheckpointConfig, CheckpointManager
+from ..checkpoint.sharded import MeshSpec
 from ..data.pipeline import make_batch
 from ..distributed.compress import CompressionConfig
 from ..models.config import ModelConfig
 from ..optim.adamw import AdamWConfig
-from .steps import init_train_state, make_train_step
+from ..distributed.sharding import DEFAULT_RULES
+from .steps import batch_group, init_train_state, make_train_step
 
 
 @dataclass
@@ -56,8 +65,11 @@ def train_loop(cfg: ModelConfig, mesh, loop: LoopConfig,
     """Train from ``init_train_state`` (or, with ``loop.resume``, from the
     latest checkpoint in ``ckpt_cfg.directory``) up to
     ``loop.total_steps`` on ``device`` (the card unless ``"cpu"`` is
-    asked for)."""
+    asked for), data-parallel when ``mesh`` is a ``DeviceMesh``."""
     opt_cfg = opt_cfg or AdamWConfig()
+    group = batch_group(mesh, DEFAULT_RULES, "train_loop")
+    writes = group is None or group.first
+    save_mesh = MeshSpec.from_any(mesh) if group is not None else None
     state = init_train_state(cfg, opt_cfg, comp_cfg, seed=loop.seed,
                              device=device)
     mgr = CheckpointManager(ckpt_cfg) if ckpt_cfg else None
@@ -97,16 +109,19 @@ def train_loop(cfg: ModelConfig, mesh, loop: LoopConfig,
                 med = float(np.median(times[-64:]))
                 if dt > loop.straggler_factor * med:
                     result.straggler_steps.append(step)
-            if mgr and (step + 1) % loop.ckpt_every == 0:
-                mgr.save(state, step + 1)
+            if mgr and writes and (step + 1) % loop.ckpt_every == 0:
+                mgr.save(state, step + 1, mesh=save_mesh)
                 saved = step + 1
-            if stop["flag"]:
+            stopping = group.any(stop["flag"]) if group else stop["flag"]
+            if stopping:
                 break
         result.final_step = int(state["step"])
-        if mgr:
+        if mgr and writes:
             if saved != result.final_step:
-                mgr.save(state, result.final_step)
+                mgr.save(state, result.final_step, mesh=save_mesh)
             mgr.wait()
+        if group is not None:
+            group.barrier()
     finally:
         signal.signal(signal.SIGTERM, prev_handler)
     return result

@@ -2,13 +2,17 @@
 ``repro.train.steps``).
 
 The reference resolves parameter, optimizer, cache and batch shardings
-from the logical rule tables and jits each step.  The port runs on one
-device: the spec functions return the same per-dim mesh axes (tuples, as
-``distributed.sharding`` gives them) for a checkpoint manifest or a later
-placement, and a step factory given a mesh of more than one device
-raises (``rules`` are taken for the reference's signature).  The train
-step updates its state in place (parameters, AdamW
-moments, the error-feedback accumulators), the port's counterpart of the
+from the logical rule tables and jits each step.  The port's spec
+functions return the same per-dim mesh axes (tuples, as
+``distributed.sharding`` gives them) for a checkpoint manifest or a
+placement.  A step runs on one device (``mesh`` None, or a device-free
+mesh of one device) or data-parallel on a ``torch.distributed``
+``DeviceMesh`` whose axes of size > 1 are the batch axes (``pod``,
+``data``): each rank runs its rows of the global batch
+(``distributed.data_parallel.BatchGroup``), the state replicated on
+every rank.  A ``model`` axis of size > 1 (tensor parallelism) raises.
+The train step updates its state in place (parameters, AdamW moments,
+the error-feedback accumulators), the port's counterpart of the
 reference's ``donate_argnums=(0,)``.
 
 Under autograd attention takes the scan (the flash kernel has no
@@ -26,7 +30,9 @@ from ..compression.tree import flatten_tree, unflatten
 from ..data.pipeline import to_device
 from ..distributed.compress import (CompressionConfig, ef_compress_update,
                                     init_error_feedback)
-from ..distributed.sharding import build_param_specs, spec_for
+from ..distributed.data_parallel import BatchGroup
+from ..distributed.sharding import (DEFAULT_RULES, PREFILL_RULES,
+                                    SERVE_RULES, build_param_specs, spec_for)
 from ..kernels.registry import resolve_device
 from ..models.config import ModelConfig
 from ..models.transformer import forward, init_cache, init_params, train_loss
@@ -87,11 +93,28 @@ def state_specs(state, mesh, rules=None) -> dict:
     }
 
 
-def _one_device(mesh, what: str) -> None:
-    if mesh is not None and MeshSpec.from_any(mesh).size > 1:
-        raise NotImplementedError(
-            f"{what} on a mesh of {MeshSpec.from_any(mesh).size} devices: "
-            "not yet ported: distribution slice")
+def batch_group(mesh, rules, what: str) -> BatchGroup | None:
+    """The data-parallel group a step runs over: None without a mesh or
+    on a device-free mesh of one device, else the ``DeviceMesh``'s batch
+    axes (``rules["batch"]``).  Any other axis of size > 1 raises."""
+    if mesh is None:
+        return None
+    spec = MeshSpec.from_any(mesh)
+    batch = rules["batch"]
+    batch = tuple(batch) if isinstance(batch, (tuple, list)) else (batch,)
+    for name, size in spec.shape.items():
+        if name not in batch and size > 1:
+            raise NotImplementedError(
+                f"{what} on a mesh with {name!r} of size {size}: tensor "
+                "parallelism is not yet ported (the port's steps are "
+                "data-parallel over the batch axes)")
+    if getattr(mesh, "mesh_dim_names", None) is None:     # no DeviceMesh
+        if spec.size > 1:
+            raise ValueError(
+                f"{what} on a mesh of {spec.size} devices needs a "
+                "torch.distributed DeviceMesh (launch.mesh.device_mesh)")
+        return None
+    return BatchGroup(mesh, batch)
 
 
 # ---------------------------------------------------------------------------
@@ -140,24 +163,44 @@ def make_train_step(cfg: ModelConfig, mesh, opt_cfg: AdamWConfig,
     gradients by autograd, error feedback when enabled, the warmup-cosine
     scale of ``state["step"]``, AdamW, ``step + 1``; it writes the
     parameters, moments and EF in place, so the returned state holds the
-    same tensors and a new ``step``.  ``jitted(state, probe)`` returns
+    same tensors and a new ``step``.
+
+    On a ``DeviceMesh`` every rank passes the same global batch and runs
+    its rows; the gradients are summed over the batch axes in f32 (a bf16
+    gradient is widened first, so the only rounding to bf16 is the one
+    after the mean), divided by the group's size and cast back to the
+    parameter's dtype, and EF, the schedule and AdamW then run as on one
+    device on the state replicated on every rank.  The loss is the
+    group's mean; a MoE model's load-balance terms ``f_e`` and ``P_e`` are
+    averaged over the group before their product (``aux_reduce``), so the
+    step keeps the whole-batch loss.  ``jitted(state, probe)`` returns
     ``fn(state, batch)``, which runs ``step_fn`` on the state's device and
     writes the new state into ``state``.  The steps
     carry ``torch.profiler.record_function`` ranges ``train_step/ef`` and
     ``train_step/adamw``."""
-    _one_device(mesh, "make_train_step")
+    rules = rules or DEFAULT_RULES
+    group = batch_group(mesh, rules, "make_train_step")
     comp_cfg = comp_cfg or CompressionConfig(enabled=False)
 
     def step_fn(state: TrainState, batch: dict):
         params = state["params"]
         flat = flatten_tree(params)
-        batch = _batch_on(batch, next(iter(flat.values())).device)
+        dev = next(iter(flat.values())).device
+        if group is not None:
+            group.check(dev)
+            batch = group.rows(batch)
+        batch = _batch_on(batch, dev)
         leaves = [p.detach().requires_grad_(True) for p in flat.values()]
         with torch.enable_grad():
-            loss = train_loss(unflatten(dict(zip(flat, leaves))), batch, cfg)
+            loss = train_loss(unflatten(dict(zip(flat, leaves))), batch, cfg,
+                              aux_reduce=group.mean if group else None)
             grads = torch.autograd.grad(loss, leaves)
         del leaves
         with torch.no_grad():
+            if group is not None:
+                loss = group.mean_(loss.detach().clone())
+                grads = [group.mean_(g.to(torch.float32)).to(g.dtype)
+                         for g in grads]
             grads = unflatten(dict(zip(flat, grads)))
             ef = state["ef"]
             if comp_cfg.enabled:
@@ -188,20 +231,30 @@ def make_train_step(cfg: ModelConfig, mesh, opt_cfg: AdamWConfig,
 def make_prefill_step(cfg: ModelConfig, mesh, rules=None, max_len=None):
     """``step_fn(params, batch) -> (last logits (B, V), caches)``: the
     prompt (``tokens`` (B, S), or ``embeds`` (B, S, d) with ``pos3d``)
-    into fresh caches of ``max_len`` (default S) on the input's device."""
-    _one_device(mesh, "make_prefill_step")
+    into fresh caches of ``max_len`` (default S) on the input's device.
+    On a ``DeviceMesh`` each rank prefills its rows of the global batch
+    into caches of those rows and returns every row's logits (gathered
+    over the batch axes)."""
+    group = batch_group(mesh, rules or PREFILL_RULES, "make_prefill_step")
 
     @torch.no_grad()
     def step_fn(params, batch):
+        if group is not None:
+            batch = group.rows(batch)
         tokens = batch.get("tokens")
         inp = tokens if tokens is not None else batch["embeds"]
         b, s = inp.shape[0], inp.shape[1]
+        if group is not None:
+            group.check(inp.device)
         caches = init_cache(cfg, b, max_len or s, device=inp.device)
         logits, new_caches, _ = forward(
             params, cfg, tokens=tokens, embeds=batch.get("embeds"),
             pos3d=batch.get("pos3d"), caches=caches, last_only=True,
             with_aux=False)
-        return logits[:, 0, :], new_caches
+        logits = logits[:, 0, :]
+        if group is not None:
+            logits = group.gather_rows(logits)
+        return logits, new_caches
 
     return step_fn
 
@@ -209,17 +262,27 @@ def make_prefill_step(cfg: ModelConfig, mesh, rules=None, max_len=None):
 def make_decode_step(cfg: ModelConfig, mesh, rules=None):
     """serve_step: one new token against a filled KV/state cache;
     ``step_fn(params, caches, inputs, pos) -> (logits (B, V), caches)``,
-    the caches written in place."""
-    _one_device(mesh, "make_decode_step")
+    the caches written in place.  On a ``DeviceMesh`` ``inputs`` and a
+    per-row ``pos`` are the global batch's, ``caches`` this rank's rows
+    (the prefill step's), and every row's logits come back."""
+    group = batch_group(mesh, rules or SERVE_RULES, "make_decode_step")
 
     @torch.no_grad()
     def step_fn(params, caches, inputs, pos):
+        if group is not None:
+            group.check(next(iter(flatten_tree(caches).values())).device)
+            inputs = group.rows(inputs)
+            if isinstance(pos, torch.Tensor) and pos.dim() == 1:
+                pos = group.rows({"pos": pos})["pos"]
         logits, new_caches, _ = forward(
             params, cfg,
             tokens=(inputs["tokens"][:, None]
                     if "tokens" in inputs else None),
             embeds=inputs.get("embeds"), pos3d=inputs.get("pos3d"),
             caches=caches, cache_pos=pos, last_only=True, with_aux=False)
-        return logits[:, 0, :], new_caches
+        logits = logits[:, 0, :]
+        if group is not None:
+            logits = group.gather_rows(logits)
+        return logits, new_caches
 
     return step_fn

@@ -352,11 +352,10 @@ def test_restore_helpers_reject_delta_manifests(tmp_path):
     d = _step_dir(mgr, 2)
     with pytest.raises(ValueError, match="P-frame"):
         sharded.restore_flat(d)
-    for call in (sharded.restore_on_mesh, sharded.restore_local_slices,
-                 sharded.restore_tensor_on_mesh,
-                 delta.restore_on_mesh_delta):
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            call(d)
+    with pytest.raises(ValueError, match="P-frame"):
+        sharded.restore_local_slices(d, MeshSpec.from_any({"data": 2}), [0])
+    with pytest.raises(ValueError, match="P-frame"):
+        sharded.restore_on_mesh(d, None)
 
 
 def test_sharded_manifest_byte_ranges_and_hashes(tmp_path):

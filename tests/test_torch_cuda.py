@@ -1449,3 +1449,120 @@ def test_train_state_checkpoint_restores_onto_the_card(tmp_path):
                                            ckpt_every=2), opt, comp, ck,
                      device="cuda")
     assert res.final_step == 6 and len(res.losses) == 2
+
+
+# ---------------------------------------------------------------------------
+# distribution on a one-rank NCCL world
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def nccl_mesh(tmp_path_factory):
+    """A (data 1, model 1) DeviceMesh on a one-rank NCCL world whose
+    rendezvous is a FileStore (no network)."""
+    _needs_card()
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import device_mesh, make_local_mesh
+    started = not dist.is_initialized()
+    if started:
+        torch.cuda.set_device(0)
+        store = tmp_path_factory.mktemp("nccl") / "store"
+        dist.init_process_group("nccl", store=dist.FileStore(str(store), 1),
+                                rank=0, world_size=1)
+    yield device_mesh(make_local_mesh(1, 1), "cuda")
+    if started:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("arch", ["llama3-8b", "deepseek-moe-16b"])
+def test_one_rank_nccl_train_step_equals_the_mesh_free_step(nccl_mesh, arch):
+    """Two smoke steps (f32, 8-bit moments, EF) on the NCCL mesh and
+    without it, from one seed under deterministic algorithms: losses and
+    every state tensor equal bit for bit (a sum over one rank and a
+    division by 1 are exact)."""
+    import os
+    from repro_torch import configs
+    from repro_torch.compression.tree import flatten_tree
+    from repro_torch.data.pipeline import make_batch
+    from repro_torch.distributed.compress import CompressionConfig
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.steps import init_train_state, make_train_step
+    cfg = configs.get(arch, smoke=True)
+    opt = AdamWConfig(lr=1e-2, quantized_moments=True)
+    comp = CompressionConfig(enabled=True)
+    prev = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    torch.use_deterministic_algorithms(True)
+    try:
+        out = {}
+        for key, mesh in (("free", None), ("mesh", nccl_mesh)):
+            state = init_train_state(cfg, opt, comp, seed=0, device="cuda")
+            fn = make_train_step(cfg, mesh, opt, comp, total_steps=12,
+                                 warmup=2)[1](state, None)
+            losses = []
+            for i in range(2):
+                state, m = fn(state, make_batch(cfg, i, batch=4, seq=16,
+                                                seed=0))
+                losses.append(float(m["loss"]))
+            out[key] = (losses, flatten_tree(state))
+    finally:
+        torch.use_deterministic_algorithms(False)
+        if prev is None:
+            os.environ.pop("CUBLAS_WORKSPACE_CONFIG", None)
+        else:
+            os.environ["CUBLAS_WORKSPACE_CONFIG"] = prev
+    assert out["mesh"][0] == out["free"][0]
+    for k, v in out["free"][1].items():
+        got = out["mesh"][1][k]
+        if isinstance(v, torch.Tensor):
+            assert got.is_cuda and torch.equal(got, v), k
+        else:
+            assert int(got) == int(v), k
+
+
+def test_one_rank_nccl_psum_is_the_q8_round_trip(nccl_mesh):
+    """On a pod axis of 1 the compressed sum is ``q8_decode(q8_encode(x))``
+    bit for bit, a DTensor of the input's shape, 1.03125 wire bytes a
+    value."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from repro_torch.compression.q8 import q8_decode, q8_encode
+    from repro_torch.distributed.compress import cross_pod_psum_compressed
+    from repro_torch.launch.mesh import device_mesh, make_local_mesh
+    assert dist.get_backend() == "nccl"
+    mesh = device_mesh(make_local_mesh(1, 1, pod=1), "cuda")
+    x = torch.randn((1, 64, 384), device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(1))
+    stats = {}
+    y = cross_pod_psum_compressed(DTensor.from_local(
+        x, mesh, [Shard(0), Replicate(), Replicate()], run_check=False),
+        mesh, stats=stats)
+    assert isinstance(y, DTensor) and tuple(y.shape) == (1, 64, 384)
+    assert torch.equal(y.to_local()[0], q8_decode(*q8_encode(x[0])))
+    assert stats["wire_bytes"] == 1.03125 * stats["elements"]
+
+
+def test_a_mesh_on_another_device_or_backend_raises(nccl_mesh, tmp_path):
+    """A CUDA mesh with state on the CPU, a mesh restore asked onto the
+    CPU with a CUDA mesh, and a CUDA mesh over a gloo group each raise:
+    nothing falls back to another device or backend."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+    from repro_torch import configs
+    from repro_torch.checkpoint.manager import (CheckpointConfig,
+                                                CheckpointManager)
+    from repro_torch.data.pipeline import make_batch
+    from repro_torch.distributed.sharding import check_mesh
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.steps import init_train_state, make_train_step
+    cfg = configs.get("llama3-8b", smoke=True)
+    state = init_train_state(cfg, AdamWConfig(), seed=0, device="cpu")
+    fn = make_train_step(cfg, nccl_mesh, AdamWConfig())[1](state, None)
+    with pytest.raises(ValueError, match="mesh is on 'cuda'"):
+        fn(state, make_batch(cfg, 0, batch=2, seq=8, seed=0))
+    with pytest.raises(ValueError, match="mesh is on 'cuda'"):
+        CheckpointManager(CheckpointConfig(str(tmp_path))).restore(
+            state, step=0, device="cpu", mesh=nccl_mesh)
+    gloo = dist.new_group(backend="gloo")
+    mesh = DeviceMesh.from_group(gloo, "cuda", mesh_dim_names=("data",))
+    with pytest.raises(ValueError, match="NCCL"):
+        check_mesh(mesh, "cuda")

@@ -375,9 +375,9 @@ def test_serving_steps_skip_the_aux_loss_and_forward_keeps_it(monkeypatch):
     asked = []
     real = tmoe.moe_block
 
-    def spy(x, p, cfg_, *, with_aux=True):
+    def spy(x, p, cfg_, *, with_aux=True, aux_reduce=None):
         asked.append(with_aux)
-        return real(x, p, cfg_, with_aux=with_aux)
+        return real(x, p, cfg_, with_aux=with_aux, aux_reduce=aux_reduce)
 
     monkeypatch.setattr(ttf, "moe_block", spy)
     toks = torch.zeros((2, 5), dtype=torch.long)
