@@ -57,7 +57,8 @@ Phases (each fails the run on its own; nothing is caught and ignored):
              with the same policy applied, launch counts must match the
              path, the dispatch report must be empty;
 8. MoE serve — once the llama3-8b tensors are freed, deepseek-moe-16b at
-             full width (28 layers) served as in 6, every routed-expert
+             full width (14 of its 28 layers: SERVE_MOE_LAYERS) served as
+             in 6, every routed-expert
              product through dequant_matmul_grouped; then cut to 2 layers
              (the dense one and one MoE layer), a serve-q8 container served
              on the container backend with the in-memory q8 session's
@@ -229,13 +230,18 @@ Phases (each fails the run on its own; nothing is caught and ignored):
              in bf16 equal to the block in sequence bit for bit; ms of
              each;
 32. train_dp (after 29) — ``train_loop`` on the NCCL DeviceMesh
-             (data 1, model 1: the data-parallel step, the all-reduced
-             stop flag, the closing barrier) at 29's width against the
-             mesh-free step, 3 steps each from one seed: losses and the
-             whole state equal bit for bit on the card (deterministic
-             algorithms on), ms/step of both; the prefill step on the
-             mesh launches flash once a layer with the mesh-free
-             prefill's logits.
+             (data 1, model 1: the sharded step of ``distributed.fsdp``
+             with every box the whole leaf and every collective over one
+             rank, the all-reduced stop flag, the closing barrier) at 29's
+             width against the mesh-free step, 3 steps each from one seed:
+             losses and the whole state equal bit for bit on the card
+             (deterministic algorithms on), ms/step of both; at smoke
+             width a sharded CABAC save of ``train_loop`` on the mesh
+             byte-identical to one process's save of the mesh-free state,
+             and the loop resumed on the mesh (``restore(mesh=layout)``)
+             equal to the mesh-free loop resumed from the same step; the
+             prefill step on the mesh launches flash once a layer with the
+             mesh-free prefill's logits.
 
 Every phase but 20 runs under the default kernel policy with an empty
 tuning cache (``REPRO_TORCH_KERNEL_TUNE_CACHE`` points at a fresh file
@@ -243,8 +249,9 @@ under ``build/``), so a stale cache on the machine changes nothing.
 13 runs at 1 layer (RD_SWEEP_LAYERS) and one delta (RD_SWEEP_DELTAS), 14
 and 28 at 1 (DELTA_SWAP_LAYERS), 16 at 6 (SERVE_DENSE_LAYERS), 18 at 6
 and 4 (EMBEDS_FULL_LAYERS), 23 at 16 and 18 (SSM_SERVE_LAYERS), 11 at 1
-(FIM_LAYERS), 29 at 6 steps (TRAIN_STEPS) and 10 with smaller DC grids
-(DC_DELTAS, DC_S_GRID), so that the rest fit the time limit.
+(FIM_LAYERS), 29 at 6 steps (TRAIN_STEPS), 10 with smaller DC grids
+(DC_DELTAS, DC_S_GRID) and 8 at 14 layers (SERVE_MOE_LAYERS), so that the
+rest fit the time limit.
 
 The line before the last is the card's name and power limit; one line
 before it is the ``{"kernels": [...]}`` summary; the last line is
@@ -328,6 +335,10 @@ VARIANTS = ("qwen3-8b", "qwen1.5-4b", "mistral-nemo-12b", "qwen2-vl-7b",
             "musicgen-medium", "deepseek-v3-671b")
 TOL_VARIANT_LOGITS = 1e-4
 SERVE_MLA_LAYERS = 4
+# serve_moe's depth, cut for time from 28 (the proof run of the sharded
+# train state took 1167.4 s against a 1150 s mark; its MoE layers repeat
+# one shape class, so 14 of them launch the same kernel instances)
+SERVE_MOE_LAYERS = 14
 # the paged serves: llama3-8b at full width, int8 cache on the
 # calibrated grid, pages of 16 tokens over 4 slots of 192 (12 pages each);
 # every prompt is a shared 128-token system prompt (8 pages) and tokens of
@@ -438,6 +449,11 @@ DIST_STORE = ROOT / "build" / "dist_store"
 MESH_RESTORE_WORKERS = 8     # the card machine's host cores: tensors decode
 #                              and move on a thread pool
 DP_STEPS = 3
+# train_dp's smoke-width sharded save (step DP_SAVE_STEPS) and resume (to
+# DP_RESUME_STEPS), 8-bit moments + EF, DP_SMOKE_BATCH x DP_SMOKE_SEQ
+DP_SAVE_STEPS, DP_RESUME_STEPS = 2, 4
+DP_SMOKE_BATCH, DP_SMOKE_SEQ = 4, 16
+DP_CKPT_DIR = ROOT / "build" / "train_dp_ckpt"
 PSUM_SHAPE = (1, 4096, 14336)
 GPIPE_MICRO, GPIPE_ROWS = 4, (4, 128)
 # rd_sweep: benchmarks/rd_sweep_bench.py's --fast grid, min_ndim=3 (the
@@ -4523,13 +4539,15 @@ def phase_train_dp(device):
     (data 1, model 1) ``DeviceMesh`` at the train phase's width
     (llama3-8b, TRAIN_LAYERS layers, TRAIN_BATCH x TRAIN_SEQ, 8-bit
     moments + EF): DP_STEPS steps of the mesh-free step and DP_STEPS of
-    ``train_loop`` on the mesh (its step on the mesh, the stop flag
+    ``train_loop`` on the mesh (the sharded step: the state built and
+    updated as the rank's boxes, here the whole leaves; the stop flag
     all-reduced each step, the closing barrier; no checkpoint) from the
     same seed and batches, under deterministic algorithms: losses and the
     whole state (parameters, moments, EF, counters) equal bit for bit,
-    compared on the card; ms/step of each (median after the first); then
-    ``make_prefill_step`` on the mesh launches flash once a layer, with
-    the mesh-free prefill's logits bit for bit and an empty report."""
+    compared on the card; ms/step of each (median after the first); at
+    smoke width :func:`_dp_save_resume`; then ``make_prefill_step`` on
+    the mesh launches flash once a layer, with the mesh-free prefill's
+    logits bit for bit and an empty report."""
     import os
     from unittest import mock
 
@@ -4598,6 +4616,9 @@ def phase_train_dp(device):
         check(not bad, f"train_dp: the mesh step's state differs from the "
               f"mesh-free step's in {bad}")
         params = free_s.pop("state")["params"]
+        t0 = time.perf_counter()
+        save_resume = _dp_save_resume(device, mesh, opt, comp)
+        save_resume["seconds"] = time.perf_counter() - t0
         rng = np.random.default_rng(3)
         toks = torch.from_numpy(rng.integers(
             0, cfg.vocab_size, (TRAIN_PROMPTS, TRAIN_SEQ))).to(device)
@@ -4620,17 +4641,87 @@ def phase_train_dp(device):
           f"launched {launches} ({TRAIN_LAYERS} flash expected), report "
           f"{report}, logits equal: {_bits_equal(got, want)}")
     out = {"steps": DP_STEPS, "batch": [TRAIN_BATCH, TRAIN_SEQ],
-           "launches": launches, **runs}
+           "launches": launches, "save_resume": save_resume, **runs}
     log(f"[train_dp] llama3-8b full width, {TRAIN_LAYERS} layers, 8-bit "
         f"moments + EF, {TRAIN_BATCH} x {TRAIN_SEQ}: {DP_STEPS} steps of "
         f"train_loop on the NCCL DeviceMesh (data 1, model 1) equal the "
         f"mesh-free steps bit for bit (losses {runs['mesh']['losses']}, "
-        f"the whole state); "
+        f"the whole state); at smoke width the mesh loop's sharded save "
+        f"equals one process's save of the mesh-free state byte for byte "
+        f"({save_resume['files']} files) and its resume on the mesh the "
+        f"mesh-free resume (losses {save_resume['resumed']}) in "
+        f"{save_resume['seconds']:.1f} s; "
         f"{runs['mesh']['ms_per_step']:.2f} ms/step on the mesh, "
         f"{runs['mesh_free']['ms_per_step']:.2f} without (median after the "
         f"first); the mesh's prefill step launched {launches}, logits equal "
         f"the mesh-free prefill's, empty report")
     return out
+
+
+def _dp_save_resume(device, mesh, opt, comp) -> dict:
+    """The llama3-8b smoke model, ``opt`` / ``comp`` (8-bit moments, EF):
+    ``train_loop`` on ``mesh`` saves step DP_SAVE_STEPS as a sharded
+    CABAC step (gathered to the writer, written over the mesh's shape);
+    the mesh-free step's state after the same steps, saved by one process
+    with the same save mesh, gives the same directory byte for byte.
+    Then ``train_loop`` on the mesh resumes from its step
+    (``restore(mesh=layout)``) to DP_RESUME_STEPS, and the mesh-free loop
+    from a copy of the same step: losses equal bit for bit."""
+    import shutil
+
+    from repro_torch import configs
+    from repro_torch.checkpoint.manager import (CheckpointConfig,
+                                                CheckpointManager)
+    from repro_torch.checkpoint.sharded import MeshSpec
+    from repro_torch.data.pipeline import make_batch
+    from repro_torch.train.loop import LoopConfig, train_loop
+    from repro_torch.train.steps import init_train_state, make_train_step
+
+    cfg = configs.get("llama3-8b", smoke=True)
+    shutil.rmtree(DP_CKPT_DIR, ignore_errors=True)
+
+    def ckpt(name):
+        return CheckpointConfig(str(DP_CKPT_DIR / name), sharded=True,
+                                keep=10)
+
+    def loop(steps):
+        return LoopConfig(total_steps=steps, batch=DP_SMOKE_BATCH,
+                          seq=DP_SMOKE_SEQ, ckpt_every=DP_SAVE_STEPS)
+    saved = train_loop(cfg, mesh, loop(DP_SAVE_STEPS), opt, comp,
+                       ckpt("mesh"), device=device)
+    state = init_train_state(cfg, opt, comp, seed=0, device=device)
+    _, make = make_train_step(cfg, None, opt, comp,
+                              total_steps=DP_SAVE_STEPS)
+    fn = make(state, None)
+    free_losses = []
+    for i in range(DP_SAVE_STEPS):
+        state, m = fn(state, make_batch(cfg, i, batch=DP_SMOKE_BATCH,
+                                        seq=DP_SMOKE_SEQ, seed=0))
+        free_losses.append(float(m["loss"]))
+    CheckpointManager(ckpt("free")).save(state, DP_SAVE_STEPS,
+                                         mesh=MeshSpec.from_any(mesh))
+    step = f"step_{DP_SAVE_STEPS:08d}"
+    got, want = DP_CKPT_DIR / "mesh" / step, DP_CKPT_DIR / "free" / step
+    names = sorted(p.name for p in want.iterdir())
+    differ = [n for n in names if not (got / n).exists() or
+              (got / n).read_bytes() != (want / n).read_bytes()]
+    check(sorted(p.name for p in got.iterdir()) == names and not differ,
+          f"train_dp: the mesh loop's sharded save differs from the "
+          f"mesh-free save in {differ}")
+    check(saved.losses == free_losses, f"train_dp: smoke losses "
+          f"{saved.losses} on the mesh, {free_losses} without")
+    shutil.copytree(got, DP_CKPT_DIR / "free_resume" / step)
+    on_mesh = train_loop(cfg, mesh, loop(DP_RESUME_STEPS), opt, comp,
+                         ckpt("mesh"), device=device)
+    free = train_loop(cfg, None, loop(DP_RESUME_STEPS), opt, comp,
+                      ckpt("free_resume"), device=device)
+    check(on_mesh.losses == free.losses and
+          len(free.losses) == DP_RESUME_STEPS - DP_SAVE_STEPS,
+          f"train_dp: resumed losses {on_mesh.losses} on the mesh, "
+          f"{free.losses} without")
+    shutil.rmtree(DP_CKPT_DIR, ignore_errors=True)
+    return {"files": len(names), "losses": saved.losses,
+            "resumed": on_mesh.losses}
 
 
 class _PartClock:
@@ -5630,7 +5721,8 @@ def main() -> int:
     run("zoo", phase_zoo, device, handover)
     free()
     # deepseek-moe-16b once every llama3-8b tensor is freed
-    cfg, params = init_full(device, "deepseek-moe-16b")
+    cfg, params = init_full(device, "deepseek-moe-16b",
+                            num_layers=SERVE_MOE_LAYERS)
     run("serve_moe", phase_serve, cfg, params, device)
     del params
     free()

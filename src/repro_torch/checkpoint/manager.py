@@ -336,8 +336,18 @@ class CheckpointManager:
         come back as ``DTensor``\\ s, each rank decoding only its boxes
         (``sharded.restore_on_mesh``; a P-frame is rebuilt on the host and
         placed, ``delta.restore_on_mesh_delta``); a monolithic step
-        raises.  Returns ``(state, meta)``."""
+        raises.  Where ``mesh`` is a ``distributed.fsdp.StateLayout`` (the
+        sharded train state's) every leaf comes back as this rank's box of
+        it on the layout's mesh: a sharded step's parameters through
+        ``restore_on_mesh`` / ``restore_on_mesh_delta``'s boxes under the
+        layout's rules, a monolithic step's cut from the whole tensors,
+        and the moments (``m_s`` / ``v_s`` included), EF and counters cut
+        from ``state.npz``.  Returns ``(state, meta)``."""
+        from ..distributed.fsdp import StateLayout
         dev = resolve_device(device)
+        layout = mesh if isinstance(mesh, StateLayout) else None
+        if layout is not None:
+            mesh = layout.mesh
         if mesh is not None:
             check_mesh(mesh, dev)
         step = step if step is not None else self.latest_step()
@@ -345,6 +355,8 @@ class CheckpointManager:
             raise FileNotFoundError("no checkpoints found")
         d = os.path.join(self.cfg.directory, f"step_{step:08d}")
         is_sharded = os.path.exists(os.path.join(d, sharded.MANIFEST_NAME))
+        if layout is not None and not is_sharded:
+            mesh = None             # the whole tensors, cut below
         if mesh is not None and not is_sharded:
             raise ValueError(
                 f"restore(mesh=...) needs a sharded checkpoint, but "
@@ -352,9 +364,10 @@ class CheckpointManager:
                 f"save) — restore without mesh instead")
         if is_sharded:
             is_delta = sharded.load_manifest(d).get("base") is not None
+            rules = layout.rules if layout is not None else None
             if is_delta and mesh is not None:
                 flat = delta_mod.restore_on_mesh_delta(
-                    self.cfg.directory, step, mesh,
+                    self.cfg.directory, step, mesh, rules=rules,
                     workers=self.cfg.shard_workers)
             elif is_delta:
                 # chained (P-frame) step: resolve the base chain and apply
@@ -364,18 +377,24 @@ class CheckpointManager:
                     workers=self.cfg.shard_workers)
             elif mesh is not None:
                 flat = sharded.restore_on_mesh(
-                    d, mesh, workers=self.cfg.shard_workers)
+                    d, mesh, rules=rules, workers=self.cfg.shard_workers)
             else:
                 flat = sharded.restore_flat(
                     d, workers=self.cfg.shard_workers)
         else:
             with open(os.path.join(d, "params.dcbc"), "rb") as f:
                 flat = decompress(f.read(), batched=True)
+        if layout is not None:
+            flat = {k: (v.to_local() if mesh is not None
+                        else layout.cut("params/" + k, v))
+                    for k, v in flat.items()}
         params = unflatten_like(flat, template_state["params"], device=dev)
-        with open(os.path.join(d, "state.npz"), "rb") as f:
-            other = dict(np.load(f, allow_pickle=False))
-        rest_t = {k: v for k, v in template_state.items() if k != "params"}
-        state = {"params": params, **_restore_rest(other, rest_t, dev)}
+        with np.load(os.path.join(d, "state.npz"),
+                     allow_pickle=False) as other:
+            rest_t = {k: v for k, v in template_state.items()
+                      if k != "params"}
+            state = {"params": params,
+                     **_restore_rest(other, rest_t, dev, layout)}
         with open(os.path.join(d, "meta.json")) as f:
             meta = json.load(f)
         return state, meta
@@ -400,15 +419,19 @@ def _host_array(v):
     return to_storage(v) if isinstance(v, torch.Tensor) else v
 
 
-def _restore_rest(other: dict, template: dict, device) -> dict:
-    """The non-param state from ``state.npz``, shaped like ``template``:
-    tensors take the template leaf's dtype (uint16 bits back to bf16) and
-    go to ``device``; scalars take the template's type."""
+def _restore_rest(other, template: dict, device, layout=None) -> dict:
+    """The non-param state from ``state.npz`` (read entry by entry),
+    shaped like ``template``: tensors take the template leaf's dtype
+    (uint16 bits back to bf16) and go to ``device``; scalars take the
+    template's type.  With ``layout`` each array is first cut to this
+    rank's box of it."""
     out = {}
     for key, leaf in flatten_tree(template).items():
         if key not in other:
             raise KeyError(f"checkpoint missing state entry {key}")
         arr = other[key]
+        if layout is not None:
+            arr = layout.cut(key, arr)
         if tuple(np.shape(arr)) != tuple(np.shape(leaf)):
             raise ValueError(f"{key}: checkpoint shape {np.shape(arr)} != "
                              f"state {tuple(np.shape(leaf))}")

@@ -12,6 +12,8 @@ scalar into a product with its reciprocal (see ``quantizers``).
 
 from __future__ import annotations
 
+from types import SimpleNamespace
+
 import torch
 
 Q8_BLOCK = 128
@@ -57,6 +59,13 @@ def q8_encode_sqrt(v: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 
 def q8_decode_sqrt(codes: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     return torch.square(q8_decode(codes, scale))
+
+
+# the whole leaf's codes and scales, as one codec object (a sharded
+# state's ``distributed.fsdp.BoxQ8`` gives a box's)
+WHOLE_Q8 = SimpleNamespace(encode=q8_encode, decode=q8_decode,
+                           encode_sqrt=q8_encode_sqrt,
+                           decode_sqrt=q8_decode_sqrt)
 
 
 def q8_scale_shape(shape: tuple[int, ...]) -> tuple[int, ...]:

@@ -24,7 +24,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from ..compression.q8 import q8_decode, q8_encode
+from ..compression.q8 import WHOLE_Q8, q8_decode, q8_encode
 from ..compression.tree import flatten_tree, unflatten
 
 
@@ -41,9 +41,11 @@ def init_error_feedback(params):
                       for k, p in flatten_tree(params).items()})
 
 
-def ef_compress_update(grads, ef, cfg: CompressionConfig):
+def ef_compress_update(grads, ef, cfg: CompressionConfig, layout=None):
     """Returns (compressed grads, error-feedback state); the state's
-    tensors are updated in place."""
+    tensors are updated in place.  With ``layout``
+    (``distributed.fsdp.StateLayout``) the tensors are this rank's boxes
+    and their codes the whole leaf's (``layout.codec``)."""
     if not cfg.enabled:
         return grads, ef
     flat_e = flatten_tree(ef)
@@ -51,8 +53,9 @@ def ef_compress_update(grads, ef, cfg: CompressionConfig):
     for name, g in flatten_tree(grads).items():
         t = flat_e[name]
         t.mul_(cfg.ef_decay).add_(g.to(torch.float32))
-        codes, scale = q8_encode(t)
-        deq = q8_decode(codes, scale)
+        q8 = WHOLE_Q8 if layout is None else layout.codec(name)
+        codes, scale = q8.encode(t)
+        deq = q8.decode(codes, scale)
         del codes, scale
         t.sub_(deq)
         out[name] = deq.to(g.dtype)

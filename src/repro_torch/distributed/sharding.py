@@ -14,14 +14,18 @@ On a ``torch.distributed`` ``DeviceMesh`` a spec becomes DTensor
 placements (:func:`placements_for`, the counterpart of the reference's
 ``named_shardings``); :func:`check_mesh` refuses a mesh that cannot hold
 a tensor of a given device (no fallback to another device or backend).
-The reference's ``activation_sharding`` / ``constrain`` have no copy: the
-port's model is not traced under SPMD, and its data-parallel steps keep
-the state replicated, so no activation needs a layout constraint.
+:func:`leaf_box` gives a leaf's box on this rank and the axes it is split
+and replicated on, from which the sharded train step
+(``distributed.fsdp``) gathers and reduces it.  The reference's
+``activation_sharding`` / ``constrain`` have no copy: the port's model is
+not traced under SPMD, and its steps gather and reduce explicitly, so no
+activation needs a layout constraint.
 """
 
 from __future__ import annotations
 
 import re
+from dataclasses import dataclass
 
 import numpy as np
 
@@ -217,8 +221,7 @@ def placements_for(spec, device_mesh) -> list:
     names = mesh_axis_names(device_mesh)
     out = [Replicate()] * len(names)
     for dim, entry in enumerate(spec):
-        axes = (() if entry is None else
-                tuple(entry) if isinstance(entry, (tuple, list)) else (entry,))
+        axes = spec_axes(entry)
         idx = []
         for a in axes:
             if a not in names:
@@ -254,6 +257,80 @@ def mesh_flat_index(mesh) -> int:
     for size, c in zip(mesh.shape, mesh.get_coordinate()):
         flat = flat * int(size) + int(c)
     return flat
+
+
+def spec_axes(entry) -> tuple:
+    """A spec entry (None, an axis name or a tuple of names) as a tuple
+    of mesh axis names."""
+    if entry is None:
+        return ()
+    return tuple(entry) if isinstance(entry, (tuple, list)) else (entry,)
+
+
+@dataclass(frozen=True)
+class LeafBox:
+    """Where a leaf of ``shape`` lives on a ``DeviceMesh`` under ``spec``:
+    this rank's ``[starts, stops)`` box of it (the box that
+    ``checkpoint.sharded.device_box`` gives the rank's flat index, and
+    ``placements_for`` gives DTensor), the mesh axes each dim is split on
+    (``dim_axes``, first axis major) and the mesh axes the leaf is
+    replicated on (``replica_axes``), both in mesh order."""
+
+    shape: tuple
+    spec: tuple
+    starts: tuple
+    stops: tuple
+    dim_axes: tuple
+    replica_axes: tuple
+
+    @property
+    def local_shape(self) -> tuple:
+        return tuple(b - a for a, b in zip(self.starts, self.stops))
+
+    @property
+    def shard_axes(self) -> tuple:
+        """Every mesh axis the leaf is split on, in mesh order of the
+        dims' entries."""
+        return tuple(a for axes in self.dim_axes for a in axes)
+
+    @property
+    def whole(self) -> bool:
+        return self.local_shape == tuple(self.shape)
+
+    def cut(self, whole):
+        """This rank's box of the whole leaf (a view)."""
+        return whole[tuple(slice(a, b) for a, b in zip(self.starts,
+                                                         self.stops))]
+
+
+def leaf_box(shape, spec, mesh) -> LeafBox:
+    """This rank's :class:`LeafBox` of a leaf of ``shape`` under ``spec``
+    (a spec tuple, as :func:`spec_for` gives it) on ``mesh`` (a
+    ``DeviceMesh``).  A dim split over ``(a1, a2)`` takes shard
+    ``c1 * |a2| + c2`` of ``|a1| * |a2|``, as JAX and ``device_box``
+    number them."""
+    names = mesh_axis_names(mesh)
+    sizes = {a: int(mesh.size(i)) for i, a in enumerate(names)}
+    coords = dict(zip(names, (int(c) for c in mesh.get_coordinate())))
+    shape = tuple(int(s) for s in shape)
+    dim_axes = [spec_axes(e) for e in spec] + [()] * (len(shape) - len(spec))
+    starts, stops = [], []
+    for dim, axes in zip(shape, dim_axes):
+        n, idx = 1, 0
+        for a in axes:
+            if a not in sizes:
+                raise ValueError(f"spec {spec}: axis {a!r} is not on the "
+                                 f"mesh {names}")
+            n *= sizes[a]
+            idx = idx * sizes[a] + coords[a]
+        if dim % n:
+            raise ValueError(f"spec {spec}: dim {dim} does not split over "
+                             f"{axes} ({n} shards)")
+        starts.append(idx * (dim // n))
+        stops.append((idx + 1) * (dim // n))
+    used = {a for axes in dim_axes for a in axes}
+    return LeafBox(shape, tuple(spec), tuple(starts), tuple(stops),
+                   tuple(dim_axes), tuple(a for a in names if a not in used))
 
 
 def check_mesh(mesh, device) -> None:

@@ -16,10 +16,13 @@ card unless ``--device cpu``.
 Under ``torchrun`` (or with ``RANK`` and ``WORLD_SIZE`` set) every rank
 trains: the process group is initialised (NCCL on ``cuda``, each rank on
 card ``LOCAL_RANK``; gloo with ``--device cpu``) and the mesh is
-``data = world size``, as the reference uses every device.  Without
-them the run is a world of one on a mesh-free step.  ``--production-mesh``
-(16 x 16, or 2 x 16 x 16 with ``--multi-pod``) has a model axis of 16,
-and tensor parallelism is not yet ported: it raises.  Only rank 0
+``data = world size``, as the reference uses every device; the train
+state is sharded over ``data`` (FSDP, the reference's ``"fsdp": "data"``
+rule).  Without them the run is a world of one on a mesh-free step.
+``--production-mesh`` (16 x 16, or 2 x 16 x 16 with ``--multi-pod``)
+needs a world of 256 (512) ranks: its model axis of 16 runs the dense
+GQA family tensor-parallel; any other family raises
+``NotImplementedError`` before the world is touched.  Only rank 0
 prints.
 """
 
@@ -31,6 +34,7 @@ import os
 from .. import configs
 from ..checkpoint.manager import CheckpointConfig
 from ..distributed.compress import CompressionConfig
+from ..distributed.tensor_parallel import check_supported
 from ..optim.adamw import AdamWConfig
 from ..train.loop import LoopConfig, train_loop
 from .mesh import device_mesh, make_local_mesh, make_production_mesh
@@ -69,13 +73,17 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     cfg = configs.get(args.arch, smoke=args.smoke)
-    dist = None
+    spec = None
     if args.production_mesh:
-        mesh = make_production_mesh(multi_pod=args.multi_pod)
-    else:
-        dist = _init_world(args.device)
-        mesh = (device_mesh(make_local_mesh(data=dist.get_world_size()),
-                            args.device) if dist else None)
+        spec = make_production_mesh(multi_pod=args.multi_pod)
+        check_supported(cfg, spec.shape["model"])
+    dist = _init_world(args.device)
+    if spec is not None and dist is None:
+        raise ValueError(f"--production-mesh: the mesh {spec.shape} needs "
+                         f"a torchrun world of {spec.size} ranks")
+    if dist is not None and spec is None:
+        spec = make_local_mesh(data=dist.get_world_size())
+    mesh = device_mesh(spec, args.device) if dist else None
     loop = LoopConfig(total_steps=args.steps, batch=args.batch,
                       seq=args.seq, ckpt_every=args.ckpt_every)
     ckpt = (CheckpointConfig(args.ckpt_dir, params_mode="cabac",

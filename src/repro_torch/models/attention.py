@@ -120,7 +120,7 @@ def _kv_len(cache_pos, b, s, device):
 
 def gqa_attention(x, p, cfg, positions, *, cache=None, cache_pos=None,
                   positions_3d=None, cache_pages=None,
-                  qpos_canonical: bool | None = None):
+                  qpos_canonical: bool | None = None, tp=None):
     """x (B,S,d).  Returns (out (B,S,d), cache | None).
 
     Prefill: ``cache`` is a dict of (B, Smax, G, D) tensors filled from
@@ -130,9 +130,17 @@ def gqa_attention(x, p, cfg, positions, *, cache=None, cache_pos=None,
     (P, page, G, D) and ``cache_pages`` (B, n_max) maps each row's logical
     pages to pool pages (:func:`_paged_update_load`).  An M-RoPE model
     rotates q and k by ``positions_3d`` (3, B, S); ``positions`` still
-    orders the cache and the causal mask."""
+    orders the cache and the causal mask.
+
+    Tensor-parallel (``tp``, the train step's model group): ``cfg`` holds
+    this rank's head counts and ``p`` its query heads' columns of ``wq``
+    (and ``bq``), the key/value heads they read in ``wk`` / ``wv`` (and
+    their biases) and the matching rows of ``wo``; the input's gradient
+    and the output are summed over the group."""
     b, s, _ = x.shape
     h, g, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    if tp is not None:
+        x = tp.enter(x)
     q = q8_einsum(x, p["wq"], policy=cfg.kernels)
     k = q8_einsum(x, p["wk"], policy=cfg.kernels)
     v = q8_einsum(x, p["wv"], policy=cfg.kernels)
@@ -180,7 +188,7 @@ def gqa_attention(x, p, cfg, positions, *, cache=None, cache_pos=None,
         qpos_canonical=qpos_canonical, policy=cfg.kernels)
     out = q8_einsum(out.reshape(b, s, h * dh), p["wo"],
                     policy=cfg.kernels)
-    return out, new_cache
+    return (out if tp is None else tp.leave(out)), new_cache
 
 
 def mla_attention(x, p, cfg, positions, *, cache=None, cache_pos=None,

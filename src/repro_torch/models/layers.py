@@ -60,10 +60,16 @@ def activation(x: torch.Tensor, kind: str) -> torch.Tensor:
 
 
 def swiglu_mlp(x: torch.Tensor, p: dict, act: str,
-               policy=None) -> torch.Tensor:
+               policy=None, tp=None) -> torch.Tensor:
+    """With ``tp`` (``distributed.tensor_parallel.TensorParallel``) ``p``
+    holds this rank's hidden units: ``w_gate`` / ``w_up`` column-parallel,
+    ``w_down`` row-parallel, the partial outputs summed over the group."""
+    if tp is not None:
+        x = tp.enter(x)
     gate = activation(q8_einsum(x, p["w_gate"], policy=policy), act)
     up = q8_einsum(x, p["w_up"], policy=policy)
-    return q8_einsum(gate * up, p["w_down"], policy=policy)
+    out = q8_einsum(gate * up, p["w_down"], policy=policy)
+    return out if tp is None else tp.leave(out)
 
 
 def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:

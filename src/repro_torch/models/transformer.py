@@ -282,7 +282,7 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, device="cuda") -> dict:
 # ---------------------------------------------------------------------------
 
 def _attn_block(x, lp, cfg, positions, pos3d, cache, cache_pos,
-                qpos_canonical, cache_pages=None):
+                qpos_canonical, cache_pages=None, tp=None):
     h = norm(x, lp["attn_norm"], cfg)
     if cfg.attention == "mla":
         a, _ = mla_attention(h, lp["attn"], cfg, positions, cache=cache,
@@ -292,19 +292,20 @@ def _attn_block(x, lp, cfg, positions, pos3d, cache, cache_pos,
         a, _ = gqa_attention(h, lp["attn"], cfg, positions, cache=cache,
                              cache_pos=cache_pos, positions_3d=pos3d,
                              cache_pages=cache_pages,
-                             qpos_canonical=qpos_canonical)
+                             qpos_canonical=qpos_canonical, tp=tp)
     return x + a
 
 
-def _dense_block(x, lp, cfg, *attn_args, with_aux=True, aux_reduce=None):
-    x = _attn_block(x, lp, cfg, *attn_args)
+def _dense_block(x, lp, cfg, *attn_args, with_aux=True, aux_reduce=None,
+                 tp=None):
+    x = _attn_block(x, lp, cfg, *attn_args, tp=tp)
     x = x + swiglu_mlp(norm(x, lp["mlp_norm"], cfg), lp["mlp"],
-                       cfg.act, policy=cfg.kernels)
+                       cfg.act, policy=cfg.kernels, tp=tp)
     return x, None
 
 
 def _moe_layer_block(x, lp, cfg, *attn_args, with_aux=True,
-                     aux_reduce=None):
+                     aux_reduce=None, tp=None):
     x = _attn_block(x, lp, cfg, *attn_args)
     m, aux = moe_block(norm(x, lp["mlp_norm"], cfg), lp["moe"],
                        cfg, with_aux=with_aux, aux_reduce=aux_reduce)
@@ -313,7 +314,7 @@ def _moe_layer_block(x, lp, cfg, *attn_args, with_aux=True,
 
 def _ssm_block(x, lp, cfg, positions, pos3d, cache, cache_pos,
                qpos_canonical, cache_pages=None, with_aux=True,
-               aux_reduce=None):
+               aux_reduce=None, tp=None):
     m, _ = mamba2_mixer(norm(x, lp["norm"], cfg), lp["mixer"], cfg,
                         cache=cache)
     return x + m, None
@@ -363,7 +364,7 @@ def _layers(params, cfg: ModelConfig, caches, dt, platform):
 def forward(params, cfg: ModelConfig, *, tokens=None, embeds=None,
             positions=None, pos3d=None, caches=None, cache_pos=None,
             cache_pages=None, last_only: bool = False, last_index=None,
-            with_aux: bool = True, aux_reduce=None):
+            with_aux: bool = True, aux_reduce=None, tp=None):
     """Returns (logits, caches, aux).
 
     tokens (B, S) int, or for an ``embed_input=False`` model embeds
@@ -381,7 +382,12 @@ def forward(params, cfg: ModelConfig, *, tokens=None, embeds=None,
     unless ``with_aux``: :func:`prefill` and :func:`decode_step` skip it,
     as the reference's compiled serving steps drop it.  ``aux_reduce``
     (data-parallel training) averages each MoE layer's ``f_e`` and
-    ``P_e`` over the ranks before their product (``models.moe``).
+    ``P_e`` over the ranks before their product (``models.moe``).  ``tp``
+    (a ``distributed.tensor_parallel.TensorParallel``, the train step's
+    model group, which only the dense GQA family builds) runs each block
+    on this rank's heads and hidden units of ``params``, the embedding on
+    its vocabulary rows and the head on its vocabulary columns: the
+    logits are this rank's ``(B, S, V / t)``.
 
     Nothing here reads a device value on the host, so a CUDA graph can
     capture a step: offsets are Python ints or device tensors (see
@@ -392,7 +398,13 @@ def forward(params, cfg: ModelConfig, *, tokens=None, embeds=None,
             "paged KV decode requires an attention-family cache; the "
             f"{cfg.family!r} state cache has no token axis to page")
     dt = _dtype(cfg.compute_dtype)
-    if cfg.embed_input:
+    if tp is not None:
+        cfg = tp.local_config(cfg)
+    if cfg.embed_input and tp is not None:
+        lookup = _kernels.get("embed_lookup_q8")
+        x = tp.embed(lambda t, i, d: lookup(t, i, d, policy=cfg.kernels),
+                     params["embed"], tokens, dt)
+    elif cfg.embed_input:
         x = _kernels.get("embed_lookup_q8")(params["embed"], tokens, dt,
                                             policy=cfg.kernels)
     else:
@@ -427,7 +439,7 @@ def forward(params, cfg: ModelConfig, *, tokens=None, embeds=None,
     for block, lp, cache_l in _layers(params, cfg, caches, dt, platform):
         x, a = block(x, lp, cfg, positions, pos3d, cache_l, cache_pos,
                      qpos_canonical, cache_pages, with_aux=with_aux,
-                     aux_reduce=aux_reduce)
+                     aux_reduce=aux_reduce, tp=tp)
         if a is not None:
             aux = aux + a
 
@@ -437,16 +449,19 @@ def forward(params, cfg: ModelConfig, *, tokens=None, embeds=None,
         x = x[torch.arange(b, device=dev), li][:, None, :]
     elif last_only:
         x = x[:, -1:, :]
-    logits = _head_logits(x, params, cfg)
+    logits = _head_logits(x, params, cfg, tp)
     return logits, caches, aux
 
 
-def _head_logits(x, params, cfg: ModelConfig):
+def _head_logits(x, params, cfg: ModelConfig, tp=None):
     """Final projection.  An untied q8 head (d, V) goes through
     ``kernels.get("dequant_matmul")`` with x in f32 and ``cfg.kernels``; a
     tied q8 head transposes the per-row scales onto the contraction dim,
     which the kernel's per-output-channel scales cannot take, so it is
-    dequantized in the loop (recorded)."""
+    dequantized in the loop (recorded).  With ``tp`` the head (or the
+    tied embedding) holds this rank's vocabulary: column-parallel."""
+    if tp is not None:
+        x = tp.enter(x)
     head_leaf = params["embed"] if cfg.tie_embeddings else params["head"]
     bsz, s, d = x.shape
     if not cfg.tie_embeddings and is_q8(head_leaf):
@@ -465,19 +480,26 @@ def _head_logits(x, params, cfg: ModelConfig):
 
 
 def train_loss(params, batch: dict, cfg: ModelConfig, *,
-               aux_reduce=None) -> torch.Tensor:
+               aux_reduce=None, tp=None) -> torch.Tensor:
     """Mean next-token NLL of ``batch`` (labels (B, S) with tokens, or
     embeds and, for M-RoPE, pos3d: ``data.pipeline.to_device``), as a 0-d
     f32 tensor that autograd differentiates; a MoE model adds
     ``router_aux_weight * aux / num_layers``.  ``aux_reduce`` (a rank's
     share of a data-parallel batch) takes the whole batch's means into
-    the load-balance terms: see :func:`forward`."""
+    the load-balance terms: see :func:`forward`.  With ``tp`` the logits
+    are this rank's vocabulary columns and the NLL the vocab-parallel
+    cross-entropy (``TensorParallel.cross_entropy``): the logits are
+    never gathered."""
     logits, _, aux = forward(params, cfg, tokens=batch.get("tokens"),
                              embeds=batch.get("embeds"),
-                             pos3d=batch.get("pos3d"), aux_reduce=aux_reduce)
-    logp = torch.log_softmax(logits, dim=-1)
-    ll = torch.gather(logp, -1, batch["labels"][..., None])[..., 0]
-    loss = -torch.mean(ll)
+                             pos3d=batch.get("pos3d"), aux_reduce=aux_reduce,
+                             tp=tp)
+    if tp is not None:
+        loss = torch.mean(tp.cross_entropy(logits, batch["labels"]))
+    else:
+        logp = torch.log_softmax(logits, dim=-1)
+        ll = torch.gather(logp, -1, batch["labels"][..., None])[..., 0]
+        loss = -torch.mean(ll)
     if cfg.family == "moe":
         loss = loss + cfg.router_aux_weight * aux / max(cfg.num_layers, 1)
     return loss

@@ -28,8 +28,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ..compression.q8 import (q8_decode, q8_decode_sqrt, q8_encode,
-                              q8_encode_sqrt, q8_scale_shape)
+from ..compression.q8 import WHOLE_Q8, q8_scale_shape
 from ..compression.tree import flatten_tree, unflatten
 
 
@@ -65,11 +64,18 @@ def adamw_init(params, cfg: AdamWConfig) -> dict:
                                   flatten_tree(params).items()})}
 
 
-def global_norm(tree) -> torch.Tensor:
-    """sqrt of the sum of squares of every leaf, in f32 (a 0-d tensor)."""
-    leaves = list(flatten_tree(tree).values())
+def global_norm(tree, layout=None) -> torch.Tensor:
+    """sqrt of the sum of squares of every leaf, in f32 (a 0-d tensor).
+    With ``layout`` (``distributed.fsdp.StateLayout``) the leaves are this
+    rank's boxes and the norm is the whole tree's: each box's sum is
+    summed over the axes its leaf is split on only."""
+    flat = flatten_tree(tree)
+    if layout is not None:
+        return torch.sqrt(layout.sum_squares(
+            {k: torch.sum(torch.square(x.to(torch.float32)))
+             for k, x in flat.items()}))
     total = sum(torch.sum(torch.square(x.to(torch.float32)))
-                for x in leaves)
+                for x in flat.values())
     return torch.sqrt(total)
 
 
@@ -84,12 +90,15 @@ def _moments_of(state: dict) -> dict:
 
 
 def adamw_update(grads, state: dict, params, cfg: AdamWConfig,
-                 lr_scale=1.0):
+                 lr_scale=1.0, layout=None):
     """One step: updates ``params`` and ``state`` in place and returns
     them as ``(params, state)``.  ``lr_scale`` is a float or a 0-d
-    tensor (the schedule's value)."""
+    tensor (the schedule's value).  With ``layout``
+    (``distributed.fsdp.StateLayout``) every tensor is this rank's box of
+    its leaf: the clip takes the whole tree's norm and 8-bit moments the
+    whole leaf's codes (``layout.codec``)."""
     count = np.int32(state["count"] + 1)
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads, layout)
     clip = torch.clamp_max(cfg.grad_clip / (gnorm + 1e-12), 1.0)
     c = np.float32(count)
     bc1 = float(np.float32(1.0) - np.float32(cfg.b1) ** c)
@@ -100,9 +109,10 @@ def adamw_update(grads, state: dict, params, cfg: AdamWConfig,
     for name, p in flatten_tree(params).items():
         g = flat_g[name].to(torch.float32) * clip
         mom = moments[name]
+        q8 = WHOLE_Q8 if layout is None else layout.codec(name)
         if cfg.quantized_moments:
-            m = q8_decode(mom["m_q"], mom["m_s"])
-            v = q8_decode_sqrt(mom["v_q"], mom["v_s"])
+            m = q8.decode(mom["m_q"], mom["m_s"])
+            v = q8.decode_sqrt(mom["v_q"], mom["v_s"])
         else:
             m, v = mom["m"], mom["v"]
         m.mul_(cfg.b1).add_((1.0 - cfg.b1) * g)
@@ -115,8 +125,8 @@ def adamw_update(grads, state: dict, params, cfg: AdamWConfig,
         del step, pf
         if cfg.quantized_moments:
             for (q, s), (codes, scale) in (
-                    (("m_q", "m_s"), q8_encode(m)),
-                    (("v_q", "v_s"), q8_encode_sqrt(v))):
+                    (("m_q", "m_s"), q8.encode(m)),
+                    (("v_q", "v_s"), q8.encode_sqrt(v))):
                 mom[q].copy_(codes)
                 mom[s].copy_(scale)
     state["count"] = count

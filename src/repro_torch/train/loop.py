@@ -12,11 +12,17 @@ the final save only waits for it (the reference writes the same state a
 second time).
 
 On a ``torch.distributed`` ``DeviceMesh`` every rank builds the same
-batch and the step takes its rows; only the mesh's first rank writes
-checkpoints (sharded over the mesh's shape when the config is sharded),
-every rank restores, a barrier ends a run once the last save is on disk,
-and a stop flag is all-reduced once a step, so a SIGTERM on any rank
-stops all of them after the same step.
+batch and the step takes its rows, and the state is sharded by the
+reference's rules (``distributed.fsdp``: each rank holds its box of
+every leaf).  A save gathers the state leaf by leaf to the mesh's first
+rank, which alone writes it through the same writer (sharded over the
+mesh's shape when the config is sharded), so the step directory is the
+one a single process writes from the whole state; every rank restores
+its boxes of the whole state (``CheckpointManager.restore`` with the
+layout as its ``mesh``).
+A barrier ends a run once the last save is on disk, and a stop flag is
+all-reduced once a step, so a SIGTERM on any rank stops all of them after
+the same step.
 """
 
 from __future__ import annotations
@@ -31,10 +37,10 @@ from ..checkpoint.manager import CheckpointConfig, CheckpointManager
 from ..checkpoint.sharded import MeshSpec
 from ..data.pipeline import make_batch
 from ..distributed.compress import CompressionConfig
+from ..distributed.sharding import DEFAULT_RULES
 from ..models.config import ModelConfig
 from ..optim.adamw import AdamWConfig
-from ..distributed.sharding import DEFAULT_RULES
-from .steps import batch_group, init_train_state, make_train_step
+from .steps import init_train_state, make_train_step, train_layout
 
 
 @dataclass
@@ -65,22 +71,33 @@ def train_loop(cfg: ModelConfig, mesh, loop: LoopConfig,
     """Train from ``init_train_state`` (or, with ``loop.resume``, from the
     latest checkpoint in ``ckpt_cfg.directory``) up to
     ``loop.total_steps`` on ``device`` (the card unless ``"cpu"`` is
-    asked for), data-parallel when ``mesh`` is a ``DeviceMesh``."""
+    asked for), sharded over ``mesh`` when it is a ``DeviceMesh``."""
     opt_cfg = opt_cfg or AdamWConfig()
-    group = batch_group(mesh, DEFAULT_RULES, "train_loop")
+    # one layout for the state, the step and the restore
+    layout = train_layout(cfg, opt_cfg, comp_cfg, mesh, DEFAULT_RULES,
+                          "train_loop")
+    group = layout.group if layout is not None else None
     writes = group is None or group.first
-    save_mesh = MeshSpec.from_any(mesh) if group is not None else None
+    save_mesh = MeshSpec.from_any(mesh) if layout is not None else None
     state = init_train_state(cfg, opt_cfg, comp_cfg, seed=loop.seed,
-                             device=device)
+                             device=device, mesh=layout)
     mgr = CheckpointManager(ckpt_cfg) if ckpt_cfg else None
+
+    def save(step):
+        # every rank gathers; the first writes the whole state
+        whole = state if layout is None else \
+            layout.gather_state(state, keep=writes)
+        if writes:
+            mgr.save(whole, step, mesh=save_mesh)
 
     start_step = 0
     if mgr and loop.resume and mgr.latest_step() is not None:
-        state, meta = mgr.restore(state, device=device)
+        state, meta = mgr.restore(state, device=device, mesh=layout)
         start_step = int(meta["step"])
 
     step_fn, make_jitted = make_train_step(
-        cfg, mesh, opt_cfg, comp_cfg, total_steps=loop.total_steps)
+        cfg, layout or mesh, opt_cfg, comp_cfg,
+        total_steps=loop.total_steps)
     probe = make_batch(cfg, 0, batch=loop.batch, seq=loop.seq,
                        seed=loop.seed)
     fn = make_jitted(state, probe)
@@ -109,16 +126,16 @@ def train_loop(cfg: ModelConfig, mesh, loop: LoopConfig,
                 med = float(np.median(times[-64:]))
                 if dt > loop.straggler_factor * med:
                     result.straggler_steps.append(step)
-            if mgr and writes and (step + 1) % loop.ckpt_every == 0:
-                mgr.save(state, step + 1, mesh=save_mesh)
+            if mgr and (step + 1) % loop.ckpt_every == 0:
+                save(step + 1)
                 saved = step + 1
             stopping = group.any(stop["flag"]) if group else stop["flag"]
             if stopping:
                 break
         result.final_step = int(state["step"])
-        if mgr and writes:
+        if mgr:
             if saved != result.final_step:
-                mgr.save(state, result.final_step, mesh=save_mesh)
+                save(result.final_step)
             mgr.wait()
         if group is not None:
             group.barrier()

@@ -6,11 +6,16 @@ from the logical rule tables and jits each step.  The port's spec
 functions return the same per-dim mesh axes (tuples, as
 ``distributed.sharding`` gives them) for a checkpoint manifest or a
 placement.  A step runs on one device (``mesh`` None, or a device-free
-mesh of one device) or data-parallel on a ``torch.distributed``
-``DeviceMesh`` whose axes of size > 1 are the batch axes (``pod``,
-``data``): each rank runs its rows of the global batch
-(``distributed.data_parallel.BatchGroup``), the state replicated on
-every rank.  A ``model`` axis of size > 1 (tensor parallelism) raises.
+mesh of one device) or on a ``torch.distributed`` ``DeviceMesh``: each
+rank runs its rows of the global batch over the batch axes (``pod``,
+``data``: ``distributed.data_parallel.BatchGroup``).  On a mesh the
+train step's state is sharded by ``state_specs``: each rank holds its
+box of every leaf (``distributed.fsdp``: FSDP over ``data``, and for
+the dense GQA family tensor parallelism over ``model``,
+``distributed.tensor_parallel``); with ``"fsdp": None`` and a ``model``
+axis of 1 every box is the whole leaf, the replicated data-parallel
+step.  Another family on a ``model`` axis above 1, and the prefill and
+decode steps on one, raise ``NotImplementedError``.
 The train step updates its state in place (parameters, AdamW moments,
 the error-feedback accumulators), the port's counterpart of the
 reference's ``donate_argnums=(0,)``.
@@ -31,8 +36,11 @@ from ..data.pipeline import to_device
 from ..distributed.compress import (CompressionConfig, ef_compress_update,
                                     init_error_feedback)
 from ..distributed.data_parallel import BatchGroup
+from ..distributed.fsdp import StateLayout
 from ..distributed.sharding import (DEFAULT_RULES, PREFILL_RULES,
-                                    SERVE_RULES, build_param_specs, spec_for)
+                                    SERVE_RULES, build_param_specs,
+                                    check_mesh, spec_axes, spec_for)
+from ..distributed.tensor_parallel import check_supported
 from ..kernels.registry import resolve_device
 from ..models.config import ModelConfig
 from ..models.transformer import forward, init_cache, init_params, train_loss
@@ -93,21 +101,27 @@ def state_specs(state, mesh, rules=None) -> dict:
     }
 
 
-def batch_group(mesh, rules, what: str) -> BatchGroup | None:
+def batch_group(mesh, rules, what: str, cfg=None) -> BatchGroup | None:
     """The data-parallel group a step runs over: None without a mesh or
     on a device-free mesh of one device, else the ``DeviceMesh``'s batch
-    axes (``rules["batch"]``).  Any other axis of size > 1 raises."""
+    axes (``rules["batch"]``).  A ``model`` axis above 1 is the train
+    step's tensor-parallel group where ``cfg`` is given
+    (``tensor_parallel.check_supported`` raises for a family it does not
+    split); any other axis of size > 1 raises ``NotImplementedError``."""
     if mesh is None:
         return None
     spec = MeshSpec.from_any(mesh)
-    batch = rules["batch"]
-    batch = tuple(batch) if isinstance(batch, (tuple, list)) else (batch,)
+    batch = spec_axes(rules["batch"])
     for name, size in spec.shape.items():
         if name not in batch and size > 1:
+            if name == "model" and cfg is not None:
+                check_supported(cfg, size)
+                continue
             raise NotImplementedError(
-                f"{what} on a mesh with {name!r} of size {size}: tensor "
-                "parallelism is not yet ported (the port's steps are "
-                "data-parallel over the batch axes)")
+                f"{what} on a mesh with {name!r} of size {size}: not yet "
+                "ported (the port's prefill and decode steps are "
+                "data-parallel over the batch axes; the reference shards "
+                "their caches on kv_seq)")
     if getattr(mesh, "mesh_dim_names", None) is None:     # no DeviceMesh
         if spec.size > 1:
             raise ValueError(
@@ -117,18 +131,43 @@ def batch_group(mesh, rules, what: str) -> BatchGroup | None:
     return BatchGroup(mesh, batch)
 
 
+def train_layout(cfg: ModelConfig, opt_cfg: AdamWConfig, comp_cfg, mesh,
+                 rules=None, what: str = "make_train_step"):
+    """The sharded train state's ``fsdp.StateLayout`` on ``mesh``:
+    ``mesh`` itself when it is one already (``train_loop`` builds one and
+    passes it to the state init, the step and the restore), None where
+    the step runs on one device (:func:`batch_group` gives no group),
+    else a new one under ``rules`` (default ``DEFAULT_RULES``)."""
+    if isinstance(mesh, StateLayout):
+        return mesh
+    rules = rules or DEFAULT_RULES
+    if batch_group(mesh, rules, what, cfg) is None:
+        return None
+    return StateLayout(cfg, opt_cfg, comp_cfg, mesh, rules)
+
+
 # ---------------------------------------------------------------------------
 # State init
 # ---------------------------------------------------------------------------
 
 def init_train_state(cfg: ModelConfig, opt_cfg: AdamWConfig,
                      comp_cfg: CompressionConfig | None = None,
-                     seed: int = 0, *, device="cuda") -> TrainState:
+                     seed: int = 0, *, device="cuda", mesh=None,
+                     rules=None) -> TrainState:
     """{"params", "opt", "ef", "step"} on ``device`` (the card unless
     ``"cpu"`` is asked for): ``init_params(cfg, seed)``, zero AdamW
     moments, zero error-feedback accumulators when ``comp_cfg`` enables
-    compression (else ``None``), and ``step`` a 0-d int32 tensor."""
+    compression (else ``None``), and ``step`` a 0-d int32 tensor.  On a
+    ``DeviceMesh`` (``mesh``, under ``rules``, default ``DEFAULT_RULES``,
+    or the ``fsdp.StateLayout`` already built on one: :func:`train_layout`)
+    every leaf is this rank's box of it (``StateLayout.init_state``: the
+    same draw, leaf by leaf, each cut as it comes)."""
     dev = resolve_device(device)
+    layout = train_layout(cfg, opt_cfg, comp_cfg, mesh, rules,
+                          "init_train_state")
+    if layout is not None:
+        check_mesh(layout.mesh, dev)
+        return layout.init_state(seed, dev)
     params = init_params(cfg, seed, device=dev)
     return {
         "params": params,
@@ -165,52 +204,61 @@ def make_train_step(cfg: ModelConfig, mesh, opt_cfg: AdamWConfig,
     parameters, moments and EF in place, so the returned state holds the
     same tensors and a new ``step``.
 
-    On a ``DeviceMesh`` every rank passes the same global batch and runs
-    its rows; the gradients are summed over the batch axes in f32 (a bf16
-    gradient is widened first, so the only rounding to bf16 is the one
-    after the mean), divided by the group's size and cast back to the
-    parameter's dtype, and EF, the schedule and AdamW then run as on one
-    device on the state replicated on every rank.  The loss is the
-    group's mean; a MoE model's load-balance terms ``f_e`` and ``P_e`` are
-    averaged over the group before their product (``aux_reduce``), so the
-    step keeps the whole-batch loss.  ``jitted(state, probe)`` returns
-    ``fn(state, batch)``, which runs ``step_fn`` on the state's device and
-    writes the new state into ``state``.  The steps
+    On a ``DeviceMesh`` (or the ``fsdp.StateLayout`` already built on
+    one: :func:`train_layout`) every rank passes the same global batch
+    and runs its rows, and the state is this rank's boxes
+    (``init_train_state(..., mesh=)``; ``fsdp.StateLayout``): each
+    parameter is gathered for the forward and backward
+    (``StateLayout.gather_params``), whose backward sums its gradient over
+    the batch axes in f32 (a bf16 gradient is widened first, so the only
+    rounding to bf16 is the one after the mean), divides it by the
+    group's size and cuts it back to the box; on a ``model`` axis above 1
+    the blocks run tensor-parallel.  EF and AdamW then update the boxes in
+    place, with the whole tree's gradient norm and the whole leaves' 8-bit
+    codes.  The loss is the group's mean; a MoE model's load-balance terms
+    ``f_e`` and ``P_e`` are averaged over the group before their product
+    (``aux_reduce``), so the step keeps the whole-batch loss.
+    ``jitted(state, probe)`` returns ``fn(state, batch)``, which runs
+    ``step_fn`` on the state's device and writes the new state into
+    ``state``.  The steps
     carry ``torch.profiler.record_function`` ranges ``train_step/ef`` and
     ``train_step/adamw``."""
-    rules = rules or DEFAULT_RULES
-    group = batch_group(mesh, rules, "make_train_step")
     comp_cfg = comp_cfg or CompressionConfig(enabled=False)
+    layout = train_layout(cfg, opt_cfg, comp_cfg, mesh, rules)
+    group = layout.group if layout is not None else None
 
     def step_fn(state: TrainState, batch: dict):
         params = state["params"]
         flat = flatten_tree(params)
         dev = next(iter(flat.values())).device
-        if group is not None:
+        if layout is not None:
             group.check(dev)
             batch = group.rows(batch)
         batch = _batch_on(batch, dev)
         leaves = [p.detach().requires_grad_(True) for p in flat.values()]
         with torch.enable_grad():
-            loss = train_loss(unflatten(dict(zip(flat, leaves))), batch, cfg,
-                              aux_reduce=group.mean if group else None)
+            work = dict(zip(flat, leaves))
+            if layout is not None:
+                work = layout.gather_params(work)
+            loss = train_loss(unflatten(work), batch, cfg,
+                              aux_reduce=group.mean if group else None,
+                              tp=layout.tp if layout else None)
             grads = torch.autograd.grad(loss, leaves)
-        del leaves
+        del leaves, work
         with torch.no_grad():
             if group is not None:
                 loss = group.mean_(loss.detach().clone())
-                grads = [group.mean_(g.to(torch.float32)).to(g.dtype)
-                         for g in grads]
             grads = unflatten(dict(zip(flat, grads)))
             ef = state["ef"]
             if comp_cfg.enabled:
                 with torch.profiler.record_function("train_step/ef"):
-                    grads, ef = ef_compress_update(grads, ef, comp_cfg)
+                    grads, ef = ef_compress_update(grads, ef, comp_cfg,
+                                                   layout)
             lr_scale = linear_warmup_cosine(state["step"], warmup,
                                             total_steps)
             with torch.profiler.record_function("train_step/adamw"):
                 params, opt = adamw_update(grads, state["opt"], params,
-                                           opt_cfg, lr_scale)
+                                           opt_cfg, lr_scale, layout)
         del grads
         new_state = {"params": params, "opt": opt, "ef": ef,
                      "step": state["step"] + 1}
@@ -218,6 +266,8 @@ def make_train_step(cfg: ModelConfig, mesh, opt_cfg: AdamWConfig,
 
     def jitted(state, batch):
         del batch                     # no shapes to specialise on
+        if layout is not None:
+            layout.check_state(state)
 
         def fn(st, b):
             new, metrics = step_fn(st, b)

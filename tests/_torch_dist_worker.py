@@ -1,11 +1,13 @@
-"""One rank of the gloo world that ``tests/test_torch_distributed.py``
-spawns (four CPU processes, one intra-op thread each, rendezvous through a
-``FileStore``).  Every rank runs every check in the same order and writes
-what it saw to ``rank<r>.pt`` in the world's directory; the test file's
-cases assert on those results against the JAX package and the port's
-single-process math.  Imports nothing of JAX.
+"""One rank of the gloo worlds that ``tests/test_torch_distributed.py``
+(four CPU processes) and ``tests/test_torch_sharded_train.py`` (``sharded``:
+worlds of two and four) spawn, one intra-op thread each, rendezvous
+through a ``FileStore``.  Every rank runs every check in the same order
+and writes what it saw to ``rank<r>.pt`` in the world's directory; the
+test files' cases assert on those results against the JAX package and
+the port's single-process math.  Imports nothing of JAX.
 
-    python tests/_torch_dist_worker.py <rank> <world size> <directory>
+    python tests/_torch_dist_worker.py <rank> <world size> <directory> \
+        [sharded]
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ import sys
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import init_device_mesh
@@ -34,6 +37,7 @@ from repro_torch.data.pipeline import make_batch
 from repro_torch.distributed import sharding
 from repro_torch.distributed.compress import (CompressionConfig,
                                               cross_pod_psum_compressed)
+from repro_torch.distributed.fsdp import StateLayout, shard_state
 from repro_torch.distributed.pipeline_stage import gpipe_apply
 from repro_torch.launch.mesh import device_mesh, make_local_mesh
 from repro_torch.optim.adamw import AdamWConfig
@@ -47,6 +51,18 @@ ARCHS = ("llama3-8b", "deepseek-moe-16b")
 B, S = 4, 16                  # the data-parallel steps' global batch
 TOTAL, WARMUP, LR = 12, 2, 1e-2
 DP_STEPS = 2
+REPLICATED = {**sharding.DEFAULT_RULES, "fsdp": None}
+# the sharded train steps: (mesh shape, arch, moments) of each world size;
+# "f32" is f32 moments without EF, "q8" 8-bit moments with EF
+SHARDED_MESHES = {2: ((2, 1), (1, 2)), 4: ((2, 2), (1, 4))}
+SHARDED_RUNS = (("llama3-8b", "f32"), ("llama3-8b", "q8"),
+                ("qwen1.5-4b", "f32"), ("qwen1.5-4b", "q8"))
+# on (data 2, model 1) only
+MOE_RUNS = (("deepseek-moe-16b", "f32"), ("deepseek-moe-16b", "q8"))
+# on (data 1, model > 1) only: q_norm / k_norm read on a rank's heads
+QK_NORM_RUNS = (("qwen3-8b", "f32"), ("qwen3-8b", "q8"))
+NO_TP_ARCHS = ("deepseek-moe-16b", "deepseek-v3-671b", "mamba2-2.7b",
+               "zamba2-2.7b")
 
 
 def _np(t):
@@ -67,18 +83,32 @@ def _raises(fn) -> str | None:
     return None
 
 
-def dp_train(mesh, arch, quant, ef) -> dict:
+def _train(cfg, mesh, opt, comp, rules=None, steps=DP_STEPS, total=TOTAL,
+           warmup=WARMUP):
+    """``steps`` steps of ``make_train_step`` on ``mesh`` from the state
+    ``init_train_state(..., mesh=)`` builds: (state, losses)."""
+    state = init_train_state(cfg, opt, comp, seed=0, device="cpu",
+                             mesh=mesh, rules=rules)
+    _, make = make_train_step(cfg, mesh, opt, comp, rules=rules,
+                              total_steps=total, warmup=warmup)
+    fn = make(state, None)
+    losses = []
+    for i in range(steps):
+        state, m = fn(state, make_batch(cfg, i, batch=B, seq=S, seed=0))
+        losses.append(float(m["loss"]))
+    return state, losses
+
+
+def dp_train(mesh, arch, quant, ef, rules=None) -> dict:
+    """The data-parallel cases: under the default rules the state is
+    sharded (FSDP over data) and gathered whole on every rank before it
+    is compared; under ``REPLICATED`` it is whole on every rank."""
     cfg = configs.get(arch, smoke=True)
     opt = AdamWConfig(lr=LR, quantized_moments=quant)
     comp = CompressionConfig(enabled=ef)
-    state = init_train_state(cfg, opt, comp, seed=0, device="cpu")
-    _, make = make_train_step(cfg, mesh, opt, comp, total_steps=TOTAL,
-                              warmup=WARMUP)
-    fn = make(state, None)
-    losses = []
-    for i in range(DP_STEPS):
-        state, m = fn(state, make_batch(cfg, i, batch=B, seq=S, seed=0))
-        losses.append(float(m["loss"]))
+    state, losses = _train(cfg, mesh, opt, comp, rules)
+    if rules is None:
+        state = StateLayout(cfg, opt, comp, mesh).gather_state(state, True)
     return {"losses": losses, "state": _state_np(state)}
 
 
@@ -291,6 +321,166 @@ def session_on_one(d: Path, mesh1) -> dict:
                                   flatten_tree(sess.params).values()})}
 
 
+# ---------------------------------------------------------------------------
+# the sharded train state (tests/test_torch_sharded_train.py)
+# ---------------------------------------------------------------------------
+
+def _configs(mode):
+    quant = mode == "q8"
+    return (AdamWConfig(lr=LR, quantized_moments=quant),
+            CompressionConfig(enabled=quant))
+
+
+def sharded_run(mesh, arch, mode, first: bool) -> dict:
+    """DP_STEPS steps on ``mesh`` under the default rules: the losses,
+    this rank's boxes, the whole state gathered (kept by the first rank),
+    each leaf's box and each parameter's gather plan and q8 codec."""
+    cfg = configs.get(arch, smoke=True)
+    opt, comp = _configs(mode)
+    state, losses = _train(cfg, mesh, opt, comp)
+    layout = StateLayout(cfg, opt, comp, mesh)
+    whole = layout.gather_state(state, keep=first)
+    local = _state_np(state)
+    return {
+        "losses": losses, "local": local,
+        "whole": _state_np(whole) if first else None,
+        "boxes": {k: (b.spec, b.starts, b.stops)
+                  for k, b in layout.boxes.items()},
+        "plans": {k: (p.gathered, p.summed, p.narrow)
+                  for k, p in layout.plans.items()},
+        "codecs": {k: layout.codec(k).kind for k in layout.plans},
+        "resident": sum(v.nbytes for v in local.values()
+                        if isinstance(v, np.ndarray)),
+    }
+
+
+def box_q8(mesh, inp) -> dict:
+    """Each case's whole tensor cut to this rank's box of its leaf and
+    encoded and decoded by the layout's codec (8-bit moments of the
+    llama3-8b smoke model)."""
+    cfg = configs.get("llama3-8b", smoke=True)
+    opt, comp = _configs("q8")
+    layout = StateLayout(cfg, opt, comp, mesh)
+    out = {}
+    for name, x in inp["box_q8"].items():
+        q8 = layout.codec(name)
+        box = layout.boxes["params/" + name]
+        codes, scale = q8.encode(box.cut(x).contiguous())
+        out[name] = {"kind": q8.kind, "codes": codes.numpy(),
+                     "scale": scale.numpy(),
+                     "decoded": q8.decode(codes, scale).numpy(),
+                     "sqrt_codes": q8.encode_sqrt(
+                         box.cut(x).abs().contiguous())[0].numpy()}
+    return out
+
+
+def _full(layout, state, mesh) -> dict:
+    """The whole state by DTensor's own gather of each box (placed by
+    ``placements_for`` of its spec), on every rank."""
+    def walk(tree, prefix):
+        out = {}
+        for k, v in tree.items():
+            name = prefix + k
+            if isinstance(v, dict):
+                out[k] = walk(v, name + "/")
+            elif isinstance(v, torch.Tensor):
+                b = layout.boxes[name]
+                out[k] = DTensor.from_local(
+                    v, mesh, sharding.placements_for(b.spec, mesh),
+                    run_check=False, shape=torch.Size(b.shape),
+                    stride=torch.empty(b.shape, device="meta").stride()
+                ).full_tensor()
+            else:
+                out[k] = v
+        return out
+    return walk(state, "")
+
+
+def ckpt_round_trip(d: Path, mesh, rank: int) -> dict:
+    """On (data 2, model 2), 8-bit moments and EF: ``train_loop`` saves raw
+    sharded steps 2 and 4 and, in another directory, a CABAC sharded step
+    2; the same two steps by ``make_train_step`` gathered by DTensor (the
+    first rank writes them for the single-process saves); a restore of
+    step 2 onto the mesh; ``train_loop`` resumed on the mesh from a copy
+    of step 2."""
+    import shutil
+    cfg = configs.get("llama3-8b", smoke=True)
+    opt, comp = _configs("q8")
+    loop = loop_mod.LoopConfig(total_steps=4, batch=B, seq=S, ckpt_every=2)
+    raw = CheckpointConfig(str(d / "sh_raw"), params_mode="raw",
+                           sharded=True, keep=10)
+    a = loop_mod.train_loop(cfg, mesh, loop, opt, comp, raw, device="cpu")
+    cabac = CheckpointConfig(str(d / "sh_cabac"), sharded=True, keep=10)
+    loop_mod.train_loop(cfg, mesh, loop_mod.LoopConfig(
+        total_steps=2, batch=B, seq=S, ckpt_every=2), opt, comp, cabac,
+        device="cpu")
+    state, losses = _train(cfg, mesh, opt, comp, total=4, warmup=100)
+    layout = StateLayout(cfg, opt, comp, mesh)
+    full = _full(layout, state, mesh)
+    if rank == 0:
+        torch.save(full, d / "sh_state2.pt")
+        shutil.copytree(d / "sh_raw" / "step_00000002",
+                        d / "sh_resume" / "step_00000002")
+    dist.barrier()
+    template = init_train_state(cfg, opt, comp, seed=7, device="cpu",
+                                mesh=mesh)
+    restored, meta = CheckpointManager(raw).restore(
+        template, step=2, device="cpu", mesh=layout)
+    resumed = loop_mod.train_loop(
+        cfg, mesh, loop, opt, comp,
+        CheckpointConfig(str(d / "sh_resume"), params_mode="raw",
+                         sharded=True, keep=10), device="cpu")
+    return {"losses": a.losses, "final": a.final_step,
+            "steps": CheckpointManager(raw).steps(),
+            "step_losses": losses, "local": _state_np(state),
+            "restored": _state_np(restored), "meta_step": meta["step"],
+            "resumed": resumed.losses, "resumed_final": resumed.final_step}
+
+
+def sharded_main(rank: int, world: int, d: Path, inp: dict) -> dict:
+    res: dict = {"rank": rank}
+    meshes = {shape: device_mesh(make_local_mesh(*shape), "cpu")
+              for shape in SHARDED_MESHES[world]}
+    res["flat_index"] = {shape: sharding.mesh_flat_index(m)
+                         for shape, m in meshes.items()}
+    runs = {}
+    for shape, mesh in meshes.items():
+        extra = MOE_RUNS if shape[1] == 1 else \
+            QK_NORM_RUNS if shape[0] == 1 else ()
+        for arch, mode in SHARDED_RUNS + extra:
+            runs[(shape, arch, mode)] = sharded_run(mesh, arch, mode,
+                                                    rank == 0)
+    res["runs"] = runs
+    opt, comp = _configs("q8")
+    res["init_is_shard_state"] = {}
+    for shape, mesh in meshes.items():
+        for arch in ("llama3-8b", "qwen1.5-4b"):
+            cfg = configs.get(arch, smoke=True)
+            boxes = _state_np(init_train_state(cfg, opt, comp, seed=3,
+                                               device="cpu", mesh=mesh))
+            cut = _state_np(shard_state(init_train_state(
+                cfg, opt, comp, seed=3, device="cpu"), mesh))
+            res["init_is_shard_state"][(shape, arch)] = \
+                sorted(boxes) == sorted(cut) and all(
+                    np.array_equal(boxes[k], cut[k]) for k in boxes)
+    tp = meshes[SHARDED_MESHES[world][1]]
+    res["box_q8"] = box_q8(tp, inp)
+    if world == 2:
+        res["refusals"] = {arch: [
+            _raises(lambda: init_train_state(configs.get(arch, smoke=True),
+                                             opt, comp, device="cpu",
+                                             mesh=tp)),
+            _raises(lambda: make_train_step(configs.get(arch, smoke=True),
+                                            tp, opt, comp))]
+            for arch in NO_TP_ARCHS}
+        res["refusals"]["steps"] = [
+            _raises(lambda: make(configs.get("llama3-8b", smoke=True), tp))
+            for make in (make_prefill_step, make_decode_step)]
+    else:
+        res["ckpt"] = ckpt_round_trip(d, meshes[(2, 2)], rank)
+    return res
+
+
 def main(rank: int, world: int, d: Path) -> None:
     import importlib
     for m in ("repro_torch.launch.train", "repro_torch.serve.quantized"):
@@ -300,7 +490,16 @@ def main(rank: int, world: int, d: Path) -> None:
         "gloo", store=dist.FileStore(str(d / "store"), world), rank=rank,
         world_size=world, timeout=datetime.timedelta(seconds=180))
     inp = torch.load(d / "inputs.pt", weights_only=False)
-    res: dict = {"rank": rank}
+    if sys.argv[4:] == ["sharded"]:
+        res = sharded_main(rank, world, d, inp)
+        res["jax_modules"] = sorted(
+            m for m in sys.modules if m in ("jax", "repro") or
+            m.startswith(("jax.", "jaxlib", "repro.")))
+        dist.barrier()
+        torch.save(res, d / f"rank{rank}.pt")
+        dist.destroy_process_group()
+        return
+    res = {"rank": rank}
     m4 = init_device_mesh("cpu", (4,), mesh_dim_names=("data",))
     m22 = init_device_mesh("cpu", (2, 2), mesh_dim_names=("pod", "data"))
     m22tp = device_mesh(make_local_mesh(data=2, model=2), "cpu")
@@ -331,7 +530,8 @@ def main(rank: int, world: int, d: Path) -> None:
         "world_size": _raises(lambda: device_mesh(
             make_local_mesh(data=2), "cpu")),
         "model_axis": [_raises(lambda: make(m22tp)) for make in (
-            lambda m: make_train_step(configs.get("llama3-8b", smoke=True),
+            lambda m: make_train_step(configs.get("deepseek-moe-16b",
+                                                  smoke=True),
                                       m, AdamWConfig()),
             lambda m: make_prefill_step(configs.get("llama3-8b",
                                                     smoke=True), m),
@@ -344,10 +544,14 @@ def main(rank: int, world: int, d: Path) -> None:
     dp = {}
     for ef in (False, True):
         for arch in ARCHS:
+            # FSDP over data with pod replicas, gathered
             dp[(4, arch, ef)] = dp_train(m221, arch, False, ef)
-        # a world of 2: each pod trains one model on its data axis
-        dp[(2, ARCHS[pod], ef)] = dp_train(data2, ARCHS[pod], False, ef)
-    dp[(2, ARCHS[pod], "q8")] = dp_train(data2, ARCHS[pod], True, True)
+        # a world of 2: each pod trains one model on its data axis, the
+        # state replicated ("fsdp": None)
+        dp[(2, ARCHS[pod], ef)] = dp_train(data2, ARCHS[pod], False, ef,
+                                           REPLICATED)
+    dp[(2, ARCHS[pod], "q8")] = dp_train(data2, ARCHS[pod], True, True,
+                                         REPLICATED)
     res["dp"] = dp
     res["prefill_decode"] = prefill_decode(
         device_mesh(make_local_mesh(data=4), "cpu"))

@@ -45,12 +45,13 @@ from repro_torch import configs  # noqa: E402
 from repro_torch.arrays import to_storage  # noqa: E402
 from repro_torch.checkpoint import CheckpointConfig, CheckpointManager  # noqa
 from repro_torch.checkpoint.sharded import MeshSpec  # noqa: E402
-from repro_torch.compression.tree import flatten_tree  # noqa: E402
+from repro_torch.compression.tree import flatten_tree, unflatten  # noqa
+from repro_torch.distributed.compress import init_error_feedback  # noqa
 from repro_torch.convert import params_from_numpy  # noqa: E402
 from repro_torch.data.pipeline import make_batch  # noqa: E402
 from repro_torch.distributed import pipeline_stage  # noqa: E402
 from repro_torch.distributed.compress import CompressionConfig  # noqa: E402
-from repro_torch.optim.adamw import AdamWConfig  # noqa: E402
+from repro_torch.optim.adamw import AdamWConfig, adamw_init  # noqa: E402
 from repro_torch.serve import quantized  # noqa: E402
 from repro_torch.serve.session import ServeConfig, ServeSession  # noqa: E402
 from repro_torch.train.steps import (init_train_state,  # noqa: E402
@@ -190,11 +191,20 @@ def _reference_steps(d: Path) -> dict:
     return {"p1": p1, "tree": tree}
 
 
-def _whole_batch(arch, quant, ef) -> dict:
+def _whole_batch(arch, quant, ef, init: dict) -> dict:
+    """The single-process step on the whole batch, from a copy of the
+    arch's smoke train state ``init[arch]`` (drawn once for all its
+    cases; fresh zero moments and EF of the case's kind)."""
     cfg = configs.get(arch, smoke=True)
     opt = AdamWConfig(lr=LR, quantized_moments=quant)
     comp = CompressionConfig(enabled=ef)
-    state = init_train_state(cfg, opt, comp, seed=0, device="cpu")
+    if arch not in init:
+        init[arch] = init_train_state(cfg, opt, seed=0, device="cpu")
+    params = unflatten({k: v.clone() for k, v in
+                        flatten_tree(init[arch]["params"]).items()})
+    state = {"params": params, "opt": adamw_init(params, opt),
+             "ef": init_error_feedback(params) if ef else None,
+             "step": torch.zeros((), dtype=torch.int32)}
     _, make = make_train_step(cfg, None, opt, comp, total_steps=TOTAL,
                               warmup=WARMUP)
     fn = make(state, None)
@@ -252,13 +262,29 @@ def _resume_world_one(d: Path) -> list:
     return losses
 
 
+def _launcher() -> subprocess.Popen:
+    """``torchrun --standalone --nproc-per-node 2 -m
+    repro_torch.launch.train --smoke --device cpu`` (3 steps, the worker's
+    batch), started beside the world."""
+    env = {**os.environ, "PYTHONPATH": str(REPO / "src"),
+           "OMP_NUM_THREADS": "1"}
+    return subprocess.Popen(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node", "2", "-m", "repro_torch.launch.train",
+         "--smoke", "--device", "cpu", "--steps", "3", "--batch", str(B),
+         "--seq", str(S), "--compress-grads"], cwd=REPO, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
 @pytest.fixture(scope="module")
 def world(tmp_path_factory):
     """Run the four ranks once (and, beside them, the reference's psum on
-    four fake CPU devices in one jax subprocess); return what each rank
-    wrote with the single-process and reference results."""
+    four fake CPU devices in one jax subprocess, and the launcher under
+    ``torchrun``); return what each rank wrote with the single-process
+    and reference results."""
     d = tmp_path_factory.mktemp("world")
     inp = _inputs(d)
+    launcher = _launcher()
     env = {**os.environ, "PYTHONPATH": os.pathsep.join(
         [str(REPO / "src"), os.environ.get("PYTHONPATH", "")]),
         "OMP_NUM_THREADS": "1"}
@@ -280,7 +306,8 @@ def world(tmp_path_factory):
         # runs
         ref = _reference_steps(d)
         (d / "ref_ready").touch()
-        whole = {(arch, quant, ef): _whole_batch(arch, quant, ef)
+        init: dict = {}
+        whole = {(arch, quant, ef): _whole_batch(arch, quant, ef, init)
                  for arch in ARCHS for quant, ef in
                  ((False, False), (False, True), (True, True))}
         seq = {s: _sequential_gpipe(inp, s) for s in (2, 4)}
@@ -289,7 +316,7 @@ def world(tmp_path_factory):
             p.wait(timeout=400)
         _, jerr = jproc.communicate(timeout=300)
     except BaseException:
-        for p in procs:
+        for p in procs + [launcher]:
             p.kill()
         raise
     finally:
@@ -306,7 +333,7 @@ def world(tmp_path_factory):
     return SimpleNamespace(dir=d, inp=inp, ref=ref, ranks=ranks,
                            whole=whole, seq=seq, single=single,
                            psum=dict(np.load(d / "psum_out.npz")),
-                           resumed=_resume_world_one(d))
+                           resumed=_resume_world_one(d), launcher=launcher)
 
 
 # ---------------------------------------------------------------------------
@@ -357,7 +384,9 @@ def test_batch_spec_shards_over_pod_then_data(world):
 
 def test_device_mesh_and_steps_refuse_what_they_cannot_run(world):
     """``device_mesh`` on a world of another size, a ``model`` axis of 2
-    for each step factory, a mesh on another device: each raises."""
+    for each step factory (the train step of the MoE family, which has no
+    tensor parallelism; the prefill and decode steps of any), a mesh on
+    another device: each raises."""
     for res in world.ranks:
         e = res["errors"]
         assert e["world_size"].startswith("ValueError") and \
@@ -470,10 +499,11 @@ def _dp_runs(world, size, arch, tag):
 @pytest.mark.parametrize("arch", ARCHS)
 @pytest.mark.parametrize("size", [2, 4])
 def test_data_parallel_step_matches_the_whole_batch(world, size, arch, ef):
-    """Two steps on a world of ``size`` (4: (pod 2, data 2, model 1); 2:
-    the data axis of one pod) against the single-process step on the
-    whole batch, f32 moments; the replicas of every rank equal bit for
-    bit.  Gradients summed in f32 across ranks differ from the whole
+    """Two steps on a world of ``size`` (4: (pod 2, data 2, model 1) under
+    the default rules, the state sharded over data with pod replicas and
+    gathered whole; 2: the data axis of one pod, the state replicated,
+    ``"fsdp": None``) against the single-process step on the whole batch,
+    f32 moments; the replicas of every rank equal bit for bit.  Gradients summed in f32 across ranks differ from the whole
     batch's in their last bits, so: losses rel LOSS_RTOL; without EF
     every state tensor within PARAM_RTOL of its leaf's max magnitude
     (elementwise, a weight near 0 parts by up to 2.4e-4 of itself); with
@@ -514,7 +544,8 @@ def test_data_parallel_step_matches_the_whole_batch(world, size, arch, ef):
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_data_parallel_step_with_8bit_moments(world, arch):
-    """8-bit moments and EF on a world of 2: losses rel LOSS_RTOL; a
+    """8-bit moments and EF on a world of 2 (the state replicated,
+    ``"fsdp": None``): losses rel LOSS_RTOL; a
     moment code on a rounding boundary may round either way after
     last-bit gradient differences, and where ``v``'s code is 0 AdamW
     divides by eps, so, as ``tests/test_torch_train.py`` does, each
@@ -770,25 +801,23 @@ def test_new_modules_and_the_worker_import_no_jax(world):
         assert res["jax_modules"] == []
 
 
-def test_launcher_trains_on_every_rank_under_torchrun():
+def test_launcher_trains_on_every_rank_under_torchrun(world):
     """``torchrun --standalone --nproc-per-node 2 -m
-    repro_torch.launch.train --smoke --device cpu``: a gloo world of two
-    on a (data 2, model 1) mesh (the rendezvous on a free local port);
-    only rank 0 prints the reference's summary line, and its losses equal
-    a world of one's ``train_loop`` on the same global batches to the 4
-    decimals the line prints."""
+    repro_torch.launch.train --smoke --device cpu`` (started with the
+    world: ``_launcher``): a gloo world of two on a (data 2, model 1)
+    mesh (the rendezvous on a free local port), the state sharded over
+    data; only rank 0 prints the reference's summary line, and its losses
+    equal a world of one's ``train_loop`` on the same global batches to
+    the 4 decimals the line prints."""
     from repro_torch.train.loop import LoopConfig, train_loop
-    env = {**os.environ, "PYTHONPATH": str(REPO / "src"),
-           "OMP_NUM_THREADS": "1"}
-    res = subprocess.run(
-        [sys.executable, "-m", "torch.distributed.run", "--standalone",
-         "--nproc-per-node", "2", "-m", "repro_torch.launch.train",
-         "--smoke", "--device", "cpu", "--steps", "3", "--batch", str(B),
-         "--seq", str(S), "--compress-grads"], cwd=REPO, env=env,
-        capture_output=True, text=True, timeout=300)
-    assert res.returncode == 0, res.stderr[-3000:]
-    lines = [ln for ln in res.stdout.splitlines() if ln.startswith("steps=")]
-    assert len(lines) == 1, res.stdout
+    try:
+        out, err = world.launcher.communicate(timeout=300)
+    except BaseException:
+        world.launcher.kill()
+        raise
+    assert world.launcher.returncode == 0, err[-3000:]
+    lines = [ln for ln in out.splitlines() if ln.startswith("steps=")]
+    assert len(lines) == 1, out
     m = re.fullmatch(r"steps=3 first_loss=(\S+) last_loss=(\S+) "
                      r"stragglers=\d+", lines[0])
     assert m, lines[0]

@@ -346,19 +346,30 @@ def test_meshes_match_reference():
     cfg = configs.get("llama3-8b", smoke=True)
     _, (to, _) = _configs(False, False)
     # a device-free mesh of several devices needs a DeviceMesh, and a
-    # model axis above 1 (tensor parallelism) is not ported
+    # model axis above 1 runs only the dense family's train step
+    # (tensor-parallel, on a DeviceMesh): the prefill and decode steps and
+    # another family's train step raise "not yet ported"
+    moe = configs.get("deepseek-moe-16b", smoke=True)
+    tp = {"data": 1, "model": 2}
     for mesh, err, match in ((tmesh.make_local_mesh(2, 1), ValueError,
                               "DeviceMesh"),
-                             ({"data": 1, "model": 2}, NotImplementedError,
-                              "not yet ported")):
-        for make in (lambda m: steps.make_train_step(cfg, m, to),
+                             (tp, NotImplementedError, "not yet ported")):
+        for make in (lambda m: steps.make_train_step(
+                         cfg if mesh is not tp else moe, m, to),
                      lambda m: steps.make_prefill_step(cfg, m),
                      lambda m: steps.make_decode_step(cfg, m)):
             with pytest.raises(err, match=match):
                 make(mesh)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
+    with pytest.raises(ValueError, match="DeviceMesh"):
+        steps.make_train_step(cfg, tp, to)
+    with pytest.raises(NotImplementedError, match="moe family"):
         train_cli.main(["--smoke", "--steps", "1", "--production-mesh",
-                        "--device", "cpu"])
+                        "--arch", "deepseek-moe-16b", "--device", "cpu"])
+    # the full llama3-8b's 32 / 8 heads split over the model axis of 16;
+    # the launcher then needs a world of 256 ranks
+    with pytest.raises(ValueError, match="256 ranks"):
+        train_cli.main(["--steps", "1", "--production-mesh", "--device",
+                        "cpu"])
     if not torch.cuda.is_available():        # no CPU path behind the caller
         with pytest.raises(RuntimeError, match="is_available"):
             steps.init_train_state(cfg, to)
