@@ -169,9 +169,10 @@ Phases (each fails the run on its own; nothing is caught and ignored):
 26. serve_paged (after 6, on its tree) — llama3-8b at full width on q8
              with an int8 cache on the grid ``calibrate_kv_cache_delta``
              gives, 8 requests (a 128-token system prompt and 24-38 of
-             their own) of 24 tokens over 4 slots of 192, eagerly and from
-             graphs: (a) slot mode, (b) paged in pages of 16 (tokens and
-             logits rows equal (a)'s bit for bit), (c) with prefix sharing
+             their own) of 24 tokens over 4 slots of 192 from graphs, (a)
+             also eagerly ((b)-(d)'s eager runs cut for time): (a) slot
+             mode, (b) paged in pages of 16 (tokens and logits rows
+             equal (a)'s bit for bit), (c) with prefix sharing
              (7 hits, 56 pages, 376 prefill tokens), (d) on a pool of 3
              slots (auto-parks, every parked page restored); a manual park
              and resume (restored pages = parked ones); launches of the
@@ -241,7 +242,21 @@ Phases (each fails the run on its own; nothing is caught and ignored):
              and the loop resumed on the mesh (``restore(mesh=layout)``)
              equal to the mesh-free loop resumed from the same step; the
              prefill step on the mesh launches flash once a layer with the
-             mesh-free prefill's logits.
+             mesh-free prefill's logits;
+33. dryrun (after 29, before 32) — the dry run's account on fake
+             tensors: (a) ``python -m repro_torch.launch.dryrun --arch
+             llama3-8b --shape train_4k --mesh single`` and ``--mesh
+             multi``, two subprocesses at once, each on a fake world of
+             256 / 512 ranks with fake CUDA tensors: exit 0 with nothing
+             allocated on the card, per-rank FLOPs, bytes, collectives by
+             kind, argument and peak bytes, and all ranks' FLOPs within
+             DRYRUN_FLOPS_TOL of ``train_step_bound``'s at 256 x 4096, 32
+             layers, every difference named (``dryrun_named_flops``); (b)
+             meanwhile 29's configuration (2 layers, 8 x 128, 8-bit
+             moments, EF, mesh-free) traced in this process: nothing
+             allocated, FLOPs against the bound likewise, the traced peak
+             within DRYRUN_PEAK_TOL of the peak 29 (a) measured over its
+             step TRAIN_PEAK_STEP (no extra real step).  No kernel runs.
 
 Every phase but 20 runs under the default kernel policy with an empty
 tuning cache (``REPRO_TORCH_KERNEL_TUNE_CACHE`` points at a fresh file
@@ -433,11 +448,25 @@ TRAIN_LAYERS, TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 2, 6, 8, 128
 TRAIN_CKPT_EVERY = 6
 TRAIN_SIGTERM_AT = 3
 TRAIN_PROMPTS, TRAIN_DECODE = 4, 8
+TRAIN_PEAK_STEP = 3          # the step of (a) whose peak memory is read
+#                              alone (the dry run's traced peak is held
+#                              to it)
 TRAIN_CLI_STEPS = 20
 TRAIN_SMOKE_STEPS = 3
 TOL_TRAIN_LOSS = 1e-5
 TOL_TRAIN_PARAM, TRAIN_PART_SHARE, TRAIN_CODE_TOL = 1e-3, 0.005, 2
 TRAIN_DIR = ROOT / "build" / "train"
+# the dry run (launch/dryrun.py): llama3-8b's train_4k cell on fake worlds
+# of 256 and 512 ranks (the production meshes), each ``python -m
+# repro_torch.launch.dryrun`` in a subprocess with fake CUDA tensors, and
+# the train phase's configuration (mesh-free) traced in this process; the
+# traced FLOPs within DRYRUN_FLOPS_TOL of train_step_bound's with every
+# difference named (dryrun_named_flops), the traced peak within
+# DRYRUN_PEAK_TOL of the train phase's measured peak of one step
+DRYRUN_ARCH, DRYRUN_SHAPE = "llama3-8b", "train_4k"
+DRYRUN_FLOPS_TOL = 0.01
+DRYRUN_PEAK_TOL = 0.10
+DRYRUN_TIMEOUT = 300
 # distribution on a one-rank NCCL world (rendezvous: a FileStore under
 # build/): the data-parallel step against the mesh-free one at the train
 # phase's width (DP_STEPS steps each, the same seed and batches); the
@@ -4047,18 +4076,47 @@ def phase_train(device):
         def capture(*args, **kw):
             captured["state"] = init(*args, **kw)
             return captured["state"]
+        step_peak: dict = {}
+        make_step = loop_mod.make_train_step
+
+        def peak_of_one_step(*args, **kw):
+            # the peak of step TRAIN_PEAK_STEP alone (the dry run's traced
+            # peak is held to it); the loop's peak before the reset is
+            # kept and taken with the one after
+            step_fn_, jitted = make_step(*args, **kw)
+
+            def jitted_peak(state, probe):
+                fn, calls = jitted(state, probe), [0]
+
+                def fn_peak(st, b):
+                    calls[0] += 1
+                    if calls[0] != TRAIN_PEAK_STEP:
+                        return fn(st, b)
+                    torch.cuda.synchronize()
+                    step_peak["loop_before"] = \
+                        torch.cuda.max_memory_allocated()
+                    step_peak["start"] = torch.cuda.memory_allocated()
+                    torch.cuda.reset_peak_memory_stats()
+                    res = fn(st, b)
+                    torch.cuda.synchronize()
+                    step_peak["peak"] = torch.cuda.max_memory_allocated()
+                    return res
+                return fn_peak
+            return step_fn_, jitted_peak
         gc.collect()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         clear_reports()
         registry.reset_launch_counts()
         t0 = time.perf_counter()
-        with mock.patch.object(loop_mod, "init_train_state", capture):
+        with mock.patch.object(loop_mod, "init_train_state", capture), \
+                mock.patch.object(loop_mod, "make_train_step",
+                                  peak_of_one_step):
             res_a = loop_mod.train_loop(cfg, None, loop, opt, comp,
                                         device=device)
         torch.cuda.synchronize()
         secs_a = time.perf_counter() - t0
-        peak = torch.cuda.max_memory_allocated()
+        peak = max(step_peak["loop_before"], torch.cuda.max_memory_allocated())
         launches = registry.launch_counts()
         report = registry.dispatch_report()
         check(not report, f"train (a): dispatch report not empty: {report}")
@@ -4076,6 +4134,8 @@ def phase_train(device):
                         1e3 * TRAIN_BATCH * TRAIN_SEQ / ms,
                     "peak_bytes": peak,
                     "peak_bytes_per_param": peak / bound["params"],
+                    "step_peak_bytes": step_peak["peak"],
+                    "step_start_bytes": step_peak["start"],
                     "stragglers": res_a.straggler_steps}
         log(f"[train] (a) llama3-8b full width, {TRAIN_LAYERS} layers "
             f"({bound['params'] / 1e9:.3f} G params, {cfg.param_dtype}), "
@@ -4275,6 +4335,161 @@ def phase_train(device):
                     f"{v['param_part_share']:.4f}, codes within "
                     f"{v['code_max_diff']}" for a, v in out["smoke"].items()))
     out["launches"] = out["c"]["launches"]
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the dry run (launch/dryrun.py, launch/hlo_analysis.py)
+# ---------------------------------------------------------------------------
+
+def dryrun_named_flops(cfg, batch, seq, model_axis: int) -> dict:
+    """What a traced train step's FLOPs (every rank's summed) differ from
+    ``train_step_bound``'s by, each named: ``norms``, the bound counts
+    the stacked (L, d) norm scales as matmul parameters; ``kv_shared``,
+    on a model axis of t above the G key/value heads each rank projects
+    the one head its query heads share, so t heads' ``wk`` and ``wv``
+    products are computed where the whole step has G; ``scan_pad``, the
+    attention scan pads the keys to a multiple of ``attn_kv_block``;
+    ``heads_width``, the bound's attention term takes d where the heads
+    span H x Dh (0 where they are equal)."""
+    from repro_torch.models.transformer import param_specs
+    tokens, layers = batch * seq, cfg.num_layers
+    norms = sum(math.prod(s) for k, (s, _) in param_specs(cfg).items()
+                if len(s) == 2 and k.startswith("layers/"))
+    g, width = cfg.num_kv_heads, cfg.num_heads * cfg.head_dim
+    extra_heads = model_axis - g if model_axis > 1 and g % model_axis \
+        else 0
+    block = cfg.attn_kv_block
+    padded = -(-seq // block) * block
+    return {"norms": -6 * norms * tokens,
+            "kv_shared": 6 * tokens * layers * 2 * cfg.d_model
+            * cfg.head_dim * extra_heads,
+            "scan_pad": 12 * batch * seq * (padded - seq) * width * layers,
+            "heads_width": 12 * batch * seq * seq * (width - cfg.d_model)
+            * layers}
+
+
+def _dryrun_flops(res, cfg, batch, seq, model_axis, what) -> dict:
+    """The traced FLOPs of all ranks against ``train_step_bound``'s plus
+    the named differences, within DRYRUN_FLOPS_TOL."""
+    total = res["flops_per_device"] * res["n_chips"]
+    bound = train_step_bound(cfg, batch, seq)["flops"]
+    named = dryrun_named_flops(cfg, batch, seq, model_axis)
+    want = bound + sum(named.values())
+    rel = abs(total - want) / want
+    check(rel <= DRYRUN_FLOPS_TOL, f"dryrun {what}: traced FLOPs {total:.6e} "
+          f"(x {res['n_chips']} ranks) against the bound's {bound:.6e} + "
+          f"named {named} = {want:.6e}: rel {rel:.2e}")
+    return {"traced": total, "bound": bound, "named": named,
+            "expected": want, "rel": rel, "raw_ratio": total / bound}
+
+
+def phase_dryrun(device, train):
+    """(a) ``python -m repro_torch.launch.dryrun --arch llama3-8b --shape
+    train_4k --mesh single`` and ``--mesh multi`` in two subprocesses at
+    once (fake worlds of 256 and 512 ranks, fake CUDA tensors): each
+    exits 0 with nothing allocated on the card; per-rank FLOPs, bytes,
+    collectives by kind, argument and peak bytes; all ranks' FLOPs
+    against ``train_step_bound`` at 32 layers and 256 x 4096.  (b) While
+    they run, the train phase's configuration (``TRAIN_LAYERS`` layers,
+    8-bit moments and EF, ``TRAIN_BATCH`` x ``TRAIN_SEQ``, mesh-free)
+    traced here: nothing allocated, its FLOPs against the bound, its peak
+    against the peak the train phase measured over step
+    ``TRAIN_PEAK_STEP``.  No kernel is launched (training launches none);
+    the ``kernels`` line is unchanged."""
+    import os
+
+    import torch
+    from repro_torch import configs
+    from repro_torch.distributed.compress import CompressionConfig
+    from repro_torch.launch import dryrun
+    from repro_torch.optim.adamw import AdamWConfig
+
+    env = {**os.environ, "PYTHONPATH": str(SRC)}
+    procs, paths = {}, {}
+    for kind in ("single", "multi"):
+        paths[kind] = Path(dryrun.cell_path(DRYRUN_ARCH, DRYRUN_SHAPE, kind))
+        paths[kind].unlink(missing_ok=True)
+        procs[kind] = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             DRYRUN_ARCH, "--shape", DRYRUN_SHAPE, "--mesh", kind],
+            cwd=ROOT, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)
+    out: dict = {}
+    try:
+        # (b) the train phase's configuration, mesh-free
+        cfg = configs.get(DRYRUN_ARCH).replace(num_layers=TRAIN_LAYERS)
+        inputs = {k: torch.empty((TRAIN_BATCH, TRAIN_SEQ),
+                                 dtype=torch.int32, device="meta")
+                  for k in ("tokens", "labels")}
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        trace = dryrun.trace_train(cfg, AdamWConfig(quantized_moments=True),
+                                   CompressionConfig(enabled=True), inputs,
+                                   device=device)
+        secs = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        after = torch.cuda.memory_allocated()
+        check(after == before, f"dryrun (b): the trace allocated "
+              f"{after - before} bytes on the card")
+        res = dryrun.analyze(trace, 1)
+        del trace
+        flops = _dryrun_flops(res, cfg, TRAIN_BATCH, TRAIN_SEQ, 1,
+                              "(b) the train configuration")
+        measured = train["a"]["step_peak_bytes"]
+        peak = res["memory"]["peak_bytes"]
+        rel = abs(peak - measured) / measured
+        check(rel <= DRYRUN_PEAK_TOL, f"dryrun (b): traced peak "
+              f"{peak / 2**30:.3f} GiB against the train phase's measured "
+              f"{measured / 2**30:.3f} GiB (rel {rel:.3f})")
+        out["b"] = {**res, "flops": flops, "trace_s": secs,
+                    "measured_peak_bytes": measured,
+                    "measured_start_bytes": train["a"]["step_start_bytes"],
+                    "peak_rel": rel}
+        mem = res["memory"]
+        log(f"[dryrun] (b) llama3-8b {TRAIN_LAYERS} layers, {TRAIN_BATCH} x "
+            f"{TRAIN_SEQ}, 8-bit moments + EF, mesh-free, traced in "
+            f"{secs:.1f} s: FLOPs {flops['traced']:.6e} = bound "
+            f"{flops['bound']:.6e} + named {flops['named']} within "
+            f"{flops['rel']:.2e}; peak {peak / 2**30:.3f} GiB against "
+            f"{measured / 2**30:.3f} measured over step {TRAIN_PEAK_STEP} "
+            f"(rel {rel:.3f}; the step began with "
+            f"{train['a']['step_start_bytes'] / 2**30:.3f} GiB allocated, "
+            f"the trace's arguments {mem['argument_bytes'] / 2**30:.3f}); "
+            f"by range " + ", ".join(
+                f"{k} {v['flops']:.3e} FLOPs {v['bytes'] / 1e9:.2f} GB"
+                for k, v in res["per_comp"].items()))
+    finally:
+        texts = {}
+        for kind, p in procs.items():
+            try:
+                texts[kind] = p.communicate(timeout=DRYRUN_TIMEOUT)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                texts[kind] = p.communicate()
+
+    # (a) the production cells
+    cfg = configs.get(DRYRUN_ARCH)
+    seq, batch, _ = configs.SHAPES[DRYRUN_SHAPE]
+    for kind, p in procs.items():
+        stdout, stderr = texts[kind]
+        check(p.returncode == 0, f"dryrun (a) {kind}: exit {p.returncode}: "
+              f"{stdout[-1500:]}{stderr[-2500:]}")
+        res = json.loads(paths[kind].read_text())
+        check(res["device_allocated_bytes"] == 0,
+              f"dryrun (a) {kind}: {res['device_allocated_bytes']} bytes "
+              "allocated on the card")
+        flops = _dryrun_flops(res, cfg, batch, seq, 16, f"(a) {kind}")
+        out[kind] = {**res, "flops": flops}
+        log(f"[dryrun] (a) {DRYRUN_ARCH} {DRYRUN_SHAPE} on the fake "
+            f"{res['n_chips']}-rank world: {dryrun.summary(res)}; all ranks' "
+            f"FLOPs {flops['traced']:.6e} = bound {flops['bound']:.6e} "
+            f"(x{flops['raw_ratio']:.4f}) + named {flops['named']} within "
+            f"{flops['rel']:.2e}; by range " + ", ".join(
+                f"{k} {v['flops']:.3e} FLOPs {v['bytes'] / 1e9:.2f} GB "
+                f"{v['collective_bytes'] / 1e9:.3f} GB coll"
+                for k, v in res["per_comp"].items()))
     return out
 
 
@@ -5250,14 +5465,16 @@ def phase_serve_paged(cfg, params, device):
     int8 cache on the grid ``calibrate_kv_cache_delta`` maps the first
     prompt's cache to: 8 requests of a shared 128-token system prompt and
     24-38 tokens of their own, 24 new tokens each, over 4 slots of 192
-    positions, each run eagerly and from graphs: (a) slot mode, (b) paged
+    positions, each run from graphs and (a) also eagerly (the eager runs
+    of (b)-(d) were cut for time): (a) slot mode, (b) paged
     in pages of 16 without pressure or sharing, (c) paged with prefix
     sharing, (d) paged without sharing on a pool of 3 slots + the scratch
     page (auto-parks); then a manual park and resume of a request in flight
     (paged, graphs).  Checks: (b) gives (a)'s tokens and logits rows bit
     for bit; (c) has 7 prefix hits, 56 reused pages, 376 prefill tokens;
     (d) parks and restores every parked page; the manual restore equals the
-    parked pages byte for byte; graph and eager tokens and launches equal;
+    parked pages byte for byte; (a)'s graph and eager tokens and launches
+    equal;
     no shape captured twice, decode replays after a park; launches equal
     225 per forward and 32 flash launches per whole-prompt prefill; the
     dispatch report empty but for (c)'s suffix prefills' ragged-kv_len
@@ -5290,19 +5507,24 @@ def phase_serve_paged(cfg, params, device):
               "ragged kv_len masking is not implemented in the kernel")
     out = {"kv_cache_delta": delta, "prompt_lens": [p.size for p in prompts]}
     for name, scfg in configs_.items():
+        # (b)-(d) run from graphs only (a cut for time): (a)'s eager run
+        # holds the graphs' tokens and launches to the eager step's
+        modes = ("eager", "graph") if name == "a_slots" else ("graph",)
         runs = {m: _drive(qcfg, tree, backend, device, prompts, PAGED_NEW,
-                          scfg, m) for m in ("eager", "graph")}
-        e, g = runs["eager"], runs["graph"]
-        # the eager tick's idle share against the same decode's graph
-        # replay (the device work is the same kernels)
-        e["untraced_idle_share"] = 1.0 - (g["decode_replay_ms"] /
-                                          e["decode_ms_per_step_median"])
+                          scfg, m) for m in modes}
+        e, g = runs.get("eager"), runs["graph"]
         what = f"serve_paged {name}"
-        check(e["tokens"] == g["tokens"], f"{what}: graph and eager tokens "
-              "differ")
-        check(e["launches"] == g["launches"], f"{what}: launches differ "
-              f"between the modes: {e['launches']} {g['launches']}")
-        check(g["finite"] and e["finite"], f"{what}: non-finite logits")
+        if e is not None:
+            # the eager tick's idle share against the same decode's graph
+            # replay (the device work is the same kernels)
+            e["untraced_idle_share"] = 1.0 - (
+                g["decode_replay_ms"] / e["decode_ms_per_step_median"])
+            check(e["tokens"] == g["tokens"], f"{what}: graph and eager "
+                  "tokens differ")
+            check(e["launches"] == g["launches"], f"{what}: launches differ "
+                  f"between the modes: {e['launches']} {g['launches']}")
+        check(all(r["finite"] for r in runs.values()),
+              f"{what}: non-finite logits")
         rep = g["kv_report"]
         hits = rep.get("stats", {}).get("prefix_hits", 0)
         fwd = len(prompts) + g["decode_steps"]
@@ -5334,9 +5556,11 @@ def phase_serve_paged(cfg, params, device):
         log(f"[serve_paged] {name}: kv_report " + json.dumps(
             {k: v for k, v in rep.items() if k != "scheduler"}) +
             f" scheduler {rep['scheduler']}")
-        e.pop("rows")
         out[name] = {**{k: v for k, v in g.items() if k != "rows"},
-                     "rows": g["rows"], "eager": e}
+                     "rows": g["rows"]}
+        if e is not None:
+            e.pop("rows")
+            out[name]["eager"] = e
     a, b = out["a_slots"], out["b_paged"]
     check(b["tokens"] == a["tokens"], "serve_paged: (b) paged tokens differ "
           "from (a) slot mode's: " + str(_partings(a["tokens"], b["tokens"],
@@ -5482,8 +5706,8 @@ def summarize(dm_rows, fa_rows, grouped_rows, serve, serve_moe, rd_rows,
     ``serve_hybrid_f32`` (6 layers); dequant_matmul's launches of
     ``serve_ssm`` (the head only) and ``serve_hybrid``.  The paged
     serves: dequant_matmul's and flash_attention's launches of each run
-    of ``serve_paged`` (llama3-8b, graph run; the eager run's are checked
-    equal) and dequant_matmul's and the E = 256 grouped instance's of
+    of ``serve_paged`` (llama3-8b, graph run; (a)'s eager run's are
+    checked equal) and dequant_matmul's and the E = 256 grouped instance's of
     ``serve_mla_paged``.  The training phase's prefill step (``train``, 2
     layers) launches the bf16 flash instance: ``train_launches``; so do
     the data-parallel prefill step on the NCCL mesh (``train_dp``, 2
@@ -5766,6 +5990,8 @@ def main() -> int:
     run("variational", phase_variational, device)
     free()
     run("train", phase_train, device)
+    free()
+    run("dryrun", phase_dryrun, device, results["train"])
     free()
     run("train_dp", phase_train_dp, device)
     free()

@@ -1,7 +1,8 @@
 """Architecture registry of the port: ``get(name, smoke=)``, every
 architecture the reference registers, in its order.
 ``get_config`` / ``get_smoke_config`` are the reference's thin
-wrappers."""
+wrappers; ``SHAPES`` and ``shapes_for`` are its cells' shapes (the dry
+run's, ``launch.dryrun``)."""
 
 from __future__ import annotations
 
@@ -20,6 +21,25 @@ ARCH_IDS = [
 _NOT_YET_PORTED: list = []
 
 _MOD = {a: a.replace("-", "_").replace(".", "_") for a in ARCH_IDS}
+
+# (seq_len, global_batch, kind);  kind: train | prefill | decode
+SHAPES = {
+    "train_4k": (4096, 256, "train"),
+    "prefill_32k": (32768, 32, "prefill"),
+    "decode_32k": (32768, 128, "decode"),
+    "long_500k": (524288, 1, "decode"),
+}
+
+# long_500k needs sub-quadratic attention: only the SSM/hybrid archs run
+# it; pure full-attention archs skip.
+LONG_CTX_ARCHS = {"mamba2-2.7b", "zamba2-2.7b"}
+
+
+def shapes_for(arch: str) -> list[str]:
+    out = ["train_4k", "prefill_32k", "decode_32k"]
+    if arch in LONG_CTX_ARCHS:
+        out.append("long_500k")
+    return out
 
 
 def names() -> list[str]:

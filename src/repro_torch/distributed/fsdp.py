@@ -117,26 +117,30 @@ class _GatherLeaf(torch.autograd.Function):
     minor axis of a dim first).  Backward: the gradient in f32,
     reduce-scattered back over the same axes, all-reduced over ``sums``,
     divided by ``div`` (the batch group's size) and cast to the box's
-    dtype."""
+    dtype.  The two run in ``torch.profiler.record_function`` ranges
+    ``fsdp/gather`` and ``fsdp/reduce``."""
 
     @staticmethod
     def forward(ctx, box, gathers, sums, div):
         ctx.gathers, ctx.sums, ctx.div = gathers, sums, div
         ctx.dtype = box.dtype
         t = box
-        for dim, group, n in gathers:
-            t = all_gather_dim(t, dim, group, n)
+        with torch.profiler.record_function("fsdp/gather"):
+            for dim, group, n in gathers:
+                t = all_gather_dim(t, dim, group, n)
         return t if gathers else box.view_as(box)
 
     @staticmethod
     def backward(ctx, grad):
-        g = grad.to(torch.float32, copy=True)
-        for dim, group, n in reversed(ctx.gathers):
-            g = reduce_scatter_dim(g, dim, group, n)
-        for group in ctx.sums:
-            dist.all_reduce(g, group=group)
-        g = g / torch.tensor(float(ctx.div), dtype=g.dtype, device=g.device)
-        return g.to(ctx.dtype), None, None, None
+        with torch.profiler.record_function("fsdp/reduce"):
+            g = grad.to(torch.float32, copy=True)
+            for dim, group, n in reversed(ctx.gathers):
+                g = reduce_scatter_dim(g, dim, group, n)
+            for group in ctx.sums:
+                dist.all_reduce(g, group=group)
+            g = g / torch.tensor(float(ctx.div), dtype=g.dtype,
+                                 device=g.device)
+            return g.to(ctx.dtype), None, None, None
 
 
 class BoxQ8:

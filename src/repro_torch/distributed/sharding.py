@@ -335,8 +335,10 @@ def leaf_box(shape, spec, mesh) -> LeafBox:
 
 def check_mesh(mesh, device) -> None:
     """Raise unless ``mesh`` (a ``DeviceMesh``) can hold tensors of
-    ``device``: the same device type, and a CUDA mesh's groups on NCCL.
-    Nothing falls back to another device or backend."""
+    ``device``: the same device type, and a CUDA mesh's groups on NCCL,
+    or on the ``fake`` backend, which moves no data and which only the
+    dry run (``launch.dryrun.fake_world``) starts.  Nothing falls back to
+    another device or backend."""
     import torch
     import torch.distributed as dist
     dev = torch.device(device)
@@ -345,7 +347,7 @@ def check_mesh(mesh, device) -> None:
                          f"tensors are on {dev.type!r}")
     if dev.type == "cuda":
         for g in mesh.get_all_groups():
-            if dist.get_backend(g) != "nccl":
+            if dist.get_backend(g) not in ("nccl", "fake"):
                 raise ValueError(
                     f"a CUDA mesh needs NCCL process groups, got "
                     f"{dist.get_backend(g)!r}")

@@ -31,7 +31,8 @@ import math
 import torch
 
 from .. import _build
-from ..registry import Impl, OpSpec, count_launch, register_op
+from ..registry import (Impl, OpSpec, count_launch, refuse_traced,
+                        register_op)
 from ..tune import pow2_bucket
 from .ref import dequant_matmul_grouped_ref, dequant_matmul_ref
 
@@ -143,6 +144,7 @@ def dequant_matmul_cuda(x2: torch.Tensor, w_q: torch.Tensor,
     ``kc`` / ``bm`` are the launch's knobs (default :func:`schedule`'s);
     bm <= DECODE_MAX_M runs the decode instance.  Knobs the launch does
     not take raise."""
+    refuse_traced("dequant_matmul", x2, w_q, scale)
     m, k = x2.shape
     if w_q.dim() != 2 or w_q.shape[0] != k:
         raise ValueError(f"dequant_matmul: w_q {tuple(w_q.shape)} does not "
@@ -179,6 +181,7 @@ def dequant_matmul(x: torch.Tensor, w_q: torch.Tensor,
     x (..., K) f32|bf16, w_q (K, N) int8 levels, scale (N,) per-channel
     Delta -> (..., N) f32.  ``kc`` / ``bm``: the kernel's launch knobs
     (see :func:`dequant_matmul_cuda`); the plain version has none."""
+    refuse_traced("dequant_matmul", x, w_q, scale)
     lead = tuple(x.shape[:-1])
     k = x.shape[-1]
     m = math.prod(lead)
@@ -195,6 +198,7 @@ def dequant_matmul_grouped_cuda(x: torch.Tensor, w_q: torch.Tensor,
                                 scale: torch.Tensor) -> torch.Tensor:
     """Launch the grouped CUDA kernel; checks what it takes.  A (N,) scale
     goes to the kernel as an expert stride of 0 (no (E, N) copy)."""
+    refuse_traced("dequant_matmul_grouped", x, w_q, scale)
     if x.dim() != 3 or w_q.dim() != 3 or w_q.shape[0] != x.shape[0] or \
             w_q.shape[1] != x.shape[2]:
         raise ValueError(f"dequant_matmul_grouped: x {tuple(x.shape)} and "
@@ -236,6 +240,7 @@ def dequant_matmul_grouped(x: torch.Tensor, w_q: torch.Tensor,
     x (E, M, K) f32|bf16, w_q (E, K, N) int8 levels, scale (E, N) f32 or
     (N,) (one per-channel Delta shared by the layer's experts) -> (E, M, N)
     f32."""
+    refuse_traced("dequant_matmul_grouped", x, w_q, scale)
     if x.is_cuda:
         return dequant_matmul_grouped_cuda(x, w_q, scale)
     return dequant_matmul_grouped_ref(x, w_q, scale)

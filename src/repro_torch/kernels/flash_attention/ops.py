@@ -38,7 +38,8 @@ import ctypes
 import torch
 
 from .. import _build
-from ..registry import Impl, OpSpec, count_launch, register_op
+from ..registry import (Impl, OpSpec, count_launch, refuse_traced,
+                        register_op)
 from ..tune import pow2_bucket
 from .ref import flash_attention_ref
 from .scan import naive_attend, online_softmax_scan
@@ -79,6 +80,7 @@ def _wants_grad(q, k, v) -> bool:
 
 
 def _flash_cuda(q, k, v):
+    refuse_traced("flash_attention", q, k, v)
     if _wants_grad(q, k, v):
         raise RuntimeError(
             "flash_attention: the kernel has no backward, and an input "
@@ -118,6 +120,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor,
                     v: torch.Tensor) -> torch.Tensor:
     """Causal attention, q (B, Sq, H, D); k, v (B, Skv, G, D) with G | H
     -> (B, Sq, H, D) in q's dtype.  Query i sees keys j <= i + Skv - Sq."""
+    refuse_traced("flash_attention", q, k, v)
     if q.is_cuda:
         return _flash_cuda(q, k, v)
     b, sq, h, d = q.shape

@@ -19,7 +19,8 @@ import torch
 
 from ...core.rate_model import BinProbs
 from .. import _build
-from ..registry import Impl, OpSpec, count_launch, register_op
+from ..registry import (Impl, OpSpec, count_launch, refuse_traced,
+                        register_op)
 from ..tune import pow2_bucket
 from .coeffs import pack_coeffs
 from .ref import rd_quant_ref
@@ -50,6 +51,7 @@ def rd_quant_cuda(w: torch.Tensor, fisher: torch.Tensor | None,
                   passes: int, blocks_per_sm: int = BLOCKS_PER_SM
                   ) -> torch.Tensor:
     """``passes`` kernel launches over flat CUDA ``w``; flat int32 out."""
+    refuse_traced("rd_quant", w, fisher)
     if not w.is_cuda:
         raise ValueError(f"rd_quant: the CUDA kernel takes CUDA tensors; "
                          f"w is on {w.device}")
@@ -112,6 +114,7 @@ def rd_quant(w: torch.Tensor, fisher: torch.Tensor | None, probs: BinProbs,
     """RD-quantize a tensor of any shape on its device; int32 levels.
     ``blocks_per_sm``: the kernel's grid cap (the plain version has no
     grid)."""
+    refuse_traced("rd_quant", w, fisher)
     if not w.is_cuda:
         return rd_quant_plain(w, fisher, probs, step=step, lam=lam,
                               window=window, max_level=max_level,

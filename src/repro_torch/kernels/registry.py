@@ -47,6 +47,7 @@ from dataclasses import dataclass, field
 from typing import Callable
 
 import torch
+from torch._subclasses.fake_tensor import is_fake
 
 
 class KernelDispatchError(RuntimeError):
@@ -220,6 +221,18 @@ LAUNCHES: dict[str, int] = {"dequant_matmul": 0,
 
 def count_launch(name: str) -> None:
     LAUNCHES[name] += 1
+
+
+def refuse_traced(name: str, *tensors) -> None:
+    """Raise ``NotImplementedError`` when a fake or meta tensor reaches
+    kernel ``name``'s wrapper (the dry run's trace, ``launch.dryrun``):
+    the kernel must not launch on data that is not there, and its plain
+    version's step-by-step arithmetic is not the kernel's cost."""
+    for t in tensors:
+        if isinstance(t, torch.Tensor) and (t.is_meta or is_fake(t)):
+            raise NotImplementedError(
+                f"{name}: the dry run does not account kernel {name} yet "
+                "(a fake or meta tensor reached its wrapper)")
 
 
 def launch_counts() -> dict[str, int]:

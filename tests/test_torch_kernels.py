@@ -246,7 +246,8 @@ def test_port_imports_no_jax_and_nothing_of_repro():
         "import chip_smoke\n"
         "for m in ('train.loop', 'train.steps', 'optim.schedule', "
         "'distributed.compress', 'launch.train', 'launch.mesh', "
-        "'distributed.fsdp', 'distributed.tensor_parallel'):\n"
+        "'distributed.fsdp', 'distributed.tensor_parallel', "
+        "'launch.dryrun', 'launch.hlo_analysis'):\n"
         "    assert 'repro_torch.' + m in sys.modules, m\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith(('jax.', 'jaxlib', 'repro.')) or m == 'repro')\n"
